@@ -1,0 +1,8 @@
+"""PyTorch/CUDA port of the text-aware image restoration system.
+
+Sub-packages and modules carry the names of their counterparts in the JAX
+package, so ``tair_tpu_torch/ops/flash_attention.py`` is the port of
+``tair_tpu/ops/flash_attention.py``. The port imports torch and numpy only.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,141 @@
+"""Shared neural-net building blocks.
+
+Counterpart of ``tair_tpu/models/layers.py``. Inside the port's modules,
+feature maps are NCHW tensors (PyTorch's convolution layout); the public
+functions of the models take and return NHWC like the JAX package and permute
+at their boundary. Parameter names follow the JAX parameter tree
+(``in_conv``, ``res.in_norm``, ...), so ``weights/convert.py`` maps a JAX tree
+onto a ``state_dict`` by rule. Normalisation is computed in float32 whatever
+the working type and cast back.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def timestep_embedding(
+    timesteps: torch.Tensor, dim: int, max_period: float = 10000.0
+) -> torch.Tensor:
+    """Sinusoidal timestep embedding, [cos | sin] ordering; [N] -> [N, dim] float32."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=timesteps.device)
+        / half
+    )
+    args = timesteps.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+def group_count(channels: int, num_groups: int = 32) -> int:
+    """Production channel counts are multiples of 32; tiny configurations fall
+    back to fewer groups rather than failing."""
+    groups = num_groups
+    while channels % groups != 0:
+        groups //= 2
+    return groups
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm over NCHW, always computed in float32, cast back to the input type."""
+
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
+        super().__init__()
+        self.groups = group_count(channels, num_groups)
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(
+            x.float(), self.groups, self.weight.float(), self.bias.float(), self.eps
+        )
+        return y.to(x.dtype)
+
+
+class LayerNorm32(nn.Module):
+    """LayerNorm over the last axis in float32; returns float32 (callers cast)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.dim = dim
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(
+            x.float(), (self.dim,), self.weight.float(), self.bias.float(), self.eps
+        )
+
+
+def conv3x3(in_ch: int, out_ch: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(in_ch, out_ch, 3, stride=stride, padding=1)
+
+
+def conv1x1(in_ch: int, out_ch: int) -> nn.Conv2d:
+    return nn.Conv2d(in_ch, out_ch, 1)
+
+
+def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x spatial upsample of an NCHW tensor."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+class MultiHeadAttention(nn.Module):
+    """Plain multi-head attention with separate query/key/value/out projections
+    and an optional boolean mask (True = attend); softmax in float32. Serves
+    the CLIP text tower and the spotter decoder, whose attention the JAX
+    package leaves to the compiler as well."""
+
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.query = nn.Linear(dim, dim)
+        self.key = nn.Linear(dim, dim)
+        self.value = nn.Linear(dim, dim)
+        self.out = nn.Linear(dim, dim)
+
+    def forward(self, q_in, k_in, v_in, mask=None):
+        b, tq, c = q_in.shape
+        tk = k_in.shape[1]
+        d = c // self.heads
+        q = self.query(q_in).reshape(b, tq, self.heads, d)
+        k = self.key(k_in).reshape(b, tk, self.heads, d)
+        v = self.value(v_in).reshape(b, tk, self.heads, d)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(d)
+        if mask is not None:
+            logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+        weights = torch.softmax(logits, dim=-1).to(v.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, tq, c)
+        return self.out(out)
+
+
+class TimestepEmbedder(nn.Module):
+    """Two-layer SiLU MLP over the sinusoidal embedding."""
+
+    def __init__(self, model_channels: int):
+        super().__init__()
+        self.model_channels = model_channels
+        self.fc1 = nn.Linear(model_channels, model_channels * 4)
+        self.fc2 = nn.Linear(model_channels * 4, model_channels * 4)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        emb = timestep_embedding(t, self.model_channels).to(self.fc1.weight.dtype)
+        return self.fc2(F.silu(self.fc1(emb)))

@@ -1,0 +1,94 @@
+"""Builds the package's CUDA sources with nvcc and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared library
+under ``build/kernels/`` at the root of the checkout, compiled for sm_90a at
+first use. The library's file name carries a hash of the sources, so an edited
+source is rebuilt and a stale library is never loaded. Nothing here runs when
+the module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+KERNEL_SOURCES = ("flash_attention", "msda_reduce")
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    return Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is not None:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha1()
+    for src in sorted(CSRC.iterdir()):
+        if src.name == f"{name}.cu" or src.suffix == ".cuh":
+            digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}_{digest.hexdigest()[:12]}.so"
+
+
+def build_all(names: Iterable[str] = KERNEL_SOURCES) -> List[Path]:
+    """Compile every missing library, one nvcc process per source, all started
+    together. Returns the libraries' paths."""
+    paths = {n: _library_path(n) for n in names}
+    running = []
+    for name, out in paths.items():
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        running.append((name, proc, tmp, out))
+    failures = []
+    for name, proc, tmp, out in running:  # wait for all, so none outlives us
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)  # a reader never sees a half-written library
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return list(paths.values())
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        (path,) = build_all([name])
+        lib = ctypes.CDLL(str(path))
+        _LIBS[name] = lib
+    return lib

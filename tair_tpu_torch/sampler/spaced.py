@@ -1,0 +1,91 @@
+"""Spaced DDPM ancestral sampler (the sampler the restore loop uses).
+
+Counterpart of ``tair_tpu/sampler/spaced.py``: ``make_schedule``,
+``predict_x0``, ``q_posterior``, ``p_sample``. The step index is a Python int,
+so the schedule coefficients are float32 scalars read on the host and no step
+touches the device for them. ``p_sample`` takes the step's noise as an
+argument, or draws it from a ``torch.Generator``, where the JAX function takes
+a key.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..diffusion.schedules import SpacedSchedule
+from .base import SamplerBase
+
+ModelFn = Callable  # (x, model_t, cond) -> (model_output, feats_tuple)
+
+
+def _coef(buf: np.ndarray, idx: int) -> float:
+    return float(np.float32(buf[idx]))
+
+
+@dataclass(frozen=True)
+class SpacedSampler(SamplerBase):
+    def make_schedule(self, num_steps: int) -> SpacedSchedule:
+        return SpacedSchedule.create(self.training_betas, num_steps)
+
+    def predict_x0(self, sp: SpacedSchedule, x, t_idx: int, model_output):
+        if self.parameterization == "v":
+            return (
+                _coef(sp.sqrt_alphas_cumprod, t_idx) * x
+                - _coef(sp.sqrt_one_minus_alphas_cumprod, t_idx) * model_output
+            )
+        return (
+            _coef(sp.sqrt_recip_alphas_cumprod, t_idx) * x
+            - _coef(sp.sqrt_recipm1_alphas_cumprod, t_idx) * model_output
+        )
+
+    def q_posterior(self, sp: SpacedSchedule, x0, x_t, t_idx: int):
+        mean = (
+            _coef(sp.posterior_mean_coef1, t_idx) * x0
+            + _coef(sp.posterior_mean_coef2, t_idx) * x_t
+        )
+        return mean, _coef(sp.posterior_variance, t_idx)
+
+    def apply_model(self, model_fn: ModelFn, x, model_t, cond, uncond=None,
+                    cfg_scale: float = 1.0):
+        # at scale 1.0 classifier-free mixing returns the conditional branch exactly
+        if uncond is not None and float(cfg_scale) != 1.0:
+            raise NotImplementedError(
+                "classifier-free guidance (cfg_scale != 1.0) is not part of "
+                "this slice of the port"
+            )
+        return model_fn(x, model_t, cond)
+
+    def p_sample(
+        self,
+        model_fn: ModelFn,
+        sp: SpacedSchedule,
+        x: torch.Tensor,
+        step_idx: int,  # index into the spaced schedule
+        cond,
+        uncond=None,
+        cfg_scale: float = 1.0,
+        noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """One ancestral step x_i -> x_{i-1}; returns (x_prev, feats)."""
+        bs = x.shape[0]
+        model_t = torch.full(
+            (bs,), int(sp.timesteps[step_idx]), dtype=torch.int32, device=x.device
+        )
+        model_output, feats = self.apply_model(
+            model_fn, x, model_t, cond, uncond, cfg_scale
+        )
+        x0 = self.predict_x0(sp, x, step_idx, model_output.float())
+        mean, var = self.q_posterior(sp, x0, x, step_idx)
+        if step_idx == 0:
+            return mean.to(x.dtype), feats
+        if noise is None:
+            noise = torch.randn(
+                x.shape, dtype=torch.float32, device=x.device, generator=generator
+            )
+        x_prev = mean + float(np.sqrt(np.float32(var))) * noise
+        return x_prev.to(x.dtype), feats

@@ -1,0 +1,113 @@
+"""The port stands alone: importing it pulls in neither jax, flax nor the JAX
+package, and its entry points ask for a CUDA device unless told otherwise."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+MODULES = [
+    "tair_tpu_torch",
+    "tair_tpu_torch.pipeline",
+    "tair_tpu_torch.ops.attention",
+    "tair_tpu_torch.ops.flash_attention",
+    "tair_tpu_torch.ops.msda_reduce",
+    "tair_tpu_torch.ops._build",
+    "tair_tpu_torch.diffusion.schedules",
+    "tair_tpu_torch.sampler.spaced",
+    "tair_tpu_torch.models.layers",
+    "tair_tpu_torch.models.attention",
+    "tair_tpu_torch.models.unet",
+    "tair_tpu_torch.models.vae",
+    "tair_tpu_torch.models.clip",
+    "tair_tpu_torch.models.swinir",
+    "tair_tpu_torch.models.cldm",
+    "tair_tpu_torch.models.prompt_splice",
+    "tair_tpu_torch.spotter.charset",
+    "tair_tpu_torch.spotter.ms_deform_attn",
+    "tair_tpu_torch.spotter.transformer",
+    "tair_tpu_torch.spotter.testr",
+    "tair_tpu_torch.weights.convert",
+]
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        [sys.executable, "-c", textwrap.dedent(code)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+
+
+def test_port_imports_no_jax_flax_or_jax_package():
+    proc = _run(
+        f"""
+        import importlib, sys
+        for name in {MODULES!r}:
+            importlib.import_module(name)
+        bad = sorted(
+            m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "flax", "tair_tpu")
+        )
+        assert not bad, bad
+        print("clean", len({MODULES!r}))
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["clean", str(len(MODULES))]
+
+
+def test_sources_do_not_name_jax_imports():
+    offenders = []
+    files = list((ROOT / "tair_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for path in files:
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")) and any(
+                tok in s.split()[1].split(".")[0] for tok in ("jax", "flax")
+            ) or s.startswith(("import tair_tpu ", "from tair_tpu ", "from tair_tpu.", "import tair_tpu.")):
+                offenders.append(f"{path.name}: {s}")
+    assert not offenders, offenders
+
+
+@pytest.mark.parametrize("entry_point", ["build_default_model", "build_tiny_model"])
+def test_entry_points_default_to_cuda_and_raise_without_it(entry_point):
+    import torch
+
+    from tair_tpu_torch import pipeline
+
+    if torch.cuda.is_available():  # decided inside the test, never at import
+        pytest.skip("a CUDA device is present: the default device works here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(pipeline, entry_point)()
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_kernel_wrappers_do_not_build_on_import():
+    proc = _run(
+        """
+        import tair_tpu_torch.ops.flash_attention, tair_tpu_torch.ops.msda_reduce
+        from tair_tpu_torch.ops import _build
+        assert not _build._LIBS
+        assert {p.name for p in _build.CSRC.glob("*.cu")} == {
+            "flash_attention.cu", "msda_reduce.cu"}
+        print("ok")
+        """
+    )
+    assert proc.returncode == 0, proc.stderr

@@ -1,0 +1,109 @@
+"""Port's MSDeformAttn (flatlanes core + corner reduce) against the JAX module
+with the Pallas reduce in interpret mode, and against the four-gather oracle,
+with sampling points pushed outside [0, 1] so the zero-padding border logic
+and the clamped patch start are exercised."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tair_tpu.spotter.ms_deform_attn import MSDeformAttn as JaxMSDA
+from tair_tpu.spotter.ms_deform_attn import ms_deform_attn_core as jax_core
+from tair_tpu_torch.spotter.ms_deform_attn import (
+    MSDeformAttn,
+    ms_deform_attn_core,
+    ms_deform_attn_core_flatlanes,
+    patchify_value,
+)
+from test_torch_common import jax_shapes, load_module, noise_params, torch_single_thread  # noqa: F401
+
+TOL = 1e-4  # float32; gathers are exact, sums differ in order
+SHAPES = ((6, 5), (3, 4), (2, 2), (1, 3))
+S = sum(h * w for h, w in SHAPES)
+D_MODEL, HEADS, POINTS = 32, 4, 2
+
+
+def _pair(seed=0):
+    jm = JaxMSDA(
+        d_model=D_MODEL, n_levels=len(SHAPES), n_heads=HEADS, n_points=POINTS,
+        core="flatlanes", reduce_mode="pallas_interpret",
+    )
+    shapes = jax_shapes(
+        lambda key, *args: jm.init(key, *args, SHAPES),
+        jnp.zeros((1, 3, D_MODEL)), jnp.zeros((1, 3, len(SHAPES), 2)),
+        jnp.zeros((1, S, D_MODEL)),
+    )["params"]
+    params = noise_params(shapes, seed)
+    # large offsets: many sample points land outside the maps
+    params["sampling_offsets"]["bias"] = (
+        3.0 * np.random.default_rng(seed + 1).standard_normal(
+            params["sampling_offsets"]["bias"].shape
+        ).astype(np.float32)
+    )
+    tm = load_module(MSDeformAttn(D_MODEL, len(SHAPES), HEADS, POINTS), params)
+    return jm, params, tm
+
+
+@pytest.mark.parametrize("ref_dim", [2, 4])
+def test_module_matches_jax_flatlanes_pallas_interpret(ref_dim):
+    jm, params, tm = _pair()
+    rng = np.random.default_rng(3)
+    b, q = 2, 23
+    query = rng.standard_normal((b, q, D_MODEL), dtype=np.float32)
+    value = rng.standard_normal((b, S, D_MODEL), dtype=np.float32)
+    ref = rng.uniform(-0.2, 1.2, (b, q, len(SHAPES), ref_dim)).astype(np.float32)
+    if ref_dim == 4:
+        ref[..., 2:] = rng.uniform(0.1, 1.5, ref[..., 2:].shape)
+    want = jm.apply(
+        {"params": params}, jnp.asarray(query), jnp.asarray(ref), jnp.asarray(value), SHAPES
+    )
+    with torch.no_grad():
+        got = tm(torch.from_numpy(query), torch.from_numpy(ref), torch.from_numpy(value), SHAPES)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
+
+
+def _lane_pack(loc, attn):
+    # [B,Q,H,L,P,2] / [B,Q,H,L,P] -> lane-packed [B,Q,H*L*P]
+    b, q = loc.shape[:2]
+    return loc[..., 0].reshape(b, q, -1), loc[..., 1].reshape(b, q, -1), attn.reshape(b, q, -1)
+
+
+def test_flatlanes_core_matches_oracles_outside_the_maps():
+    rng = np.random.default_rng(5)
+    b, q, h, d, L, p = 2, 17, HEADS, 8, len(SHAPES), POINTS
+    value = rng.standard_normal((b, S, h, d), dtype=np.float32)
+    loc = rng.uniform(-0.5, 1.5, (b, q, h, L, p, 2)).astype(np.float32)
+    attn = rng.random((b, q, h, L, p), dtype=np.float32)
+    assert ((loc < 0) | (loc > 1)).mean() > 0.3
+    want = jax_core(jnp.asarray(value), SHAPES, jnp.asarray(loc), jnp.asarray(attn))
+    tv, tl, ta = torch.from_numpy(value), torch.from_numpy(loc), torch.from_numpy(attn)
+    oracle = ms_deform_attn_core(tv, SHAPES, tl, ta)
+    np.testing.assert_allclose(oracle.numpy(), np.asarray(want), atol=TOL)
+    got = ms_deform_attn_core_flatlanes(tv, SHAPES, *_lane_pack(tl, ta))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
+
+
+def test_patchify_value_matches_jax():
+    from tair_tpu.spotter.ms_deform_attn import patchify_value as jax_patchify
+
+    value = np.random.default_rng(6).standard_normal((2, S, 3, 4), dtype=np.float32)
+    want = jax_patchify(jnp.asarray(value), SHAPES)
+    got = patchify_value(torch.from_numpy(value), SHAPES)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_single_pixel_levels():
+    # 1-wide / 1-high levels: patch start clamps to 0, second column is padding
+    shapes = ((1, 1), (1, 4), (3, 1))
+    s = sum(h * w for h, w in shapes)
+    rng = np.random.default_rng(7)
+    value = rng.standard_normal((1, s, 2, 4), dtype=np.float32)
+    loc = rng.uniform(-0.3, 1.3, (1, 9, 2, 3, 2, 2)).astype(np.float32)
+    attn = rng.random((1, 9, 2, 3, 2), dtype=np.float32)
+    want = jax_core(jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(attn))
+    got = ms_deform_attn_core_flatlanes(
+        torch.from_numpy(value), shapes,
+        *_lane_pack(torch.from_numpy(loc), torch.from_numpy(attn)),
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
