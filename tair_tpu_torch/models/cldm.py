@@ -41,14 +41,17 @@ class ControlLDM(nn.Module):
         image: torch.Tensor,
         sample: bool = True,
         generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """image in [-1, 1] NHWC -> scaled latent (mode, or a sample drawn
-        with `generator`)."""
+        """image in [-1, 1] NHWC -> scaled latent: the mode, or a sample whose
+        standard-normal `noise` (the latent's shape) is handed in or drawn
+        with `generator`."""
         mean, logvar = self.vae.encode_moments(image)
         if sample:
-            noise = torch.randn(
-                mean.shape, dtype=mean.dtype, device=mean.device, generator=generator
-            )
+            if noise is None:
+                noise = torch.randn(
+                    mean.shape, dtype=mean.dtype, device=mean.device, generator=generator
+                )
             z = mean + torch.exp(0.5 * logvar) * noise
         else:
             z = mean

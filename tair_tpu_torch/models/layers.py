@@ -55,9 +55,16 @@ class GroupNorm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(
-            x.float(), self.groups, self.weight.float(), self.bias.float(), self.eps
-        )
+        xf = x.float()
+        if (
+            xf.device.type == "cpu" and torch.is_grad_enabled()
+            and not xf.requires_grad and self.weight.requires_grad
+        ):
+            # PyTorch's CPU group-norm backward (seen with 2.13) crashes on a
+            # channels-last input that needs no gradient itself: the first
+            # trained norm behind a frozen convolution meets exactly that
+            xf = xf.contiguous()
+        y = F.group_norm(xf, self.groups, self.weight.float(), self.bias.float(), self.eps)
         return y.to(x.dtype)
 
 

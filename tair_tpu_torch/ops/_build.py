@@ -12,17 +12,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNEL_SOURCES = ("flash_attention", "msda_reduce")
+KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "msda_reduce")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
+    "-Xptxas=-v",  # registers, shared memory and spills of each kernel, into the log
     "-shared",
     "-Xcompiler",
     "-fPIC",
@@ -78,10 +80,21 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> List[Path]:
         if proc.returncode != 0:
             failures.append(f"nvcc failed for {name}.cu:\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # a reader never sees a half-written library
     if failures:
         raise RuntimeError("\n".join(failures))
     return list(paths.values())
+
+
+def resource_usage(path: Path) -> Dict[str, int]:
+    """What ptxas reported for the kernels of one built library: the largest
+    register count and the bytes spilled (0 means no kernel spills)."""
+    log = path.with_suffix(".log").read_text()
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
+    return {"kernels": len(regs), "max_registers": max(regs, default=0),
+            "spill_store_bytes": sum(spills)}
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -1,4 +1,5 @@
-// 16-byte global loads of float or bfloat16 values, widened to float.
+// 16-byte global loads of float or bfloat16 values, widened to float, and the
+// matching 16-byte stores of float values narrowed to the tensor's type.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -17,6 +18,9 @@ struct VecLoad<float> {
     out[2] = v.z;
     out[3] = v.w;
   }
+  __device__ static inline void store(float* p, const float* in) {
+    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+  }
 };
 
 template <>
@@ -31,6 +35,14 @@ struct VecLoad<__nv_bfloat16> {
       out[2 * i] = f.x;
       out[2 * i + 1] = f.y;
     }
+  }
+  __device__ static inline void store(__nv_bfloat16* p, const float* in) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = raw;
   }
 };
 

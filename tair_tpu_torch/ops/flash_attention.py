@@ -1,11 +1,17 @@
-"""Flash attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention, forward and backward: the CUDA kernels' wrapper and their
+plain versions.
 
 Counterpart of ``tair_tpu/ops/flash_attention.py``. Tensors are laid out
 ``[B, T, H, D]`` as there. ``flash_attention`` returns the attention output in
-the input type and the per-row logsumexp ``[B, H, Tq]`` in float32. On a CUDA
-tensor it launches ``csrc/flash_attention.cu``; the plain version is taken
-only for a tensor that lies on the CPU. Forward only: the backward kernels
-come with the training slice.
+the input type and the per-row logsumexp ``[B, H, Tq]`` in float32, and is
+differentiable with respect to q, k and v through a ``torch.autograd.Function``
+that saves ``q, k, v, O, lse``. On CUDA tensors the forward launches
+``csrc/flash_attention.cu`` and the backward launches the dQ and the dK/dV
+kernel of ``csrc/flash_attention_bwd.cu`` (``delta = rowsum(dO * O)`` is formed
+here in float32, outside the kernels, as the JAX package does); the plain
+versions are taken only for tensors that lie on the CPU. The backward kernels
+have the head widths ``BWD_HEAD_DIMS``: a wider call that asks for a gradient on
+a CUDA device raises.
 """
 
 from __future__ import annotations
@@ -19,10 +25,17 @@ import torch
 from . import _build
 
 HEAD_DIMS = (16, 32, 64, 128, 512)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# number of kernel launches made by flash_attention (never by the plain version)
-launches = 0
+# kernel launches made by the wrapper, one count per kernel (never raised by a
+# plain version): forward, dQ, dK/dV
+launches = {"fwd": 0, "dq": 0, "dkv": 0}
+
+
+def reset_launches() -> None:
+    for key in launches:
+        launches[key] = 0
 
 
 def flash_attention_plain(
@@ -41,6 +54,30 @@ def flash_attention_plain(
     return out.to(q.dtype), lse
 
 
+def flash_attention_bwd_plain(
+    q: torch.Tensor,    # [B, Tq, H, D]
+    k: torch.Tensor,    # [B, Tk, H, D]
+    v: torch.Tensor,
+    o: torch.Tensor,    # [B, Tq, H, D] forward output
+    lse: torch.Tensor,  # [B, H, Tq] float32
+    do: torch.Tensor,   # [B, Tq, H, D] cotangent of o
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) by the kernels' arithmetic, in float32 throughout: P is
+    rebuilt from lse, dS = P * (dP - delta) * scale with delta = rowsum(dO * O)."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse[..., None])
+    delta = (dof * o.float()).sum(dim=-1).permute(0, 2, 1)  # [B, H, Tq]
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes [B, T, H, D] tensors")
@@ -56,17 +93,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k and v must have one dtype")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash_attention is forward only: its backward kernels belong to "
-            "the training slice of the port"
-        )
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Unit stride along D and every row starting on a 16-byte boundary."""
+    vec = 16 // t.element_size()
+    return (
+        t.stride(3) == 1
+        and not any(s % vec for s in t.stride()[:3])
+        and t.data_ptr() % 16 == 0
+    )
 
 
 def _launch(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    global launches
     b, tq, h, d = q.shape
     tk = k.shape[1]
     if q.dtype not in _DTYPE_CODES:
@@ -75,12 +116,11 @@ def _launch(
         raise ValueError(f"flash_attention kernel has head widths {HEAD_DIMS}, got {d}")
     if b * h > 65535:
         raise ValueError("flash_attention kernel takes at most 65535 (batch, head) pairs")
-    vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(f"{name} must have unit stride along D")
-        if any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be aligned to 16 bytes in every row")
+        if not _rows_aligned(t):
+            raise ValueError(
+                f"{name} must have unit stride along D and rows aligned to 16 bytes"
+            )
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
 
@@ -104,8 +144,109 @@ def _launch(
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed with CUDA error {err}")
-    launches += 1
+    launches["fwd"] += 1
     return out, lse
+
+
+def _launch_backward_kernel(
+    which: str,  # "dq" or "dkv"
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, scale: float,
+):
+    """One backward kernel on the tensors the forward launch saw: dq for
+    "dq", (dk, dv) for "dkv". do must pass `_rows_aligned`; lse and delta are
+    float32 [B, H, Tq], contiguous."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if d not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention backward kernels have head widths {BWD_HEAD_DIMS}, got {d}"
+        )
+    for name, t in (("do", do), ("lse", lse), ("delta", delta)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must lie on q's device")
+    if do.dtype != q.dtype or do.shape != q.shape or not _rows_aligned(do):
+        raise ValueError("do must have q's type and shape, unit stride along D and aligned rows")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.shape != (b, h, tq) or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 [B, H, Tq]")
+    if which == "dq":
+        outs = (torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device),)
+    else:
+        outs = tuple(
+            torch.empty((b, tk, h, d), dtype=k.dtype, device=q.device) for _ in range(2)
+        )
+
+    lib = _build.library("flash_attention_bwd")
+    fn = getattr(lib, f"flash_attention_{which}")
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * (6 + len(outs))
+        + [ctypes.c_int] * 5
+        + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    strides = (ctypes.c_int64 * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3]
+    )
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(t.data_ptr() for t in outs), b, h, tq, tk, d,
+            strides, float(scale), _DTYPE_CODES[q.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_{which} launch failed with CUDA error {err}")
+    launches[which] += 1
+    return outs[0] if which == "dq" else outs
+
+
+def _launch_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """delta in float32 here, then the dQ and the dK/dV kernel. dO comes in
+    whatever layout autograd hands over: it is used as it is when its rows are
+    contiguous along D and 16-byte aligned, and copied once otherwise."""
+    do = do.to(q.dtype)
+    if not _rows_aligned(do):
+        do = do.contiguous()
+    # rowsum(dO * O): [B, Tq, H] -> [B, H, Tq]
+    delta = (do.float() * o.float()).sum(dim=-1).permute(0, 2, 1).contiguous()
+    dq = _launch_backward_kernel("dq", q, k, v, do, lse, delta, scale)
+    dk, dv = _launch_backward_kernel("dkv", q, k, v, do, lse, delta, scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with the two backward kernels behind it; on CPU
+    tensors, the plain versions of both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        on_cuda = q.device.type == "cuda"
+        if on_cuda and any(ctx.needs_input_grad[:3]) and q.shape[-1] not in BWD_HEAD_DIMS:
+            raise NotImplementedError(
+                f"flash_attention has no backward kernel for head width {q.shape[-1]} "
+                f"(widths {BWD_HEAD_DIMS}); call it without gradients"
+            )
+        if on_cuda:
+            out, lse = _launch(q, k, v, scale)
+        else:
+            out, lse = flash_attention_plain(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cuda":
+            dq, dk, dv = _launch_bwd(q, k, v, out, lse, do, ctx.scale)
+        else:
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, do, ctx.scale)
+        return dq, dk, dv, None
 
 
 def flash_attention(
@@ -117,8 +258,6 @@ def flash_attention(
     """softmax(q k^T * scale) v -> (O [B, Tq, H, D], lse [B, H, Tq] float32)."""
     _check(q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"flash_attention has no kernel for device {q.device}")
-    return _launch(q, k, v, scale)
+    return _FlashAttention.apply(q, k, v, scale)

@@ -4,7 +4,9 @@ Counterpart of ``tair_tpu/pipeline.py`` for its serving path,
 ``TeReDiff.restore_fused_feedback``: LQ -> SwinIR cleaner -> VAE encode ->
 CLIP encode of the empty prompt -> spaced-DDPM steps, each running ControlNet
 + UNet, the TESTR spotter on the UNet's decoder features, the on-device TAG
-prompt splice and a CLIP re-encode -> VAE decode -> clamp.
+prompt splice and a CLIP re-encode -> VAE decode -> clamp; and for what the
+train step needs of the bundle: ``TeReDiff.spotter_loss_fn`` and ``build_*_model``
+that keep float32 master weights (``training=True``).
 
 Where it departs from the JAX signature: the modules own their weights, so no
 ``params`` argument; randomness comes from a ``torch.Generator`` (or the
@@ -126,6 +128,29 @@ class TeReDiff(nn.Module):
     def spotter_apply(self, feats):
         return self.testr(feats)
 
+    def spotter_loss_fn(self, criterion_cfg=None):
+        """Adapter for the train step: (feats, batch) -> (loss, aux), the
+        spotter on the UNet's decoder features under the TESTR set criterion.
+        criterion_cfg: optional ``CriterionConfig`` (e.g. the matcher)."""
+        from .spotter.losses import CriterionConfig, set_criterion
+
+        cfg = criterion_cfg if criterion_cfg is not None else CriterionConfig()
+
+        def fn(feats, batch):
+            out = self.spotter_apply(feats)
+            targets = {
+                k: batch[k] for k in ("inst_mask", "boxes", "ctrl_points", "texts")
+            }
+            losses = set_criterion(out, targets, cfg)
+            aux = {
+                "loss_ocr_ce": losses["loss_ce"],
+                "loss_ocr_ctrl_points": losses["loss_ctrl_points"],
+                "loss_ocr_texts": losses["loss_texts"],
+            }
+            return losses["loss_total"], aux
+
+        return fn
+
     @torch.no_grad()
     def restore_fused_feedback(
         self,
@@ -220,7 +245,12 @@ def cast_params_for_inference(model: nn.Module, dtype: torch.dtype = torch.bfloa
     return model
 
 
-def _assemble(cldm_args, swinir_cfg, testr_cfg, dtype, device) -> TeReDiff:
+def _assemble(cldm_args, swinir_cfg, testr_cfg, dtype, device, training=False) -> TeReDiff:
+    if training and dtype != torch.float32:
+        raise ValueError(
+            "a model built for training keeps float32 master weights; the train "
+            "step's compute_dtype sets the working type"
+        )
     device = _resolve_device(device)
     with torch.device(device):
         model = TeReDiff.create(
@@ -235,27 +265,30 @@ def _assemble(cldm_args, swinir_cfg, testr_cfg, dtype, device) -> TeReDiff:
         model = model.to(memory_format=torch.channels_last)
     if dtype != torch.float32:
         cast_params_for_inference(model, dtype)
-    return model.eval()
+    return model.train() if training else model.eval()
 
 
 def build_default_model(
-    dtype: torch.dtype = torch.bfloat16, device: Device = "cuda"
+    dtype: torch.dtype = torch.bfloat16, device: Device = "cuda", training: bool = False
 ) -> TeReDiff:
     """Production geometry (SD-2.1 UNet/ControlNet/VAE, OpenCLIP-H text tower,
     SwinIR cleaner, TESTR spotter). Parameters are uninitialised storage of
     `dtype` on `device` until a ``state_dict`` is loaded or
-    ``init_parameters`` is called."""
+    ``init_parameters`` is called. `training=True` gives the model the train
+    step takes: float32 parameters (pass ``dtype=torch.float32``), in train
+    mode; which of them a stage trains is set by ``train.step.make_optimizer``."""
     return _assemble(
         dict(unet_cfg=UNetConfig(), vae_cfg=VAEConfig(), clip_cfg=CLIPTextConfig()),
         SwinIRConfig(),
         TESTRConfig(),
         dtype,
         device,
+        training,
     )
 
 
 def build_tiny_model(
-    dtype: torch.dtype = torch.float32, device: Device = "cuda"
+    dtype: torch.dtype = torch.float32, device: Device = "cuda", training: bool = False
 ) -> TeReDiff:
     """Small geometry for tests: same topology, tiny widths."""
     return _assemble(
@@ -278,4 +311,5 @@ def build_tiny_model(
         ),
         dtype,
         device,
+        training,
     )

@@ -10,6 +10,14 @@ padding_mode='zeros'). ``ms_deform_attn_core`` is the four-gathers-per-level
 reference that the tests hold the packed core against. The other cores and
 reduce modes of the JAX module are layout alternates of the same function and
 are not part of this slice; neither is query chunking.
+
+Under autograd the gradient reaches ``value`` (through the row gather and the
+patch packing), the sampling locations (through the bilinear fractions in the
+corner weights) and the attention weights; the row indices carry none. The
+row gather's gradient is a scatter-add of up to hundreds of rows into one
+packed row: ``gather_rows`` accumulates it in float32 whatever the rows' type,
+so that in bfloat16 neither the sum's length nor the order in which a CUDA
+device adds the rows shows beyond float32 rounding.
 """
 
 from __future__ import annotations
@@ -94,6 +102,28 @@ def patchify_value(
         packed[:, :, : hl - 1, : wl - 1, 3 * d :] = vl[:, :, 1:, 1:]
         pieces.append(packed.reshape(b, h, hl * wl, 4 * d))
     return torch.cat(pieces, dim=2).reshape(b * h * s, 4 * d)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, rows):
+        ctx.save_for_backward(rows)
+        ctx.table_meta = (table.shape, table.dtype)
+        return table.index_select(0, rows)
+
+    @staticmethod
+    def backward(ctx, dg):
+        (rows,) = ctx.saved_tensors
+        shape, dtype = ctx.table_meta
+        acc = torch.zeros(shape, dtype=torch.float32, device=dg.device)
+        acc.index_add_(0, rows, dg.float())
+        return acc.to(dtype), None
+
+
+def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``table.index_select(0, rows)`` whose gradient with respect to `table`
+    is summed in float32 and cast to the table's type once."""
+    return _GatherRows.apply(table, rows)
 
 
 def _lane_consts(spatial_shapes, n_heads: int, n_points: int) -> Dict[str, np.ndarray]:
@@ -185,7 +215,7 @@ def ms_deform_attn_core_flatlanes(
         + sx.long()
     )  # [B, Q, lanes], in bounds by construction
 
-    g = vp.index_select(0, rows.reshape(-1))  # [B*Q*lanes, 4D]
+    g = gather_rows(vp, rows.reshape(-1))  # [B*Q*lanes, 4D]
     out = msda_corner_reduce(
         g,
         w00.reshape(b * q, lanes),

@@ -17,7 +17,10 @@ rule per leaf rather than a table per model:
 The tree is plain nested dicts of numpy arrays (``jax.device_get`` of the
 params); nothing of JAX is imported here. A leaf that no rule takes raises,
 and the result is meant for ``load_state_dict(strict=True)``, which raises on
-any parameter of the port that no leaf filled.
+any parameter of the port that no leaf filled. ``to_jax_tree`` and
+``to_jax_params`` go the other way, given a tree of the JAX shapes, so that
+parameters or gradients of the port can be held against the JAX package's leaf
+by leaf.
 """
 
 from __future__ import annotations
@@ -94,6 +97,60 @@ def _convert_leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarr
     raise ValueError(
         f"no rule for JAX leaf {'/'.join(path)} of shape {arr.shape}"
     )
+
+
+def _invert_leaf(path: Tuple[str, ...], value: np.ndarray, shape: Tuple[int, ...]) -> np.ndarray:
+    """A converted value back in the layout of the JAX leaf at `path`, whose
+    shape is `shape`: the inverse of `_convert_leaf`'s transposes and folds."""
+    parent = path[-2] if len(path) > 1 else ""
+    if path[-1] == "kernel":
+        if len(shape) == 4:
+            return value.transpose(2, 3, 1, 0)
+        if len(shape) == 2:
+            return value.T
+        if len(shape) == 3 and (parent in _MHA_PROJ or parent == "out"):
+            return value.T.reshape(shape)
+    return value.reshape(shape)
+
+
+def to_jax_tree(
+    state: Mapping[str, torch.Tensor], like: Mapping[str, Any]
+) -> Dict[str, Any]:
+    """The reverse of `convert_tree`: values keyed by the port's parameter
+    names (a ``state_dict``, or gradients by name) laid out as the JAX tree
+    `like` (nested dicts whose leaves have a ``shape``), as numpy arrays. A
+    name that `state` lacks gives ``None`` at its leaf."""
+
+    def walk(tree, path):
+        res = {}
+        for key, node in tree.items():
+            if isinstance(node, Mapping):
+                res[key] = walk(node, path + (key,))
+                continue
+            shape = tuple(node.shape)
+            name, _ = _convert_leaf(path + (key,), np.empty(shape, np.float32))
+            value = state.get(name)
+            res[key] = (
+                None if value is None
+                else _invert_leaf(path + (key,), value.detach().cpu().float().numpy(), shape)
+            )
+        return res
+
+    return walk(like, ())
+
+
+def to_jax_params(
+    state: Mapping[str, torch.Tensor], like: Mapping[str, Any]
+) -> Dict[str, Any]:
+    """The reverse of `from_jax_params` for the top-level trees that `like`
+    holds: ``TeReDiff.state_dict()`` layout (or gradients by parameter name)
+    -> {unet, controlnet, ...} trees shaped as `like`."""
+    out = {}
+    for top, tree in like.items():
+        prefix = _PREFIX[top] + "."
+        sub = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+        out[top] = to_jax_tree(sub, tree)
+    return out
 
 
 def convert_tree(

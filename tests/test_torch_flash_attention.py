@@ -68,17 +68,23 @@ def test_bf16_inputs_keep_dtype():
 
 
 def test_cpu_call_does_not_count_as_launch():
-    before = fa.launches
+    before = dict(fa.launches)
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 8, 8, 1, 16))
     fa.flash_attention(q, k, v)
     assert fa.launches == before
 
 
 def test_requires_grad_raises():
+    """A tensor that requires grad is taken now (the backward has its
+    kernels); what still raises is a backward launch at a head width that has
+    no backward kernel, naming the width."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 8, 8, 1, 16))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fa.flash_attention(q, k, v)
+    out, lse = fa.flash_attention(q.requires_grad_(True), k, v)
+    assert out.requires_grad and not lse.requires_grad
+    wide = torch.zeros((1, 8, 1, 512))
+    stats = torch.zeros((1, 1, 8))
+    with pytest.raises(NotImplementedError, match="512"):
+        fa._launch_backward_kernel("dq", wide, wide, wide, wide, stats, stats, 1.0)
 
 
 @pytest.mark.parametrize(

@@ -18,6 +18,7 @@ MODULES = [
     "tair_tpu_torch.ops.msda_reduce",
     "tair_tpu_torch.ops._build",
     "tair_tpu_torch.diffusion.schedules",
+    "tair_tpu_torch.diffusion.diffusion",
     "tair_tpu_torch.sampler.spaced",
     "tair_tpu_torch.models.layers",
     "tair_tpu_torch.models.attention",
@@ -31,6 +32,10 @@ MODULES = [
     "tair_tpu_torch.spotter.ms_deform_attn",
     "tair_tpu_torch.spotter.transformer",
     "tair_tpu_torch.spotter.testr",
+    "tair_tpu_torch.spotter.matcher",
+    "tair_tpu_torch.spotter.losses",
+    "tair_tpu_torch.train.stages",
+    "tair_tpu_torch.train.step",
     "tair_tpu_torch.weights.convert",
 ]
 
@@ -103,10 +108,12 @@ def test_kernel_wrappers_do_not_build_on_import():
     proc = _run(
         """
         import tair_tpu_torch.ops.flash_attention, tair_tpu_torch.ops.msda_reduce
+        import tair_tpu_torch.train.step
         from tair_tpu_torch.ops import _build
         assert not _build._LIBS
         assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-            "flash_attention.cu", "msda_reduce.cu"}
+            "flash_attention.cu", "flash_attention_bwd.cu", "msda_reduce.cu"}
+        assert set(_build.KERNEL_SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
         print("ok")
         """
     )

@@ -107,3 +107,83 @@ def test_single_pixel_levels():
         *_lane_pack(torch.from_numpy(loc), torch.from_numpy(attn)),
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
+
+
+def test_module_gradients_match_jax_flatlanes_pallas_interpret():
+    """Gradients with respect to value_flatten, query and every parameter of
+    the module, through the packed core and the reduce's backward, with
+    sample points outside the maps."""
+    import jax
+
+    jm, params, tm = _pair(seed=8)
+    rng = np.random.default_rng(9)
+    b, q = 2, 19
+    query = rng.standard_normal((b, q, D_MODEL), dtype=np.float32)
+    value = rng.standard_normal((b, S, D_MODEL), dtype=np.float32)
+    ref = rng.uniform(-0.2, 1.2, (b, q, len(SHAPES), 2)).astype(np.float32)
+    cot = rng.standard_normal((b, q, D_MODEL), dtype=np.float32)
+
+    def loss(p, qr, vl):
+        return jnp.sum(jm.apply({"params": p}, qr, jnp.asarray(ref), vl, SHAPES) * cot)
+
+    gp, gq, gv = jax.grad(loss, argnums=(0, 1, 2))(
+        params, jnp.asarray(query), jnp.asarray(value)
+    )
+    tm.train()
+    tq = torch.from_numpy(query).requires_grad_(True)
+    tv = torch.from_numpy(value).requires_grad_(True)
+    out = tm(tq, torch.from_numpy(ref), tv, SHAPES)
+    names = [n for n, _ in tm.named_parameters()]
+    grads = torch.autograd.grad(out, [tq, tv, *tm.parameters()], torch.from_numpy(cot))
+    np.testing.assert_allclose(grads[0].numpy(), np.asarray(gq), atol=TOL)
+    np.testing.assert_allclose(grads[1].numpy(), np.asarray(gv), atol=TOL)
+    from tair_tpu_torch.weights.convert import to_jax_tree
+
+    got = to_jax_tree(dict(zip(names, grads[2:])), params)
+    for mod in ("value_proj", "sampling_offsets", "attention_weights", "output_proj"):
+        for leaf in ("kernel", "bias"):
+            want = np.asarray(gp[mod][leaf])
+            assert np.abs(want).max() > 0
+            # float32; the absolute part scales with the leaf's largest gradient
+            np.testing.assert_allclose(
+                got[mod][leaf], want, rtol=1e-4, atol=1e-5 * np.abs(want).max(),
+                err_msg=f"{mod}/{leaf}",
+            )
+
+
+def test_core_gradient_reaches_value_locations_and_weights_not_rows():
+    rng = np.random.default_rng(10)
+    b, q, h, d, L, p = 1, 7, HEADS, 8, len(SHAPES), POINTS
+    value = torch.from_numpy(rng.standard_normal((b, S, h, d), dtype=np.float32))
+    loc = torch.from_numpy(rng.uniform(-0.2, 1.2, (b, q, h, L, p, 2)).astype(np.float32))
+    attn = torch.from_numpy(rng.random((b, q, h, L, p), dtype=np.float32))
+    leaves = [t.requires_grad_(True) for t in (value, *_lane_pack(loc, attn))]
+    cot = torch.from_numpy(rng.standard_normal((b, q, h * d), dtype=np.float32))
+    got = torch.autograd.grad(
+        ms_deform_attn_core_flatlanes(leaves[0], SHAPES, *leaves[1:]), leaves, cot
+    )
+    # the four-gather oracle under plain autograd gives the same gradients
+    lx, ly, la = (t.detach().clone().requires_grad_(True) for t in leaves[1:])
+    v2 = value.detach().clone().requires_grad_(True)
+    loc2 = torch.stack([lx, ly], dim=-1).reshape(b, q, h, L, p, 2)
+    want = torch.autograd.grad(
+        ms_deform_attn_core(v2, SHAPES, loc2, la.reshape(b, q, h, L, p)), [v2, lx, ly, la], cot
+    )
+    for name, a, w in zip(("value", "locx", "locy", "attn"), got, want):
+        assert a.abs().max() > 0, name
+        np.testing.assert_allclose(a.numpy(), w.numpy(), atol=TOL, err_msg=name)
+
+
+def test_gather_rows_sums_its_gradient_in_float32():
+    from tair_tpu_torch.spotter.ms_deform_attn import gather_rows
+
+    rng = np.random.default_rng(11)
+    table = torch.from_numpy(rng.standard_normal((5, 8), dtype=np.float32)).bfloat16()
+    rows = torch.from_numpy(rng.integers(0, 5, 4000))
+    dg = torch.from_numpy(rng.standard_normal((4000, 8), dtype=np.float32)).bfloat16()
+    leaf = table.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(gather_rows(leaf, rows), leaf, dg)
+    assert got.dtype == torch.bfloat16
+    want = torch.zeros((5, 8)).index_add_(0, rows, dg.float())
+    # 800 bfloat16 addends a row: summed in float32 and rounded once
+    np.testing.assert_array_equal(got.float().numpy(), want.bfloat16().float().numpy())
