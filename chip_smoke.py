@@ -4,13 +4,21 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout and holds each of the
-five (flash attention forward, dQ, dK/dV; msda corner reduce forward, backward)
-against its plain PyTorch version at every shape the main paths give it, in
-bfloat16 and float32, with its time beside its bound. Then it drives the two
-main paths of the port and checks that each went through its kernels:
+six model kernels (flash attention forward, dQ, dK/dV; msda corner reduce
+forward, backward; the msda patchify kernel) against its plain PyTorch version
+at every shape the main paths give it, in bfloat16 and float32, with its time
+beside its bound, and each probe kernel (gather, stream, msda lab) against its
+plain version at the probe's shape. Then it drives the paths of the port and
+checks that each went through its kernels:
 
+  probes    the three probes of the card, each through its own ``run`` (phase
+            probes);
   serving   ``TeReDiff.restore_fused_feedback``, full width, bfloat16, random
-            weights from a seed (phases reference, restore, layers);
+            weights from a seed (phases reference, restore, layers), and the
+            same request with every deformable attention of the spotter on the
+            ``flatpatch`` core and the patchify kernel (phase
+            restore_flatpatch, which also times ``flatlanes`` with the patchify
+            kernel beside the default);
   training  stage 3 (``all_modules``) through ``train.step.make_train_step``:
             one step of the tiny model on the card against the CPU (phase
             train_reference), then full-width steps with float32 master
@@ -83,7 +91,22 @@ TRAIN_OCR_WEIGHT = 0.01
 GRAD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-3)}  # (rtol, afrac)
 
 
-PHASES = ("kernels", "reference", "restore", "layers", "train_reference", "train")
+# (levels, B, H, D, calls per spotter pass) of the patchify kernel: the spotter's
+# table at 512 x 512 (encoder layers and decoder cross-attentions pack the same
+# [1, 9472, 8, 32] memory), the same at batch 2 cut out of a wider projection
+# (rows 16-byte aligned, not contiguous), and a ragged shape with 1-pixel levels
+SPOTTER_LEVELS = ((16, 16), (32, 32), (64, 64), (64, 64))
+K4_SHAPES = [
+    ("spotter", SPOTTER_LEVELS, 1, 8, 32, 18),
+    ("spotter_b2_strided", SPOTTER_LEVELS, 2, 8, 32, 0),
+    ("ragged_one_pixel", ((1, 1), (1, 5), (7, 1), (3, 4)), 2, 3, 8, 0),
+]
+
+FLATPATCH_STEPS = 10  # of every request of phase restore_flatpatch
+PROBE_REPS = 2        # timed repetitions per setting of the probes' own runs
+
+PHASES = ("kernels", "probes", "reference", "restore", "restore_flatpatch", "layers",
+          "train_reference", "train")
 
 
 LOG_PATH = None  # --log: every phase line is appended there as well
@@ -238,7 +261,7 @@ def check_flash(rng: np.random.Generator, smi: str, steps: int) -> dict:
         shape="Tq=Tk=4096 H=5 D=64 bfloat16", max_abs_err=head["max_abs_err"],
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
-        **per_step_sums(rows, "ms"),
+        paths=("restore", "restore_flatpatch", "train"), **per_step_sums(rows, "ms"),
     )
 
 
@@ -284,7 +307,8 @@ def check_msda(rng: np.random.Generator, smi: str, steps: int) -> dict:
         replaces="tair_tpu/ops/msda_reduce.py:150",
         shape="NQ=9472 lanes=128 K=16 D=32 bfloat16", max_abs_err=head["max_abs_err"],
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=None, **per_step_sums(rows, "ms"),
+        bound_by=head["bound_by"], library_ms=None, paths=("restore", "train"),
+        **per_step_sums(rows, "ms"),
     )
 
 
@@ -390,7 +414,7 @@ def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms_dq_and_dkv"],
             plain_and_library_cover="dq + dkv (one call gives all three gradients)",
-            **per_step_sums(mine, "ms"),
+            paths=("train",), **per_step_sums(mine, "ms"),
         ))
     return entries
 
@@ -459,8 +483,169 @@ def check_msda_bwd(rng: np.random.Generator, smi: str) -> dict:
         shape="NQ=9472 lanes=128 K=16 D=32 bfloat16",
         max_abs_err=max(g["max_abs_err"] for g in head["held"].values()),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=None, **per_step_sums(rows, "ms"),
+        bound_by=head["bound_by"], library_ms=None, paths=("train",),
+        **per_step_sums(rows, "ms"),
     )
+
+
+def check_patchify(rng: np.random.Generator, smi: str, steps: int) -> dict:
+    """The patchify kernel against `patchify_value`, bit for bit (it moves
+    values), and its backward against autograd through `patchify_value`."""
+    from tair_tpu_torch.ops import patchify as tp
+
+    rows = []
+    for name, levels, b, h, d, per_pass in K4_SHAPES:
+        s = sum(hl * wl for hl, wl in levels)
+        extra = 2 if name.endswith("_strided") else 0  # heads cut off again below
+        vn = rng.standard_normal((b, s, h + extra, d), dtype=np.float32)
+        cn = rng.standard_normal((b * h * s, 4 * d), dtype=np.float32)
+        for dtype in (torch.bfloat16, torch.float32):
+            value = torch.from_numpy(vn).cuda().to(dtype)[:, :, :h]
+            cot = torch.from_numpy(cn).cuda().to(dtype)
+            table = tp.patchify_value_kernel(value, levels)
+            torch.cuda.synchronize()
+            want = tp.patchify_value(value, levels)
+            if table.dtype != dtype or not torch.equal(table, want):
+                raise AssertionError(
+                    f"patchify {name} {dtype}: the kernel's table is not equal to the plain "
+                    f"version's, max |d| {(table.float() - want.float()).abs().max().item()}"
+                )
+            # backward: the wrapper sums in float32 and rounds once; autograd through
+            # the plain version run in float32 on the same values is the reference
+            leaf = value.detach().requires_grad_(True)
+            (got,) = torch.autograd.grad(tp.patchify_value_kernel(leaf, levels), leaf, cot)
+            leaf32 = value.detach().float().requires_grad_(True)
+            (ref,) = torch.autograd.grad(tp.patchify_value(leaf32, levels), leaf32, cot.float())
+            # at most four addends an element: float32 order, or one bfloat16 ulp
+            rtol, atol = (2.0 ** -7, 1e-6) if dtype == torch.bfloat16 else (1e-6, 1e-6)
+            bwd_err, bwd_share = held_error(got, ref, rtol, atol)
+            if got.dtype != dtype or not bwd_share <= 1.0:
+                raise AssertionError(
+                    f"patchify backward {name} {dtype}: |d| {bwd_err}, {bwd_share} of its "
+                    f"tolerance {rtol} * |g| + {atol}"
+                )
+            del leaf, leaf32, got, ref, cot
+            nbytes = (value.numel() + table.numel()) * value.element_size()
+            rows.append(dict(
+                shape=name, levels=[list(l) for l in levels], batch=b, heads=h, d=d,
+                dtype=str(dtype).split(".")[-1], calls_per_restore=per_pass * steps,
+                max_abs_err=0.0, equal_to_plain=True, backward_max_abs_err=bwd_err,
+                backward_rtol=rtol, backward_max_share_of_tol=bwd_share,
+                value_contiguous=value.is_contiguous(), bytes=nbytes,
+                ms=time_ms(lambda: tp.patchify_value_kernel(value, levels)),
+                plain_ms=time_ms(lambda: tp.patchify_value(value, levels)),
+                library_ms=None, **bound_of(0.0, nbytes, dtype),
+            ))
+            del value, table, want
+    head = next(r for r in rows if r["shape"] == "spotter" and r["dtype"] == "bfloat16")
+    emit("kernels", kernel="patchify_value_fwd", card=smi, shapes=rows, **per_restore_sums(rows),
+         note="a launch-sized kernel: at the spotter's shape its bound is a few microseconds, "
+              "so ms is the time Python takes to make one launch, not the kernel's own")
+    return dict(
+        name="patchify_value_fwd", route="cuda",
+        source="tair_tpu_torch/ops/csrc/patchify.cu",
+        replaces="tair_tpu/ops/patchify.py:66",
+        shape="B=1 S=9472 H=8 D=32 bfloat16", max_abs_err=head["max_abs_err"],
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=None, paths=("restore_flatpatch",),
+    )
+
+
+def phase_probes(smi: str, reps: int):
+    """The three probes: every probe kernel held against its plain version at
+    the probe's shape with its time, bound and library call, then each probe
+    driven through its own `run` with the counts set to 0 just before. Returns
+    (entries of the kernels line, launches of the driven runs)."""
+    from tair_tpu_torch.probes import dyngather, msda_lab, stream
+
+    entries = []
+
+    def entry(name, source, replaces, shape, err, ms, plain_ms, library_ms, nbytes, flops=0.0):
+        entries.append(dict(
+            name=name, route="cuda", source=f"tair_tpu_torch/ops/csrc/{source}",
+            replaces=replaces, shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, paths=("probes",),
+            **bound_of(flops, nbytes, torch.float32),
+        ))
+
+    # P1: gather at the rate shape, bfloat16 table into float32
+    G, C, R, S = (dyngather.RATE_SHAPE[k] for k in "GCRS")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    idx = torch.randint(0, S, (G, C, R, S), device="cuda", dtype=torch.int32, generator=gen)
+    x = torch.randn((G, R, S), device="cuda", generator=gen).to(torch.bfloat16)
+    want = dyngather.gather_plain(x, idx, torch.float32)
+    idx64 = idx.long()
+    x_planes = x[:, None].expand(-1, C, -1, -1)
+    if not torch.equal(want, torch.take_along_dim(x_planes, idx64, dim=3).float()):
+        raise AssertionError("the gather's plain version disagrees with torch.take_along_dim")
+    plain_ms = time_ms(lambda: dyngather.gather_plain(x, idx, torch.float32), reps=3, inner=1)
+    library_ms = time_ms(lambda: torch.take_along_dim(x_planes, idx64, dim=3), reps=3, inner=1)
+    nbytes = x.numel() * 2 + idx.numel() * 4 + want.numel() * 4
+    for where, site in (("global", 71), ("shared", 71)):
+        got = dyngather.gather(x, idx, where, torch.float32)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):  # values are moved: equality
+            raise AssertionError(f"probe gather {where} disagrees with its plain version")
+        del got
+        entry(f"probe_gather_{where}", "probe_gather.cu", f"scripts/dyngather_probe.py:{site}",
+              f"x [{G},{R},{S}] bfloat16, idx [{G},{C},{R},{S}] int32 -> float32", 0.0,
+              time_ms(lambda: dyngather.gather(x, idx, where, torch.float32), reps=3, inner=1),
+              plain_ms, library_ms, nbytes)
+    del idx, idx64, x, x_planes, want
+    torch.cuda.empty_cache()
+
+    # P2 and P3 share the 310 MB tensor
+    g = stream.make_g("cuda")
+    g_bytes = g.numel() * 2
+    exact, tol = stream.reference(g)
+    plain_ms = time_ms(lambda: stream.column_sums_plain(g), reps=3, inner=1)
+    library_ms = time_ms(lambda: g.sum(0, dtype=torch.float32), reps=3, inner=1)
+    for kernel, site, fn in (
+        ("strided", 64, lambda: stream.column_sums(g, "strided", threads=256, unroll=8, blocks_per_sm=4)),
+        ("pipeline", 132, lambda: stream.column_sums(g, "pipeline", threads=256, stages=8, chunk_rows=64)),
+        ("bulk", 132, lambda: stream.column_sums(g, "bulk", threads=256, stages=4, chunk_rows=64)),
+    ):
+        out = fn()
+        torch.cuda.synchronize()
+        h = stream.held(out, exact, tol)  # raises beyond SUM_RTOL * sum|g|
+        entry(f"probe_stream_{kernel}", "probe_stream.cu", f"scripts/stream_probe.py:{site}",
+              f"g [{g.shape[0]},128] bfloat16 -> 128 float32 column sums, tol "
+              f"{stream.SUM_RTOL} * sum|g| = {h['tol']:.3g}", h["max_abs_err"],
+              time_ms(fn, reps=3, inner=2), plain_ms, library_ms, g_bytes + 512, float(g.numel()))
+    del exact, tol
+
+    g3, ws = msda_lab.make_inputs("cuda", g=g)
+    k = msda_lab.K
+    w_bytes = 4 * 4 * ws[0].numel()
+    out_bytes = 4 * msda_lab.NQ * (msda_lab.LANES // k) * msda_lab.D
+    plain_ms = time_ms(lambda: msda_lab.lab_plain("w32", g3, ws, k), reps=3, inner=1)
+    for variant in msda_lab.VARIANTS:
+        out = msda_lab.lab(variant, g3, ws, k)
+        torch.cuda.synchronize()
+        h = msda_lab.held(variant, out, g3, ws, k)  # raises beyond the variant's tolerance
+        weighted = variant in ("w32", "w16")
+        entry(f"probe_msda_lab_{variant}", "probe_msda_lab.cu", "scripts/msda_kernel_lab.py:176",
+              f"NQ={msda_lab.NQ} lanes=128 K=16 D=32 bfloat16, tol {h['tol']:.3g}",
+              h["max_abs_err"],
+              time_ms(lambda: msda_lab.lab(variant, g3, ws, k), reps=3, inner=2),
+              plain_ms if weighted else time_ms(
+                  lambda: msda_lab.lab_plain(variant, g3, ws, k), reps=3, inner=1),
+              None, g_bytes + out_bytes + (w_bytes if weighted else 0),
+              {"copy": 0.0, "seg": 1.0}.get(variant, 2.0) * g.numel())
+        del out
+    del g3, ws
+
+    # the probes as a user runs them, with the counts set to 0 just before
+    reset_launch_counts()
+    reports = [dyngather.run(reps=reps), stream.run(reps=reps, g=g), msda_lab.run(reps=reps, g=g)]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    del g
+    torch.cuda.empty_cache()
+    for report in reports:
+        emit("probes", card=smi, **report)
+    emit("probes", kernels=entries, launches={e["name"]: counts[e["name"]] for e in entries})
+    return entries, counts
 
 
 def phase_reference(seed: int) -> None:
@@ -501,33 +686,70 @@ def phase_reference(seed: int) -> None:
             f"tiny model on the card against the CPU: |d image| {err} (tol {tol}), "
             f"tokens equal {torch.equal(tok_d.cpu(), tok_r)}, launches {launches}"
         )
+    # the same request with every deformable attention on the flatpatch core and
+    # the patchify kernel: the same function, summed in another order
+    patch_tol = 1e-4
+    sites = set_msda(dut.testr, core="flatpatch", patchify="kernel")
+    reset_launch_counts()
+    img_p, tok_p = dut.restore_fused_feedback(
+        lq.cuda(), steps=steps, score_threshold=0.0, x_T=x_T.cuda(),
+        step_noises=[n.cuda() for n in noises],
+    )
+    torch.cuda.synchronize()
+    k4 = launch_counts()["patchify_value_fwd"]
+    patch_err = (img_p - img_d).abs().max().item()
+    if not patch_err <= patch_tol or not torch.equal(tok_p, tok_d) or k4 != sites * steps:
+        raise AssertionError(
+            f"tiny model, flatpatch + patchify kernel against flatlanes: |d image| {patch_err} "
+            f"(tol {patch_tol}), tokens equal {torch.equal(tok_p, tok_d)}, patchify launches "
+            f"{k4} (structure says {sites * steps})"
+        )
     emit(
         "reference", model="build_tiny_model float32", steps=steps, max_abs_err=err,
         tol=tol, tokens_equal=True, prompt_tokens=int((tok_r != 0).sum().item()),
         flash_launches=launches[0], msda_launches=launches[1],
+        flatpatch_vs_flatlanes_max_abs_err=patch_err, flatpatch_tol=patch_tol,
+        flatpatch_tokens_equal=True, patchify_launches=k4,
+    )
+
+
+def _counted_modules():
+    from tair_tpu_torch.ops import flash_attention, msda_reduce, patchify
+    from tair_tpu_torch.probes import dyngather, msda_lab, stream
+
+    return (
+        ("flash_attention_", flash_attention), ("msda_corner_reduce_", msda_reduce),
+        ("patchify_value_", patchify), ("probe_gather_", dyngather),
+        ("probe_stream_", stream), ("probe_msda_lab_", msda_lab),
     )
 
 
 def reset_launch_counts() -> None:
-    from tair_tpu_torch.ops import flash_attention as fa
-    from tair_tpu_torch.ops import msda_reduce as mr
-
-    fa.reset_launches()
-    mr.reset_launches()
+    for _, module in _counted_modules():
+        module.reset_launches()
 
 
 def launch_counts() -> dict:
-    """The wrappers' counts under the names of the `kernels` line."""
-    from tair_tpu_torch.ops import flash_attention as fa
-    from tair_tpu_torch.ops import msda_reduce as mr
-
+    """Every wrapper's counts under the names of the `kernels` line."""
     return {
-        "flash_attention_fwd": fa.launches["fwd"],
-        "flash_attention_dq": fa.launches["dq"],
-        "flash_attention_dkv": fa.launches["dkv"],
-        "msda_corner_reduce_fwd": mr.launches["fwd"],
-        "msda_corner_reduce_bwd": mr.launches["bwd"],
+        prefix + key: n for prefix, module in _counted_modules()
+        for key, n in module.launches.items()
     }
+
+
+def set_msda(testr, **fields) -> int:
+    """Set fields (core, patchify, ...) on every deformable attention of the
+    spotter; returns how many there are."""
+    from tair_tpu_torch.spotter.ms_deform_attn import MSDeformAttn
+
+    mods = [m for m in testr.modules() if isinstance(m, MSDeformAttn)]
+    for m in mods:
+        for key, val in fields.items():
+            setattr(m, key, val)
+    return len(mods)
+
+
+MSDA_DEFAULT = dict(core="flatlanes", reduce_mode="kernel", patchify="concat")
 
 
 def predicted_train_launches(model) -> dict:
@@ -545,6 +767,7 @@ def predicted_train_launches(model) -> dict:
     )
     msda = sum(isinstance(m, MSDeformAttn) for m in model.testr.modules())
     return {
+        **dict.fromkeys(launch_counts(), 0),  # no other kernel runs in a training step
         "flash_attention_fwd": attn + 2, "flash_attention_dq": attn,
         "flash_attention_dkv": attn, "msda_corner_reduce_fwd": msda,
         "msda_corner_reduce_bwd": msda,
@@ -840,12 +1063,35 @@ def build_model(seed: int):
     return model, lq
 
 
+def restore_request(model, lq, req_seed: int, n_steps: int):
+    """One request; (image, tokens, seconds by the host clock)."""
+    # score_threshold=0.0 keeps every proposal of the randomly initialised
+    # spotter, so the spliced prompt carries words and the re-encode matters
+    gen = torch.Generator(device=lq.device).manual_seed(req_seed)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    image, tokens = model.restore_fused_feedback(
+        lq, generator=gen, steps=n_steps, spotter_every=1, score_threshold=0.0
+    )
+    torch.cuda.synchronize()
+    return image, tokens, time.perf_counter() - t
+
+
+def check_restored(image, tokens) -> None:
+    from tair_tpu_torch.models.prompt_splice import SOT_TOKEN
+
+    if tuple(image.shape) != (1, 512, 512, 3) or not torch.isfinite(image).all():
+        raise AssertionError(f"restored image is not finite [1,512,512,3]: {tuple(image.shape)}")
+    if image.min().item() < 0.0 or image.max().item() > 1.0:
+        raise AssertionError("restored image leaves [0, 1]")
+    if tuple(tokens.shape) != (1, 77) or tokens[0, 0].item() != SOT_TOKEN:
+        raise AssertionError("tokens are not [1,77] starting with the start token")
+
+
 def phase_restore(model, lq, seed: int, steps: int) -> dict:
     from tair_tpu_torch.models.attention import CrossAttention
-    from tair_tpu_torch.models.prompt_splice import SOT_TOKEN
     from tair_tpu_torch.spotter.ms_deform_attn import MSDeformAttn
 
-    dev = lq.device
     check_steps = 10  # of the two requests that check same seed, same image
     attn_sites = sum(
         isinstance(m, CrossAttention)
@@ -853,32 +1099,12 @@ def phase_restore(model, lq, seed: int, steps: int) -> dict:
     )
     msda_sites = sum(isinstance(m, MSDeformAttn) for m in model.testr.modules())
 
-    def request(req_seed: int, n_steps: int):
-        # score_threshold=0.0 keeps every proposal of the randomly initialised
-        # spotter, so the spliced prompt carries words and the re-encode matters
-        gen = torch.Generator(device=dev).manual_seed(req_seed)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        image, tokens = model.restore_fused_feedback(
-            lq, generator=gen, steps=n_steps, spotter_every=1, score_threshold=0.0
-        )
-        torch.cuda.synchronize()
-        return image, tokens, time.perf_counter() - t
-
-    def check(image, tokens):
-        if tuple(image.shape) != (1, 512, 512, 3) or not torch.isfinite(image).all():
-            raise AssertionError(f"restored image is not finite [1,512,512,3]: {tuple(image.shape)}")
-        if image.min().item() < 0.0 or image.max().item() > 1.0:
-            raise AssertionError("restored image leaves [0, 1]")
-        if tuple(tokens.shape) != (1, 77) or tokens[0, 0].item() != SOT_TOKEN:
-            raise AssertionError("tokens are not [1,77] starting with the start token")
-
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    image, tokens, seconds = request(seed, steps)
+    image, tokens, seconds = restore_request(model, lq, seed, steps)
     counts = launch_counts()
     k1_launches, k3_launches = counts["flash_attention_fwd"], counts["msda_corner_reduce_fwd"]
-    check(image, tokens)
+    check_restored(image, tokens)
     want_k1 = attn_sites * steps + 2
     want_k3 = msda_sites * steps
     if k1_launches != want_k1 or k3_launches != want_k3 or min(k1_launches, k3_launches) == 0:
@@ -888,13 +1114,13 @@ def phase_restore(model, lq, seed: int, steps: int) -> dict:
         )
     peak = torch.cuda.max_memory_allocated()
 
-    image_b, tokens_b, seconds_b = request(seed + 1, steps)
-    check(image_b, tokens_b)
+    image_b, tokens_b, seconds_b = restore_request(model, lq, seed + 1, steps)
+    check_restored(image_b, tokens_b)
     if torch.equal(image, image_b):
         raise AssertionError("two seeds gave the same image")
-    image_c, tokens_c, seconds_c = request(seed + 2, check_steps)
-    image_d, tokens_d, seconds_d = request(seed + 2, check_steps)
-    check(image_c, tokens_c)
+    image_c, tokens_c, seconds_c = restore_request(model, lq, seed + 2, check_steps)
+    image_d, tokens_d, seconds_d = restore_request(model, lq, seed + 2, check_steps)
+    check_restored(image_c, tokens_c)
     if not (torch.equal(image_c, image_d) and torch.equal(tokens_c, tokens_d)):
         raise AssertionError("the same seed gave two different images")
 
@@ -908,7 +1134,128 @@ def phase_restore(model, lq, seed: int, steps: int) -> dict:
         tokens_head=tokens[0, :12].tolist(),
         prompt_tokens=int((tokens != 0).sum().item()),
     )
-    return {"flash_attention_fwd": k1_launches, "msda_corner_reduce_fwd": k3_launches}
+    return counts
+
+
+def phase_restore_flatpatch(model, lq, seed: int, steps: int) -> dict:
+    """The request of phase `restore` with every deformable attention of the
+    spotter on the `flatpatch` core and the patchify kernel, held against the
+    default (`flatlanes`, `concat`) request of the same seed; and `flatlanes`
+    with the patchify kernel beside the default, as an A/B of the main path:
+    seconds per step by the host clock, and kernel launches and device time of
+    one spotter pass by torch.profiler. Returns the flatpatch request's counts."""
+    from tair_tpu_torch.models.attention import CrossAttention
+    from tair_tpu_torch.models.prompt_splice import empty_tokens
+
+    settings = {
+        "flatlanes_concat": MSDA_DEFAULT,
+        "flatpatch_kernel": dict(MSDA_DEFAULT, core="flatpatch", patchify="kernel"),
+        "flatlanes_kernel": dict(MSDA_DEFAULT, patchify="kernel"),
+    }
+    attn_sites = sum(
+        isinstance(m, CrossAttention)
+        for net in (model.cldm.unet, model.cldm.controlnet) for m in net.modules()
+    )
+    runs = {name: [] for name in settings}
+    # default, change, change, ..., default: each setting twice in a row, the
+    # default at both ends of the same call
+    order = ["flatlanes_concat", "flatpatch_kernel", "flatpatch_kernel",
+             "flatlanes_kernel", "flatlanes_kernel", "flatlanes_concat"]
+    try:
+        for name in order:
+            sites = set_msda(model.testr, **settings[name])
+            reset_launch_counts()
+            image, tokens, seconds = restore_request(model, lq, seed + 2, steps)
+            counts = launch_counts()
+            check_restored(image, tokens)
+            runs[name].append(dict(image=image, tokens=tokens, seconds=seconds, counts=counts))
+            want = {
+                "flash_attention_fwd": attn_sites * steps + 2,
+                "msda_corner_reduce_fwd": sites * steps if settings[name]["core"] == "flatlanes" else 0,
+                "patchify_value_fwd": sites * steps if settings[name]["patchify"] == "kernel" else 0,
+            }
+            got = {k: counts[k] for k in want}
+            if got != want or sum(counts.values()) != sum(want.values()):
+                raise AssertionError(f"{name}: launches {counts}, structure says {want}")
+
+        for name, (a, b) in runs.items():
+            if not (torch.equal(a["image"], b["image"]) and torch.equal(a["tokens"], b["tokens"])):
+                raise AssertionError(f"{name}: the same seed gave two different images")
+        base = runs["flatlanes_concat"][0]
+        against_default = {}
+        for name in ("flatpatch_kernel", "flatlanes_kernel"):
+            run = runs[name][0]
+            against_default[name] = dict(
+                image_max_abs_diff=(run["image"].float() - base["image"].float()).abs().max().item(),
+                image_mean_abs_diff=(run["image"].float() - base["image"].float()).abs().mean().item(),
+                tokens_equal=bool(torch.equal(run["tokens"], base["tokens"])),
+            )
+        # the patchify kernel moves the same values as the concat packing, so
+        # flatlanes with it is the same arithmetic on the same bits
+        if against_default["flatlanes_kernel"]["image_max_abs_diff"] != 0.0:
+            raise AssertionError(
+                f"flatlanes with the patchify kernel differs from the default: "
+                f"{against_default['flatlanes_kernel']}"
+            )
+
+        # one spotter pass per setting on the same features: wall and device
+        with torch.no_grad():
+            clean = model.clean(lq)
+            cond = dict(
+                c_txt=model.cldm.clip_encode_tokens(
+                    torch.from_numpy(empty_tokens(1)).to(lq.device).long()),
+                c_img=model.cldm.vae_encode(clean * 2.0 - 1.0, sample=False),
+            )
+            x = torch.randn((1, 64, 64, 4), device=lq.device,
+                            generator=torch.Generator(device=lq.device).manual_seed(0))
+            _, feats = model.cldm.apply(
+                x, torch.full((1,), 500, dtype=torch.int32, device=lq.device), cond)
+            passes, outputs = {}, {}
+            keys = ("enc_logits", "enc_boxes", "pred_logits", "pred_ctrl_points", "pred_texts")
+            for name in settings:
+                set_msda(model.testr, **settings[name])
+                out = model.spotter_apply(feats)
+                out.update(enc_logits=out["enc_outputs"]["pred_logits"],
+                           enc_boxes=out["enc_outputs"]["pred_boxes"])
+                outputs[name] = {k: out[k].float() for k in keys}
+
+                def one_pass() -> float:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    model.spotter_apply(feats)
+                    torch.cuda.synchronize()
+                    return time.perf_counter() - t
+
+                one_pass()
+                walls = [one_pass() for _ in range(5)]
+                prof = profiled(one_pass, watch=("patchify_kernel", "msda_corner_reduce_kernel"))
+                passes[name] = dict(
+                    wall_seconds_median_of_5=statistics.median(walls),
+                    kernel_launches=prof["kernel_launches"],
+                    device_busy_seconds=prof["device_busy_seconds"],
+                    device_seconds_of=prof["watched"],
+                    # bfloat16; the enc_* outputs are the encoder's, before the
+                    # top-k choice of proposals, which small differences flip
+                    outputs_max_abs_diff_from_default={
+                        k: (outputs[name][k] - outputs["flatlanes_concat"][k]).abs().max().item()
+                        for k in keys
+                    },
+                )
+    finally:
+        set_msda(model.testr, **MSDA_DEFAULT)
+
+    emit(
+        "restore_flatpatch", steps=steps, msda_sites=sites,
+        seconds={name: [r["seconds"] for r in rs] for name, rs in runs.items()},
+        seconds_per_step={name: [r["seconds"] / steps for r in rs] for name, rs in runs.items()},
+        order=order, same_seed_same_image=True, against_default=against_default,
+        launches_per_request={
+            name: {k: v for k, v in rs[0]["counts"].items() if v} for name, rs in runs.items()
+        },
+        patchify_launches_per_step=runs["flatpatch_kernel"][0]["counts"]["patchify_value_fwd"] / steps,
+        spotter_pass=passes,
+    )
+    return runs["flatpatch_kernel"][0]["counts"]
 
 
 def phase_layers(model, lq, steps: int) -> None:
@@ -957,9 +1304,14 @@ def phase_layers(model, lq, steps: int) -> None:
 
 
 def phase_profile(phase: str, run) -> None:
+    emit(phase, **profiled(run))
+
+
+def profiled(run, watch=()) -> dict:
     """Device time by kernel over one call of `run` (which returns its wall
     seconds), from torch.profiler, and the device's idle share against the
-    same call's time without the profiler."""
+    same call's time without the profiler. `watch` names kernels (by a part of
+    their name) whose device time and calls are reported whatever their rank."""
     from torch.profiler import ProfilerActivity, profile
 
     wall = run()
@@ -977,20 +1329,24 @@ def phase_profile(phase: str, run) -> None:
     ]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    emit(
-        phase, wall_seconds=wall, wall_seconds_under_profiler=wall_profiled,
+    return dict(
+        wall_seconds=wall, wall_seconds_under_profiler=wall_profiled,
         device_busy_seconds=busy if rows else None,
         device_idle_share=(1.0 - busy / wall) if rows else None,
         kernel_launches=sum(r[2] for r in rows),
         top_kernels=[dict(name=n[:90], seconds=s, calls=c) for n, s, c in rows[:30]],
+        **({"watched": {
+            w: dict(seconds=sum(s for n, s, _ in rows if w in n),
+                    calls=sum(c for n, _, c in rows if w in n)) for w in watch
+        }} if watch else {}),
     )
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--steps", type=int, default=20, help="steps of the two full requests")
-    ap.add_argument("--train-steps", type=int, default=3, help="timed training steps")
+    ap.add_argument("--steps", type=int, default=10, help="steps of the two full requests")
+    ap.add_argument("--train-steps", type=int, default=2, help="timed training steps")
     ap.add_argument("--profile-train", action="store_true",
                     help="also trace one training step with torch.profiler")
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1019,32 +1375,33 @@ def main() -> None:
     smi = phase_device()
     phase_build()
     rng = np.random.default_rng(args.seed)
-    kernels, restore_launches, train_launches = [], {}, {}
+    kernels, path_launches = [], {}
     if "kernels" in phases:
         kernels = [
             check_flash(rng, smi, args.steps),
             *check_flash_bwd(rng, smi),
             check_msda(rng, smi, args.steps),
             check_msda_bwd(rng, smi),
+            check_patchify(rng, smi, args.steps),
         ]
+    if "probes" in phases:
+        probe_kernels, path_launches["probes"] = phase_probes(smi, PROBE_REPS)
+        kernels += probe_kernels
     if "reference" in phases:
         phase_reference(args.seed)
-    if phases & {"restore", "layers"} or args.profile_steps:
+    if phases & {"restore", "restore_flatpatch", "layers"} or args.profile_steps:
         model, lq = build_model(args.seed)
         if "restore" in phases:
-            restore_launches = phase_restore(model, lq, args.seed, args.steps)
+            path_launches["restore"] = phase_restore(model, lq, args.seed, args.steps)
+        if "restore_flatpatch" in phases:
+            path_launches["restore_flatpatch"] = phase_restore_flatpatch(
+                model, lq, args.seed, FLATPATCH_STEPS
+            )
         if "layers" in phases:
             phase_layers(model, lq, args.steps)
         if args.profile_steps:
             def request() -> float:
-                gen = torch.Generator(device=lq.device).manual_seed(args.seed)
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                model.restore_fused_feedback(
-                    lq, generator=gen, steps=args.profile_steps, score_threshold=0.0
-                )
-                torch.cuda.synchronize()
-                return time.perf_counter() - t
+                return restore_request(model, lq, args.seed, args.profile_steps)[2]
 
             phase_profile("profile", request)
         del model, lq
@@ -1052,22 +1409,26 @@ def main() -> None:
     if "train_reference" in phases:
         phase_train_reference(args.seed)
     if "train" in phases:
-        train_launches = phase_train(args.seed, args.train_steps, kernels, args.profile_train)
+        model_kernels = [e for e in kernels if "ms_per_train_step" in e]
+        path_launches["train"] = phase_train(
+            args.seed, args.train_steps, model_kernels, args.profile_train
+        )
     if phases != set(PHASES):
         # a partial run is for development: it prints what it measured and no verdict
-        print(json.dumps({"kernels": kernels, "restore_launches": restore_launches,
-                          "train_step_launches": train_launches}), flush=True)
+        print(json.dumps({"kernels": kernels, "launches": path_launches}), flush=True)
         raise SystemExit(f"partial run of phases {sorted(phases)}: no verdict")
     for entry in kernels:
-        # each main path was driven with the counts set to 0 just before it:
-        # one restore request, and the last training step
-        entry["launches_restore"] = restore_launches.get(entry["name"], 0)
-        entry["launches_train_step"] = train_launches[entry["name"]]
-        entry["launches"] = entry["launches_restore"] + entry["launches_train_step"]
-        if entry["launches_train_step"] < 1 or (
-            entry["name"] in restore_launches and entry["launches_restore"] < 1
-        ):
-            raise AssertionError(f"{entry['name']} was not launched on a main path that runs it")
+        # each path was driven with the counts set to 0 just before it: one restore
+        # request, one flatpatch request, the last training step, the probes' runs
+        entry["launches_by_path"] = {
+            path: path_launches[path][entry["name"]] for path in entry["paths"]
+        }
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        if min(entry["launches_by_path"].values()) < 1:
+            raise AssertionError(
+                f"{entry['name']} was not launched on a path that runs it: "
+                f"{entry['launches_by_path']}"
+            )
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -19,7 +19,10 @@ from pathlib import Path
 from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "msda_reduce")
+KERNEL_SOURCES = (
+    "flash_attention", "flash_attention_bwd", "msda_reduce", "patchify",
+    "probe_gather", "probe_stream", "probe_msda_lab",
+)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

@@ -42,6 +42,9 @@ class TESTRConfig:
     voc_size: int = 96                # char vocabulary (plus 1 for EOS/blank)
     in_channels: Tuple[int, ...] = (1280, 1280, 640, 320)
     test_score_threshold: float = 0.5
+    # encoder msda query block; 16384 leaves inference shapes unchunked, lower
+    # it for large-batch training to bound what autograd saves
+    enc_msda_q_chunk: int = 16384
 
 
 class DiffFeatProj(nn.Module):
@@ -98,6 +101,7 @@ class TESTR(nn.Module):
             enc_n_points=cfg.enc_n_points,
             dec_n_points=cfg.dec_n_points,
             num_proposals=cfg.num_proposals,
+            enc_msda_q_chunk=cfg.enc_msda_q_chunk,
         )
         # heads shared across decoder layers
         self.ctrl_point_class = nn.Linear(c, 1)

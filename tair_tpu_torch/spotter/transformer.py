@@ -109,9 +109,14 @@ def proposal_pos_embed(boxes: torch.Tensor, d_model: int = 256) -> torch.Tensor:
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
-                 n_points: int):
+                 n_points: int, msda_q_chunk: int = 16384,
+                 msda_core: str = "flatlanes"):
         super().__init__()
-        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
+        # 16384 queries a block leaves the encoder's Q = S unchunked at
+        # inference shapes; training at a large batch can lower it
+        self.self_attn = MSDeformAttn(
+            d_model, n_levels, n_heads, n_points, core=msda_core, q_chunk=msda_q_chunk
+        )
         self.norm1 = LayerNorm32(d_model)
         self.norm2 = LayerNorm32(d_model)
         self.linear1 = nn.Linear(d_model, d_ffn)
@@ -128,7 +133,8 @@ class CompositeDecoderLayer(nn.Module):
     """Location branch + factorized text branch (one decoder layer)."""
 
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
-                 n_points: int):
+                 n_points: int, msda_q_chunk: int = 16384,
+                 msda_core: str = "flatlanes"):
         super().__init__()
         self.n_levels = n_levels
         for suffix in ("", "_text"):
@@ -137,7 +143,8 @@ class CompositeDecoderLayer(nn.Module):
             setattr(self, f"attn_inter{suffix}", MultiHeadAttention(d_model, n_heads))
             setattr(self, f"norm_inter{suffix}", LayerNorm32(d_model))
             setattr(self, f"attn_cross{suffix}",
-                    MSDeformAttn(d_model, n_levels, n_heads, n_points))
+                    MSDeformAttn(d_model, n_levels, n_heads, n_points,
+                                 core=msda_core, q_chunk=msda_q_chunk))
             setattr(self, f"norm_cross{suffix}", LayerNorm32(d_model))
             setattr(self, f"linear1{suffix}", nn.Linear(d_model, d_ffn))
             setattr(self, f"linear2{suffix}", nn.Linear(d_ffn, d_model))
@@ -227,6 +234,7 @@ class DeformableTransformer(nn.Module):
         enc_n_points: int = 4,
         dec_n_points: int = 4,
         num_proposals: int = 100,
+        enc_msda_q_chunk: int = 16384,
     ):
         super().__init__()
         self.d_model = d_model
@@ -243,7 +251,8 @@ class DeformableTransformer(nn.Module):
         self.pos_trans_norm = LayerNorm32(d_model)
         for i in range(num_encoder_layers):
             setattr(self, f"enc_{i}",
-                    EncoderLayer(d_model, d_ffn, n_levels, n_heads, enc_n_points))
+                    EncoderLayer(d_model, d_ffn, n_levels, n_heads, enc_n_points,
+                                 msda_q_chunk=enc_msda_q_chunk))
         for i in range(num_decoder_layers):
             setattr(self, f"dec_{i}",
                     CompositeDecoderLayer(d_model, d_ffn, n_levels, n_heads, dec_n_points))

@@ -16,7 +16,12 @@ MODULES = [
     "tair_tpu_torch.ops.attention",
     "tair_tpu_torch.ops.flash_attention",
     "tair_tpu_torch.ops.msda_reduce",
+    "tair_tpu_torch.ops.patchify",
     "tair_tpu_torch.ops._build",
+    "tair_tpu_torch.probes",
+    "tair_tpu_torch.probes.dyngather",
+    "tair_tpu_torch.probes.stream",
+    "tair_tpu_torch.probes.msda_lab",
     "tair_tpu_torch.diffusion.schedules",
     "tair_tpu_torch.diffusion.diffusion",
     "tair_tpu_torch.sampler.spaced",
@@ -108,11 +113,14 @@ def test_kernel_wrappers_do_not_build_on_import():
     proc = _run(
         """
         import tair_tpu_torch.ops.flash_attention, tair_tpu_torch.ops.msda_reduce
-        import tair_tpu_torch.train.step
+        import tair_tpu_torch.ops.patchify, tair_tpu_torch.train.step
+        import tair_tpu_torch.probes.dyngather, tair_tpu_torch.probes.stream
+        import tair_tpu_torch.probes.msda_lab
         from tair_tpu_torch.ops import _build
         assert not _build._LIBS
         assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-            "flash_attention.cu", "flash_attention_bwd.cu", "msda_reduce.cu"}
+            "flash_attention.cu", "flash_attention_bwd.cu", "msda_reduce.cu",
+            "patchify.cu", "probe_gather.cu", "probe_stream.cu", "probe_msda_lab.cu"}
         assert set(_build.KERNEL_SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
         print("ok")
         """

@@ -1,7 +1,8 @@
 """Port's MSDeformAttn (flatlanes core + corner reduce) against the JAX module
 with the Pallas reduce in interpret mode, and against the four-gather oracle,
 with sampling points pushed outside [0, 1] so the zero-padding border logic
-and the clamped patch start are exercised."""
+and the clamped patch start are exercised; the module on its ``flat`` and
+``flatpatch`` cores against the JAX module with the same field."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,10 +25,11 @@ S = sum(h * w for h, w in SHAPES)
 D_MODEL, HEADS, POINTS = 32, 4, 2
 
 
-def _pair(seed=0):
+def _pair(seed=0, core="flatlanes", **torch_fields):
     jm = JaxMSDA(
         d_model=D_MODEL, n_levels=len(SHAPES), n_heads=HEADS, n_points=POINTS,
-        core="flatlanes", reduce_mode="pallas_interpret",
+        core=core, reduce_mode="pallas_interpret",
+        **({"q_chunk": torch_fields["q_chunk"]} if "q_chunk" in torch_fields else {}),
     )
     shapes = jax_shapes(
         lambda key, *args: jm.init(key, *args, SHAPES),
@@ -41,7 +43,9 @@ def _pair(seed=0):
             params["sampling_offsets"]["bias"].shape
         ).astype(np.float32)
     )
-    tm = load_module(MSDeformAttn(D_MODEL, len(SHAPES), HEADS, POINTS), params)
+    tm = load_module(
+        MSDeformAttn(D_MODEL, len(SHAPES), HEADS, POINTS, core=core, **torch_fields), params
+    )
     return jm, params, tm
 
 
@@ -61,6 +65,50 @@ def test_module_matches_jax_flatlanes_pallas_interpret(ref_dim):
     with torch.no_grad():
         got = tm(torch.from_numpy(query), torch.from_numpy(ref), torch.from_numpy(value), SHAPES)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
+
+
+@pytest.mark.parametrize("ref_dim", [2, 4])
+@pytest.mark.parametrize("core", ["flat", "flatpatch"])
+def test_module_matches_jax_on_the_unpacked_cores(core, ref_dim):
+    """The non-packed location path. The JAX module hands neither `patchify`
+    nor `reduce` to these cores; the port's builds the packed table through
+    the patchify kernel's plain version here, which is the same function. The
+    4-wide case also runs in query blocks that do not divide Q on both sides."""
+    fields = {"q_chunk": 8} if ref_dim == 4 else {}
+    if core == "flatpatch":
+        fields["patchify"] = "kernel"
+    jm, params, tm = _pair(seed=12, core=core, **fields)
+    rng = np.random.default_rng(13)
+    b, q = 2, 23
+    query = rng.standard_normal((b, q, D_MODEL), dtype=np.float32)
+    value = rng.standard_normal((b, S, D_MODEL), dtype=np.float32)
+    ref = rng.uniform(-0.2, 1.2, (b, q, len(SHAPES), ref_dim)).astype(np.float32)
+    if ref_dim == 4:
+        ref[..., 2:] = rng.uniform(0.1, 1.5, ref[..., 2:].shape)
+    want = jm.apply(
+        {"params": params}, jnp.asarray(query), jnp.asarray(ref), jnp.asarray(value), SHAPES
+    )
+    with torch.no_grad():
+        got = tm(torch.from_numpy(query), torch.from_numpy(ref), torch.from_numpy(value), SHAPES)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
+
+
+def test_every_core_loads_the_same_converted_tree_strictly():
+    """The cores are layouts of one function: the parameters, and so the
+    weight converter's leaves, are the same for each."""
+    from tair_tpu_torch.weights.convert import convert_tree
+
+    _, params, tm = _pair(seed=14)
+    state = convert_tree(params)
+    for core in ("flat", "flatpatch", "flatlanes"):
+        mod = MSDeformAttn(D_MODEL, len(SHAPES), HEADS, POINTS, core=core, patchify="kernel")
+        result = mod.load_state_dict(state, strict=True)
+        assert not result.missing_keys and not result.unexpected_keys
+        assert set(mod.state_dict()) == set(tm.state_dict())
+    with pytest.raises(ValueError, match="core"):
+        bad = MSDeformAttn(D_MODEL, len(SHAPES), HEADS, POINTS, core="patch")
+        bad(torch.zeros(1, 2, D_MODEL), torch.zeros(1, 2, len(SHAPES), 2),
+            torch.zeros(1, S, D_MODEL), SHAPES)
 
 
 def _lane_pack(loc, attn):

@@ -57,6 +57,61 @@ def test_testr_aux_and_encoder_outputs(outputs):
         )
 
 
+def _set_msda(testr, **fields):
+    from tair_tpu_torch.spotter.ms_deform_attn import MSDeformAttn
+
+    mods = [m for m in testr.modules() if isinstance(m, MSDeformAttn)]
+    before = [{k: getattr(m, k) for k in fields} for m in mods]
+    for m in mods:
+        for k, v in fields.items():
+            setattr(m, k, v)
+    return mods, before
+
+
+def test_spotter_on_flatpatch_with_the_patchify_kernel_is_the_same_function(pair, feats, outputs):
+    """Every deformable attention of the tiny spotter on the `flatpatch` core
+    with the packed table from the patchify kernel's plain version: equal to
+    the spotter on its default `flatlanes` core (1e-5: the same sums in another
+    order) and to the JAX spotter."""
+    _, _, tm = pair
+    out_j, out_lanes = outputs
+    mods, before = _set_msda(tm.testr, core="flatpatch", patchify="kernel")
+    assert len(mods) == 1 + 2 * 2  # tiny: 1 encoder layer, 2 decoder layers x 2 branches
+    try:
+        with torch.no_grad():
+            out_patch = tm.spotter_apply(tuple(torch.from_numpy(f) for f in feats))
+    finally:
+        for m, fields in zip(mods, before):
+            for k, v in fields.items():
+                setattr(m, k, v)
+    for key in ("pred_logits", "pred_ctrl_points", "pred_texts"):
+        np.testing.assert_allclose(t2n(out_patch[key]), t2n(out_lanes[key]), atol=1e-5)
+        np.testing.assert_allclose(t2n(out_patch[key]), np.asarray(out_j[key]), atol=TOL)
+    for key in ("pred_logits", "pred_boxes"):
+        np.testing.assert_allclose(
+            t2n(out_patch["enc_outputs"][key]), t2n(out_lanes["enc_outputs"][key]), atol=1e-5
+        )
+
+
+def test_enc_msda_q_chunk_reaches_the_encoder_layers_only(pair, feats, outputs):
+    import dataclasses
+
+    from tair_tpu_torch.spotter.testr import TESTR
+
+    _, _, tm = pair
+    cfg = dataclasses.replace(tm.testr.cfg, enc_msda_q_chunk=7)
+    chunked = TESTR(cfg)
+    chunked.load_state_dict(tm.testr.state_dict(), strict=True)
+    tr = chunked.transformer
+    assert tr.enc_0.self_attn.q_chunk == 7 and tr.dec_0.attn_cross.q_chunk == 16384
+    assert tm.testr.transformer.enc_0.self_attn.q_chunk == 16384
+    with torch.no_grad():
+        out = chunked.eval()(tuple(torch.from_numpy(f) for f in feats))
+    # S = 148 tokens in blocks of 7: the same sums, block by block
+    for key in ("pred_logits", "pred_ctrl_points", "pred_texts"):
+        np.testing.assert_allclose(t2n(out[key]), t2n(outputs[1][key]), atol=1e-5)
+
+
 def test_spotter_inference_decode(outputs):
     out_j, out_t = outputs
     res_j = jax_inference(out_j, 0.5, image_size=64)
