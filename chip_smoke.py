@@ -4,17 +4,20 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout and holds each of the
-six model kernels (flash attention forward, dQ, dK/dV; msda corner reduce
-forward, backward; the msda patchify kernel) against its plain PyTorch version
-at every shape the main paths give it, in bfloat16 and float32, with its time
-beside its bound, and each probe kernel (gather, stream, msda lab) against its
-plain version at the probe's shape. Then it drives the paths of the port and
-checks that each went through its kernels:
+eight model kernels (flash attention forward and dK/dV on the tensor cores for
+bfloat16 at D <= 128, and on FMA for float32 and D = 512; dQ; msda corner
+reduce forward, backward; the msda patchify kernel) against its plain PyTorch
+version at every shape the main paths give it, with its time beside its bound
+(each tensor-core kernel timed in turns with the FMA kernel it replaces), and
+each probe kernel (gather, stream, msda lab) against its plain version at the
+probe's shape. Then it drives the paths of the port and checks that each went
+through its kernels:
 
   probes    the three probes of the card, each through its own ``run`` (phase
             probes);
   serving   ``TeReDiff.restore_fused_feedback``, full width, bfloat16, random
-            weights from a seed (phases reference, restore, layers), and the
+            weights from a seed (phases restore, layers; the tiny model in
+            float32 against the CPU in phase reference), and the
             same request with every deformable attention of the spotter on the
             ``flatpatch`` core and the patchify kernel (phase
             restore_flatpatch, which also times ``flatlanes`` with the patchify
@@ -171,6 +174,16 @@ def per_step_sums(rows, key: str) -> dict:
     }
 
 
+def device_sums(rows) -> dict:
+    """`per_restore_sums` and `per_step_sums` of the kernels' device time."""
+    return {
+        "device_ms_per_restore": sum(
+            r["device_ms"] * r["calls_per_restore"] for r in rows if r["dtype"] == "bfloat16"
+        ),
+        **per_step_sums(rows, "device_ms"),
+    }
+
+
 def per_restore_sums(rows) -> dict:
     """Milliseconds of one restore spent in a kernel, its plain version, its
     bound and the library call: each bfloat16 shape's time times its calls."""
@@ -205,7 +218,37 @@ def phase_build() -> None:
          libraries={p.name: _build.resource_usage(p) for p in paths})
 
 
-def check_flash(rng: np.random.Generator, smi: str, steps: int) -> dict:
+def in_turns(first, second) -> tuple:
+    """Times of two functions timed in turns in one call (first, second,
+    second, first): (median ms of first, median ms of second, all four)."""
+    t = [time_ms(first), time_ms(second), time_ms(second), time_ms(first)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def device_ms(calls: dict, n: int = 10) -> dict:
+    """Device milliseconds per call of each function of `calls` (name -> (fn,
+    parts of its kernels' names)) from `profiled` over n calls of each: the
+    kernels' own time, without the host's time to launch them."""
+    def run() -> float:
+        t = time.perf_counter()
+        for fn, _ in calls.values():
+            for _ in range(n):
+                fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    watched = profiled(run, watch=tuple(p for _, parts in calls.values() for p in parts))["watched"]
+    return {
+        name: 1e3 * sum(watched[p]["seconds"] for p in parts) / n
+        for name, (_, parts) in calls.items()
+    }
+
+
+def check_flash(rng: np.random.Generator, smi: str, steps: int) -> list:
+    """The tensor-core forward (bfloat16, D <= 128) and the FMA forward (float32,
+    D = 512, and beside the tensor-core kernel at every bfloat16 shape, timed in
+    turns with it) against the plain version, with times, bounds, plain and
+    library times. Returns the two kernels' entries."""
     import torch.nn.functional as F
 
     from tair_tpu_torch.ops import flash_attention as fa
@@ -220,49 +263,79 @@ def check_flash(rng: np.random.Generator, smi: str, steps: int) -> dict:
             q, k, v = (
                 torch.from_numpy(a).cuda().to(dtype)[:, :, :h] for a in (qn, kn, vn)
             )
-            out, lse = fa.flash_attention(q, k, v)
-            torch.cuda.synchronize()
+            scale = 1.0 / d ** 0.5
+            tc = fa.tensor_core_kernels(dtype, d)
             rtol, atol = K1_TOL[dtype]
             ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float())
-            err, share = held_error(out, ref, rtol, atol)
-            lse_err = (lse - ref_lse).abs().max().item()
-            if not (share <= 1.0 and lse_err <= K1_LSE_TOL):
-                raise AssertionError(
-                    f"flash_attention {name} {dtype}: |dO| {err}, {share} of its "
-                    f"tolerance {rtol} * |O| + {atol}; |dlse| {lse_err} (tol {K1_LSE_TOL})"
-                )
+            held = {}
+            # the wrapper's own choice first; at a tensor-core shape, the FMA
+            # kernel on the same values as well
+            for which, fn in (
+                ("fwd_tc" if tc else "fwd", lambda: fa.flash_attention(q, k, v)),
+                *((("fwd", lambda: fa._launch(q, k, v, scale, "fwd")),) if tc else ()),
+            ):
+                out, lse = fn()
+                torch.cuda.synchronize()
+                err, share = held_error(out, ref, rtol, atol)
+                lse_err = (lse - ref_lse).abs().max().item()
+                if not (share <= 1.0 and lse_err <= K1_LSE_TOL):
+                    raise AssertionError(
+                        f"flash_attention {which} {name} {dtype}: |dO| {err}, {share} of its "
+                        f"tolerance {rtol} * |O| + {atol}; |dlse| {lse_err} (tol {K1_LSE_TOL})"
+                    )
+                held[which] = dict(max_abs_err=err, max_share_of_tol=share, lse_abs_err=lse_err)
             ref_abs_mean = ref.abs().mean().item()
-            del ref, ref_lse
+            del ref, ref_lse, out, lse
             flops = 4.0 * tq * tk * d * h * b
             nbytes = b * ((2 * tq * d * h + 2 * tk * d * h) * q.element_size() + 4 * tq * h)
-            t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
-            ms = time_ms(lambda: fa.flash_attention(q, k, v))
+            kernels = {
+                "fwd_tc": (lambda: fa._launch(q, k, v, scale, "fwd_tc"), ("flash_fwd_tc_kernel",)),
+                "fwd": (lambda: fa._launch(q, k, v, scale, "fwd"), ("flash_fwd_kernel",)),
+            }
+            if tc:
+                ms, fma_ms, turns = in_turns(kernels["fwd_tc"][0], kernels["fwd"][0])
+                dev = device_ms(kernels)
+            else:
+                ms, fma_ms, turns = time_ms(kernels["fwd"][0]), None, None
+                dev = {"fwd": device_ms({"fwd": kernels["fwd"]})["fwd"], "fwd_tc": None}
             plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v))
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            mine = held["fwd_tc" if tc else "fwd"]
             rows.append(dict(
-                shape=name, batch=b, tq=tq, tk=tk, heads=h, d=d,
-                dtype=str(dtype).split(".")[-1],
+                kernel="fwd_tc" if tc else "fwd", shape=name, batch=b, tq=tq, tk=tk,
+                heads=h, d=d, dtype=str(dtype).split(".")[-1],
                 calls_per_restore=per_step * steps + per_restore,
-                calls_per_train_step=per_step + per_restore, max_abs_err=err,
-                rtol=rtol, atol=atol, max_share_of_tol=share,
-                mean_abs_plain=ref_abs_mean, lse_abs_err=lse_err, ms=ms,
+                calls_per_train_step=per_step + per_restore, **mine, held=held,
+                rtol=rtol, atol=atol, mean_abs_plain=ref_abs_mean, ms=ms,
+                fma_ms=fma_ms, turns_ms=turns,
+                device_ms=dev["fwd_tc" if tc else "fwd"], fma_device_ms=dev["fwd"] if tc else None,
                 plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                **bound_of(flops, nbytes, dtype),
             ))
-    head = next(r for r in rows if r["shape"] == "unet_self_64" and r["dtype"] == "bfloat16")
-    emit("kernels", kernel="flash_attention_fwd", card=smi, shapes=rows,
-         **per_restore_sums(rows), **per_step_sums(rows, "ms"))
-    return dict(
-        name="flash_attention_fwd", route="cuda",
-        source="tair_tpu_torch/ops/csrc/flash_attention.cu",
-        replaces="tair_tpu/ops/flash_attention.py:168",
-        shape="Tq=Tk=4096 H=5 D=64 bfloat16", max_abs_err=head["max_abs_err"],
-        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=head["library_ms"],
-        paths=("restore", "restore_flatpatch", "train"), **per_step_sums(rows, "ms"),
-    )
+    entries = []
+    for which, file, head_shape, paths in (
+        ("fwd_tc", "flash_attention_tc.cu", ("unet_self_64", "Tq=Tk=4096 H=5 D=64 bfloat16"),
+         ("restore", "restore_flatpatch", "train")),
+        ("fwd", "flash_attention.cu", ("vae_mid", "T=4096 H=1 D=512 bfloat16"),
+         ("restore", "restore_flatpatch", "train", "reference")),
+    ):
+        mine = [r for r in rows if r["kernel"] == which]
+        head = next(r for r in mine if r["shape"] == head_shape[0] and r["dtype"] == "bfloat16")
+        emit("kernels", kernel=f"flash_attention_{which}", card=smi, shapes=mine,
+             **per_restore_sums(mine), **per_step_sums(mine, "ms"), **device_sums(mine))
+        entries.append(dict(
+            name=f"flash_attention_{which}", route="cuda",
+            source=f"tair_tpu_torch/ops/csrc/{file}",
+            replaces="tair_tpu/ops/flash_attention.py:168", shape=head_shape[1],
+            max_abs_err=head["max_abs_err"], ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"], paths=paths, **per_step_sums(mine, "ms"),
+            device_ms=head["device_ms"],
+            **({"fma_ms": head["fma_ms"], "fma_device_ms": head["fma_device_ms"]}
+               if which == "fwd_tc" else {}),
+        ))
+    return entries
 
 
 def check_msda(rng: np.random.Generator, smi: str, steps: int) -> dict:
@@ -314,10 +387,12 @@ def check_msda(rng: np.random.Generator, smi: str, steps: int) -> dict:
 
 def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
     """dQ and dK/dV kernels at the forward's shapes (all but the autoencoder's
-    D=512, which is never differentiated), against the plain backward, and the
-    time of each beside its bound, the plain backward and autograd through
-    PyTorch's fused attention (one call gives all three gradients, so that
-    time stands beside the two kernels' sum)."""
+    D=512, which is never differentiated), against the plain backward: the
+    tensor-core dK/dV in bfloat16 with the FMA dK/dV beside it (checked too,
+    timed in turns with it), the FMA dK/dV in float32, dQ in both. Each time
+    stands beside its bound, the plain backward and autograd through PyTorch's
+    fused attention (one call gives all three gradients, so that time stands
+    beside the kernels' sum)."""
     import torch.nn.functional as F
 
     from tair_tpu_torch.ops import flash_attention as fa
@@ -336,25 +411,32 @@ def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
                 torch.from_numpy(a).cuda().to(dtype)[:, :, :h] for a in arrays
             )
             scale = 1.0 / d ** 0.5
+            dkv = "dkv_tc" if fa.tensor_core_kernels(dtype, d) else "dkv"
             out, lse = fa.flash_attention(q, k, v, scale)
             delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
             dq = fa._launch_backward_kernel("dq", q, k, v, do, lse, delta, scale)
-            dk, dv = fa._launch_backward_kernel("dkv", q, k, v, do, lse, delta, scale)
+            got = {"dq": (dq,)}
+            for which in dict.fromkeys((dkv, "dkv")):
+                got[which] = fa._launch_backward_kernel(which, q, k, v, do, lse, delta, scale)
             torch.cuda.synchronize()
             refs = fa.flash_attention_bwd_plain(
                 q.float(), k.float(), v.float(), out.float(), lse, do.float(), scale
             )
             held = {}
-            for gname, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
-                err, share, mean = held_grad_error(got, ref, dtype)
-                held[gname] = dict(max_abs_err=err, max_share_of_tol=share, mean_abs_plain=mean)
-                if not share <= 1.0:
-                    rtol, afrac = GRAD_TOL[dtype]
-                    raise AssertionError(
-                        f"flash_attention backward {name} {dtype} {gname}: |d| {err}, "
-                        f"{share} of its tolerance {rtol} * |g| + {afrac} * mean|g| "
-                        f"(mean|g| {mean})"
+            for which, grads in got.items():
+                names, wants = (("dq",), refs[:1]) if which == "dq" else (("dk", "dv"), refs[1:])
+                for gname, g, ref in zip(names, grads, wants):
+                    err, share, mean = held_grad_error(g, ref, dtype)
+                    held.setdefault(which, {})[gname] = dict(
+                        max_abs_err=err, max_share_of_tol=share, mean_abs_plain=mean
                     )
+                    if not share <= 1.0:
+                        rtol, afrac = GRAD_TOL[dtype]
+                        raise AssertionError(
+                            f"flash_attention {which} {name} {dtype} {gname}: |d| {err}, "
+                            f"{share} of its tolerance {rtol} * |g| + {afrac} * mean|g| "
+                            f"(mean|g| {mean})"
+                        )
             del refs
             # the same gradients through autograd and the Function, with dO
             # handed over in another layout (heads outermost): the same kernels
@@ -362,17 +444,29 @@ def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
             do_hm = do.transpose(1, 2).contiguous().transpose(1, 2)
             via_fn = torch.autograd.grad(fa.flash_attention(*leaves, scale)[0], leaves, do_hm)
-            if not all(torch.equal(a, b_) for a, b_ in zip(via_fn, (dq, dk, dv))):
+            if not all(torch.equal(a, b_) for a, b_ in zip(via_fn, (dq, *got[dkv]))):
                 raise AssertionError(
                     f"flash_attention {name} {dtype}: autograd through the Function "
                     "disagrees with the backward kernels called directly"
                 )
-            del leaves, via_fn, do_hm
+            del leaves, via_fn, do_hm, got
             qkv_bytes = (2 * tq + 2 * tk) * d * h * b * q.element_size()  # q, dO, k, v
             stats_bytes = 2 * 4 * tq * h * b                              # lse, delta
             prod = 2.0 * tq * tk * d * h * b                              # one product
             ms_dq = time_ms(lambda: fa._launch_backward_kernel("dq", q, k, v, do, lse, delta, scale))
-            ms_dkv = time_ms(lambda: fa._launch_backward_kernel("dkv", q, k, v, do, lse, delta, scale))
+            kernels = {
+                which: (lambda which=which: fa._launch_backward_kernel(
+                    which, q, k, v, do, lse, delta, scale), parts)
+                for which, parts in (("dkv_tc", ("flash_dkv_tc_kernel", "sum_partials_kernel")),
+                                     ("dkv", ("flash_dkv_kernel",)), ("dq", ("flash_dq_kernel",)))
+            }
+            if dkv == "dkv_tc":
+                ms_dkv, fma_ms, turns = in_turns(kernels["dkv_tc"][0], kernels["dkv"][0])
+                dev = device_ms(kernels)
+            else:
+                ms_dkv = time_ms(kernels["dkv"][0])
+                fma_ms = turns = None
+                dev = device_ms({k: kernels[k] for k in ("dkv", "dq")})
             plain_ms = time_ms(
                 lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do, scale), reps=3
             )
@@ -389,32 +483,45 @@ def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
                 plain_ms_dq_and_dkv=plain_ms, library_ms_dq_and_dkv=library_ms,
             )
             rows.append(dict(
-                kernel="dq", **common, ms=ms_dq, held=dict(dq=held["dq"]),
+                kernel="dq", **common, ms=ms_dq, device_ms=dev["dq"], held=held["dq"],
                 **bound_of(3 * prod, qkv_bytes + stats_bytes + tq * d * h * b * q.element_size(), dtype),
             ))
             rows.append(dict(
-                kernel="dkv", **common, ms=ms_dkv, held=dict(dk=held["dk"], dv=held["dv"]),
+                kernel=dkv, **common, ms=ms_dkv, device_ms=dev[dkv], held=held[dkv],
+                **({"fma_ms": fma_ms, "turns_ms": turns, "fma_device_ms": dev["dkv"],
+                    "fma_held": held["dkv"],
+                    "query_split": fa.dkv_query_split(b, h, tq, tk)} if dkv == "dkv_tc" else {}),
                 **bound_of(4 * prod, qkv_bytes + stats_bytes + 2 * tk * d * h * b * q.element_size(), dtype),
             ))
     entries = []
-    for which, site in (("dq", 229), ("dkv", 245)):
+    for which, site, file, head_dtype, paths in (
+        ("dq", 229, "flash_attention_bwd.cu", "bfloat16", ("train", "train_reference")),
+        ("dkv_tc", 245, "flash_attention_dkv_tc.cu", "bfloat16", ("train",)),
+        ("dkv", 245, "flash_attention_bwd.cu", "float32", ("train_reference",)),
+    ):
         mine = [r for r in rows if r["kernel"] == which]
-        head = next(r for r in mine if r["shape"] == "unet_self_64" and r["dtype"] == "bfloat16")
-        emit("kernels", kernel=f"flash_attention_{which}", card=smi, shapes=mine,
-             **per_step_sums(mine, "ms"), **per_step_sums(mine, "bound_ms"),
-             **per_step_sums(mine, "plain_ms_dq_and_dkv"),
-             **per_step_sums(mine, "library_ms_dq_and_dkv"))
+        head = next(r for r in mine if r["shape"] == "unet_self_64" and r["dtype"] == head_dtype)
+        on_train_step = which != "dkv"  # the FMA dK/dV runs only in float32
+        sums = {}
+        if on_train_step:
+            for key in ("ms", "device_ms", "bound_ms", "plain_ms_dq_and_dkv",
+                        "library_ms_dq_and_dkv"):
+                sums.update(per_step_sums(mine, key))
+        emit("kernels", kernel=f"flash_attention_{which}", card=smi, shapes=mine, **sums)
         entries.append(dict(
             name=f"flash_attention_{which}", route="cuda",
-            source="tair_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            source=f"tair_tpu_torch/ops/csrc/{file}",
             replaces=f"tair_tpu/ops/flash_attention.py:{site}",
-            shape="Tq=Tk=4096 H=5 D=64 bfloat16",
+            shape=f"Tq=Tk=4096 H=5 D=64 {head_dtype}",
             max_abs_err=max(g["max_abs_err"] for g in head["held"].values()),
             ms=head["ms"], plain_ms=head["plain_ms_dq_and_dkv"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms_dq_and_dkv"],
             plain_and_library_cover="dq + dkv (one call gives all three gradients)",
-            paths=("train",), **per_step_sums(mine, "ms"),
+            paths=paths, device_ms=head["device_ms"],
+            **({"ms_per_train_step": sums["ms_per_train_step"]} if on_train_step else {}),
+            **({"fma_ms": head["fma_ms"], "fma_device_ms": head["fma_device_ms"]}
+               if which == "dkv_tc" else {}),
         ))
     return entries
 
@@ -648,10 +755,11 @@ def phase_probes(smi: str, reps: int):
     return entries, counts
 
 
-def phase_reference(seed: int) -> None:
+def phase_reference(seed: int) -> dict:
     """The whole loop on a small input against a reference: the tiny model in
-    float32 on the card (attention and msda through the kernels) and the same
-    weights, input and noise on the CPU (plain versions)."""
+    float32 on the card (attention through the FMA forward, msda through the
+    reduce kernel) and the same weights, input and noise on the CPU (plain
+    versions). Returns the launch counts of the card's default request."""
     from tair_tpu_torch.pipeline import build_tiny_model
 
     steps, tol = 3, 1e-3  # float32 on both sides through 3 full steps
@@ -674,7 +782,7 @@ def phase_reference(seed: int) -> None:
     torch.cuda.synchronize()
     counts = launch_counts()
     launches = (counts["flash_attention_fwd"], counts["msda_corner_reduce_fwd"])
-    backward = [k for k, n in counts.items() if n and not k.endswith("_fwd")]
+    backward = [k for k, n in counts.items() if n and not k.endswith(("_fwd", "_fwd_tc"))]
     if backward:
         raise AssertionError(f"the restore loop launched backward kernels: {backward}")
     img_r, tok_r = ref.restore_fused_feedback(
@@ -711,6 +819,7 @@ def phase_reference(seed: int) -> None:
         flatpatch_vs_flatlanes_max_abs_err=patch_err, flatpatch_tol=patch_tol,
         flatpatch_tokens_equal=True, patchify_launches=k4,
     )
+    return counts
 
 
 def _counted_modules():
@@ -752,24 +861,36 @@ def set_msda(testr, **fields) -> int:
 MSDA_DEFAULT = dict(core="flatlanes", reduce_mode="kernel", patchify="concat")
 
 
-def predicted_train_launches(model) -> dict:
+def attention_sites(model, dtype: torch.dtype) -> tuple:
+    """(tensor-core, FMA) attention sites of the UNet and the ControlNet when
+    they compute in `dtype`, by each site's head width."""
+    from tair_tpu_torch.models.attention import CrossAttention
+    from tair_tpu_torch.ops.flash_attention import tensor_core_kernels
+
+    widths = [
+        m.dim_head for net in (model.cldm.unet, model.cldm.controlnet)
+        for m in net.modules() if isinstance(m, CrossAttention)
+    ]
+    tc = sum(tensor_core_kernels(dtype, d) for d in widths)
+    return tc, len(widths) - tc
+
+
+def predicted_train_launches(model, compute_dtype: torch.dtype) -> dict:
     """Kernel launches of one stage-3 training step, from the model's
     structure: every attention of the UNet and the ControlNet runs forward, dQ
-    and dK/dV once; the frozen autoencoder's middle attention runs forward in
+    and dK/dV once, on the tensor-core kernels where `attention_sites` says so;
+    the frozen autoencoder's middle attention (D = 512) runs the FMA forward in
     each of the two encodes; every deformable attention of the spotter runs the
     reduce forward and backward once."""
-    from tair_tpu_torch.models.attention import CrossAttention
     from tair_tpu_torch.spotter.ms_deform_attn import MSDeformAttn
 
-    attn = sum(
-        isinstance(m, CrossAttention)
-        for net in (model.cldm.unet, model.cldm.controlnet) for m in net.modules()
-    )
+    tc, fma = attention_sites(model, compute_dtype)
     msda = sum(isinstance(m, MSDeformAttn) for m in model.testr.modules())
     return {
         **dict.fromkeys(launch_counts(), 0),  # no other kernel runs in a training step
-        "flash_attention_fwd": attn + 2, "flash_attention_dq": attn,
-        "flash_attention_dkv": attn, "msda_corner_reduce_fwd": msda,
+        "flash_attention_fwd": fma + 2, "flash_attention_fwd_tc": tc,
+        "flash_attention_dq": tc + fma, "flash_attention_dkv": fma,
+        "flash_attention_dkv_tc": tc, "msda_corner_reduce_fwd": msda,
         "msda_corner_reduce_bwd": msda,
     }
 
@@ -871,10 +992,11 @@ def watch_gradients(state, model, marks=None) -> dict:
     return seen
 
 
-def phase_train_reference(seed: int) -> None:
+def phase_train_reference(seed: int) -> dict:
     """One stage-3 step of the tiny model in float32 on the card, through the
-    five kernels, against the same weights, batch and draws on the CPU through
-    the plain versions."""
+    FMA flash kernels and the msda kernels, against the same weights, batch and
+    draws on the CPU through the plain versions. Returns the card's launch
+    counts."""
     from tair_tpu_torch.pipeline import build_tiny_model
 
     ref = build_tiny_model(dtype=torch.float32, device="cpu", training=True)
@@ -936,7 +1058,7 @@ def phase_train_reference(seed: int) -> None:
             f"train_reference parameters after the step: {worst_solid} where the gradient "
             f"is solid (tol {0.1 * TRAIN_LR}), {worst_any} anywhere (tol {2.1 * TRAIN_LR})"
         )
-    want_launches = predicted_train_launches(dut)
+    want_launches = predicted_train_launches(dut, torch.float32)
     if card["launches"] != want_launches or any(cpu["launches"].values()):
         raise AssertionError(
             f"train_reference launches: card {card['launches']}, structure says "
@@ -949,6 +1071,7 @@ def phase_train_reference(seed: int) -> None:
         grad_norm_rtol=norm_tol, max_param_err_where_gradient_solid=worst_solid,
         max_param_err_anywhere=worst_any, learning_rate=TRAIN_LR, launches=card["launches"],
     )
+    return card["launches"]
 
 
 def phase_train(seed: int, steps: int, kernels: list, profile: bool) -> dict:
@@ -982,7 +1105,11 @@ def phase_train(seed: int, steps: int, kernels: list, profile: bool) -> dict:
         for k, v in train_batch(rng, batch=1, size=512, max_inst=8, n_inst=5).items()
     }
     gen = torch.Generator(device=dev).manual_seed(seed)
-    want = predicted_train_launches(model)
+    want = predicted_train_launches(model, torch.bfloat16)
+    if want["flash_attention_fwd_tc"] != 46 or want["flash_attention_dkv_tc"] != 46 \
+            or want["flash_attention_dkv"] != 0:
+        raise AssertionError(f"train: the full model should run 46 attentions a step on the "
+                             f"tensor-core kernels and none on the FMA dK/dV: {want}")
     before = checksums()
 
     def one_step():
@@ -1089,28 +1216,28 @@ def check_restored(image, tokens) -> None:
 
 
 def phase_restore(model, lq, seed: int, steps: int) -> dict:
-    from tair_tpu_torch.models.attention import CrossAttention
     from tair_tpu_torch.spotter.ms_deform_attn import MSDeformAttn
 
     check_steps = 10  # of the two requests that check same seed, same image
-    attn_sites = sum(
-        isinstance(m, CrossAttention)
-        for net in (model.cldm.unet, model.cldm.controlnet) for m in net.modules()
-    )
+    tc_sites, fma_sites = attention_sites(model, torch.bfloat16)
     msda_sites = sum(isinstance(m, MSDeformAttn) for m in model.testr.modules())
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     image, tokens, seconds = restore_request(model, lq, seed, steps)
     counts = launch_counts()
-    k1_launches, k3_launches = counts["flash_attention_fwd"], counts["msda_corner_reduce_fwd"]
     check_restored(image, tokens)
-    want_k1 = attn_sites * steps + 2
-    want_k3 = msda_sites * steps
-    if k1_launches != want_k1 or k3_launches != want_k3 or min(k1_launches, k3_launches) == 0:
+    # every UNet/ControlNet attention (46, D=64) on the tensor-core forward in
+    # every step; the autoencoder's two (D=512) on the FMA forward
+    got = {k: counts[k] for k in ("flash_attention_fwd_tc", "flash_attention_fwd",
+                                  "msda_corner_reduce_fwd")}
+    want = {"flash_attention_fwd_tc": tc_sites * steps,
+            "flash_attention_fwd": fma_sites * steps + 2,
+            "msda_corner_reduce_fwd": msda_sites * steps}
+    if got != want or tc_sites != 46 or fma_sites != 0:
         raise AssertionError(
-            f"launches: flash {k1_launches} (structure says {want_k1}), "
-            f"msda {k3_launches} (structure says {want_k3})"
+            f"launches {got}, structure says {want} ({tc_sites} tensor-core and "
+            f"{fma_sites} FMA attention sites, 46 and 0 expected)"
         )
     peak = torch.cuda.max_memory_allocated()
 
@@ -1128,8 +1255,10 @@ def phase_restore(model, lq, seed: int, steps: int) -> dict:
         "restore", steps=steps, seconds_first_request=seconds,
         seconds_second_request=seconds_b, same_seed_check_steps=check_steps,
         same_seed_check_seconds=[seconds_c, seconds_d],
-        attention_sites=attn_sites, msda_sites=msda_sites,
-        flash_launches=k1_launches, msda_launches=k3_launches,
+        attention_sites=tc_sites + fma_sites, msda_sites=msda_sites,
+        flash_tc_launches=got["flash_attention_fwd_tc"],
+        flash_fma_launches=got["flash_attention_fwd"],
+        msda_launches=got["msda_corner_reduce_fwd"],
         peak_memory_bytes=peak, image_mean=image.mean().item(),
         tokens_head=tokens[0, :12].tolist(),
         prompt_tokens=int((tokens != 0).sum().item()),
@@ -1144,7 +1273,6 @@ def phase_restore_flatpatch(model, lq, seed: int, steps: int) -> dict:
     with the patchify kernel beside the default, as an A/B of the main path:
     seconds per step by the host clock, and kernel launches and device time of
     one spotter pass by torch.profiler. Returns the flatpatch request's counts."""
-    from tair_tpu_torch.models.attention import CrossAttention
     from tair_tpu_torch.models.prompt_splice import empty_tokens
 
     settings = {
@@ -1152,10 +1280,7 @@ def phase_restore_flatpatch(model, lq, seed: int, steps: int) -> dict:
         "flatpatch_kernel": dict(MSDA_DEFAULT, core="flatpatch", patchify="kernel"),
         "flatlanes_kernel": dict(MSDA_DEFAULT, patchify="kernel"),
     }
-    attn_sites = sum(
-        isinstance(m, CrossAttention)
-        for net in (model.cldm.unet, model.cldm.controlnet) for m in net.modules()
-    )
+    tc_sites, fma_sites = attention_sites(model, torch.bfloat16)
     runs = {name: [] for name in settings}
     # default, change, change, ..., default: each setting twice in a row, the
     # default at both ends of the same call
@@ -1170,7 +1295,8 @@ def phase_restore_flatpatch(model, lq, seed: int, steps: int) -> dict:
             check_restored(image, tokens)
             runs[name].append(dict(image=image, tokens=tokens, seconds=seconds, counts=counts))
             want = {
-                "flash_attention_fwd": attn_sites * steps + 2,
+                "flash_attention_fwd_tc": tc_sites * steps,
+                "flash_attention_fwd": fma_sites * steps + 2,
                 "msda_corner_reduce_fwd": sites * steps if settings[name]["core"] == "flatlanes" else 0,
                 "patchify_value_fwd": sites * steps if settings[name]["patchify"] == "kernel" else 0,
             }
@@ -1378,7 +1504,7 @@ def main() -> None:
     kernels, path_launches = [], {}
     if "kernels" in phases:
         kernels = [
-            check_flash(rng, smi, args.steps),
+            *check_flash(rng, smi, args.steps),
             *check_flash_bwd(rng, smi),
             check_msda(rng, smi, args.steps),
             check_msda_bwd(rng, smi),
@@ -1388,7 +1514,7 @@ def main() -> None:
         probe_kernels, path_launches["probes"] = phase_probes(smi, PROBE_REPS)
         kernels += probe_kernels
     if "reference" in phases:
-        phase_reference(args.seed)
+        path_launches["reference"] = phase_reference(args.seed)
     if phases & {"restore", "restore_flatpatch", "layers"} or args.profile_steps:
         model, lq = build_model(args.seed)
         if "restore" in phases:
@@ -1407,7 +1533,7 @@ def main() -> None:
         del model, lq
         torch.cuda.empty_cache()
     if "train_reference" in phases:
-        phase_train_reference(args.seed)
+        path_launches["train_reference"] = phase_train_reference(args.seed)
     if "train" in phases:
         model_kernels = [e for e in kernels if "ms_per_train_step" in e]
         path_launches["train"] = phase_train(
@@ -1419,7 +1545,8 @@ def main() -> None:
         raise SystemExit(f"partial run of phases {sorted(phases)}: no verdict")
     for entry in kernels:
         # each path was driven with the counts set to 0 just before it: one restore
-        # request, one flatpatch request, the last training step, the probes' runs
+        # request, one flatpatch request, the last training step, the probes' runs,
+        # the tiny model's request and training step
         entry["launches_by_path"] = {
             path: path_launches[path][entry["name"]] for path in entry["paths"]
         }

@@ -5,10 +5,14 @@ Counterpart of ``tair_tpu/ops/flash_attention.py``. Tensors are laid out
 ``[B, T, H, D]`` as there. ``flash_attention`` returns the attention output in
 the input type and the per-row logsumexp ``[B, H, Tq]`` in float32, and is
 differentiable with respect to q, k and v through a ``torch.autograd.Function``
-that saves ``q, k, v, O, lse``. On CUDA tensors the forward launches
-``csrc/flash_attention.cu`` and the backward launches the dQ and the dK/dV
-kernel of ``csrc/flash_attention_bwd.cu`` (``delta = rowsum(dO * O)`` is formed
-here in float32, outside the kernels, as the JAX package does); the plain
+that saves ``q, k, v, O, lse``. On CUDA tensors it launches one of two kernel
+families, as ``tensor_core_kernels(dtype, D)`` decides: bfloat16 with a head
+width of at most 128 takes the tensor-core forward (``csrc/flash_attention_tc.cu``)
+and dK/dV (``csrc/flash_attention_dkv_tc.cu``); float32, and the autoencoder's
+D = 512, take the FMA forward (``csrc/flash_attention.cu``) and dK/dV
+(``csrc/flash_attention_bwd.cu``). dQ is the FMA kernel of
+``csrc/flash_attention_bwd.cu`` for both (``delta = rowsum(dO * O)`` is formed
+here in float32, outside the kernels, as the JAX package does). The plain
 versions are taken only for tensors that lie on the CPU. The backward kernels
 have the head widths ``BWD_HEAD_DIMS``: a wider call that asks for a gradient on
 a CUDA device raises.
@@ -26,16 +30,70 @@ from . import _build
 
 HEAD_DIMS = (16, 32, 64, 128, 512)
 BWD_HEAD_DIMS = (16, 32, 64, 128)
+TC_HEAD_DIMS = (16, 32, 64, 128)  # of the tensor-core kernels, bfloat16 only
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DKV_QUERY_TILE = 64  # a chunk of the dK/dV query split is a multiple of this
+SMS = 132            # streaming multiprocessors of an H100 SXM
 
 # kernel launches made by the wrapper, one count per kernel (never raised by a
-# plain version): forward, dQ, dK/dV
-launches = {"fwd": 0, "dq": 0, "dkv": 0}
+# plain version): forward (FMA, tensor cores), dQ, dK/dV (FMA, tensor cores)
+launches = {"fwd": 0, "fwd_tc": 0, "dq": 0, "dkv": 0, "dkv_tc": 0}
+
+# the C entry points: (library, symbol, argument types); pointers, then
+# B, H, Tq, Tk, D, the strides, the scale, and what each kernel takes after it
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_SHAPE = [_INT] * 5 + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float]
+_ENTRY = {
+    "fwd": ("flash_attention", "flash_attention_fwd", [_PTR] * 5 + _SHAPE + [_INT, _PTR]),
+    "fwd_tc": ("flash_attention_tc", "flash_attention_fwd_tc", [_PTR] * 5 + _SHAPE + [_PTR]),
+    "dq": ("flash_attention_bwd", "flash_attention_dq", [_PTR] * 7 + _SHAPE + [_INT, _PTR]),
+    "dkv": ("flash_attention_bwd", "flash_attention_dkv", [_PTR] * 8 + _SHAPE + [_INT, _PTR]),
+    # + the workspace pointer, and splits, chunk after the scale
+    "dkv_tc": ("flash_attention_dkv_tc", "flash_attention_dkv_tc",
+               [_PTR] * 9 + _SHAPE + [_INT, _INT, _PTR]),
+}
+_FNS = {}
+
+
+def _entry(which: str):
+    """The C entry point of one kernel, built and typed at its first call."""
+    fn = _FNS.get(which)
+    if fn is None:
+        library, symbol, argtypes = _ENTRY[which]
+        fn = getattr(_build.library(library), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _FNS[which] = fn
+    return fn
 
 
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
+
+
+def tensor_core_kernels(dtype: torch.dtype, d: int) -> bool:
+    """Whether a call of this type and head width takes the tensor-core forward
+    and dK/dV kernels (bfloat16, D <= 128) rather than the FMA ones (float32,
+    which is held to 1e-4 and never goes through TF32, and D = 512)."""
+    return dtype == torch.bfloat16 and d in TC_HEAD_DIMS
+
+
+def dkv_query_split(b: int, h: int, tq: int, tk: int) -> int:
+    """How many chunks the tensor-core dK/dV kernel cuts the queries into: as
+    many as give its grid (64-key tiles x heads x chunks) about two blocks per
+    SM, each chunk a multiple of 64 queries and none empty. 1 when the key
+    tiles alone fill the card."""
+    tiles = -(-tq // DKV_QUERY_TILE)
+    blocks = -(-tk // 64) * b * h
+    want = min(max(-(-2 * SMS // blocks), 1), tiles)
+    per_chunk = -(-tiles // want)
+    return -(-tiles // per_chunk)
+
+
+def dkv_chunk_queries(tq: int, splits: int) -> int:
+    """Queries per chunk of a split into `splits` chunks: a multiple of 64."""
+    tiles = -(-tq // DKV_QUERY_TILE)
+    return DKV_QUERY_TILE * -(-tiles // splits)
 
 
 def flash_attention_plain(
@@ -78,6 +136,26 @@ def flash_attention_bwd_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_dkv_split_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, splits: int, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) as the tensor-core kernel forms them under a query split: float32
+    partials over each chunk of `dkv_chunk_queries(Tq, splits)` queries, added
+    in chunk order, rounded once to k's type."""
+    chunk = dkv_chunk_queries(q.shape[1], splits)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for start in range(0, q.shape[1], chunk):
+        rows = slice(start, start + chunk)
+        _, dk_c, dv_c = flash_attention_bwd_plain(
+            q[:, rows].float(), k.float(), v.float(), o[:, rows].float(),
+            lse[:, :, rows], do[:, rows].float(), scale,
+        )
+        dk, dv = dk + dk_c, dv + dv_c
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes [B, T, H, D] tensors")
@@ -106,7 +184,8 @@ def _rows_aligned(t: torch.Tensor) -> bool:
 
 
 def _launch(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+    which: Optional[str] = None,  # "fwd_tc" or "fwd"; by default as tensor_core_kernels says
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, tq, h, d = q.shape
     tk = k.shape[1]
@@ -114,6 +193,10 @@ def _launch(
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, got {q.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel has head widths {HEAD_DIMS}, got {d}")
+    if which is None:
+        which = "fwd_tc" if tensor_core_kernels(q.dtype, d) else "fwd"
+    if which == "fwd_tc" and not tensor_core_kernels(q.dtype, d):
+        raise ValueError(f"the tensor-core forward takes bfloat16 at D in {TC_HEAD_DIMS}")
     if b * h > 65535:
         raise ValueError("flash_attention kernel takes at most 65535 (batch, head) pairs")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -124,44 +207,41 @@ def _launch(
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
 
-    lib = _build.library("flash_attention")
-    fn = lib.flash_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 5
-        + [ctypes.c_int] * 5
-        + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    )
+    fn = _entry(which)
     strides = (ctypes.c_int64 * 9)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3]
     )
+    dtype_code = () if which == "fwd_tc" else (_DTYPE_CODES[q.dtype],)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, h, tq, tk, d, strides, float(scale),
-            _DTYPE_CODES[q.dtype], stream,
+            lse.data_ptr(), b, h, tq, tk, d, strides, float(scale), *dtype_code, stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed with CUDA error {err}")
-    launches["fwd"] += 1
+        raise RuntimeError(f"flash_attention_{which} launch failed with CUDA error {err}")
+    launches[which] += 1
     return out, lse
 
 
 def _launch_backward_kernel(
-    which: str,  # "dq" or "dkv"
+    which: str,  # "dq", "dkv" or "dkv_tc"
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, scale: float,
 ):
     """One backward kernel on the tensors the forward launch saw: dq for
-    "dq", (dk, dv) for "dkv". do must pass `_rows_aligned`; lse and delta are
-    float32 [B, H, Tq], contiguous."""
+    "dq", (dk, dv) for "dkv" and "dkv_tc". do must pass `_rows_aligned`; lse
+    and delta are float32 [B, H, Tq], contiguous. "dkv_tc" cuts the queries
+    as `dkv_query_split` says and sums the chunks' float32 partials in a
+    workspace allocated here."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     if d not in BWD_HEAD_DIMS:
         raise NotImplementedError(
             f"flash_attention backward kernels have head widths {BWD_HEAD_DIMS}, got {d}"
         )
+    if which == "dkv_tc" and not tensor_core_kernels(q.dtype, d):
+        raise ValueError(f"the tensor-core dK/dV takes bfloat16 at D in {TC_HEAD_DIMS}")
     for name, t in (("do", do), ("lse", lse), ("delta", delta)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must lie on q's device")
@@ -177,23 +257,27 @@ def _launch_backward_kernel(
             torch.empty((b, tk, h, d), dtype=k.dtype, device=q.device) for _ in range(2)
         )
 
-    lib = _build.library("flash_attention_bwd")
-    fn = getattr(lib, f"flash_attention_{which}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * (6 + len(outs))
-        + [ctypes.c_int] * 5
-        + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    )
     strides = (ctypes.c_int64 * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3]
     )
+    if which == "dkv_tc":
+        splits = dkv_query_split(b, h, tq, tk)
+        ws = (
+            torch.empty((2, splits, b, tk, h, d), dtype=torch.float32, device=q.device)
+            if splits > 1 else None
+        )
+        tail = (
+            None if ws is None else ws.data_ptr(), b, h, tq, tk, d, strides,
+            float(scale), splits, dkv_chunk_queries(tq, splits),
+        )
+    else:
+        tail = (b, h, tq, tk, d, strides, float(scale), _DTYPE_CODES[q.dtype])
+    fn = _entry(which)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), *(t.data_ptr() for t in outs), b, h, tq, tk, d,
-            strides, float(scale), _DTYPE_CODES[q.dtype], stream,
+            delta.data_ptr(), *(t.data_ptr() for t in outs), *tail, stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_{which} launch failed with CUDA error {err}")
@@ -214,7 +298,8 @@ def _launch_bwd(
     # rowsum(dO * O): [B, Tq, H] -> [B, H, Tq]
     delta = (do.float() * o.float()).sum(dim=-1).permute(0, 2, 1).contiguous()
     dq = _launch_backward_kernel("dq", q, k, v, do, lse, delta, scale)
-    dk, dv = _launch_backward_kernel("dkv", q, k, v, do, lse, delta, scale)
+    dkv = "dkv_tc" if tensor_core_kernels(q.dtype, q.shape[-1]) else "dkv"
+    dk, dv = _launch_backward_kernel(dkv, q, k, v, do, lse, delta, scale)
     return dq, dk, dv
 
 

@@ -1,5 +1,9 @@
 """Port's flash attention (plain version, the one the CPU runs) against the
-JAX package's Pallas kernel in interpret mode and against einsum_sdpa."""
+JAX package's Pallas kernel in interpret mode and against einsum_sdpa; the
+choice between the tensor-core and the FMA kernels; and why the tensor-core
+kernels carry P and dS as two bfloat16 terms."""
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -99,3 +103,53 @@ def test_shape_mismatch_raises(shapes):
     q, k, v = (torch.zeros(s) for s in shapes)
     with pytest.raises(ValueError):
         fa.flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_choice(dtype, d):
+    """bfloat16 at D <= 128 takes the tensor-core kernels; float32 (held to 1e-4,
+    never through TF32) and the autoencoder's D = 512 take the FMA kernels."""
+    assert fa.tensor_core_kernels(dtype, d) == (dtype == torch.bfloat16 and d <= 128)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _two_terms(x):
+    hi = _bf16(x)
+    return hi + _bf16(x - hi)
+
+
+@pytest.mark.parametrize("product", ["pv", "dv", "dk"])
+def test_bf16_probabilities_need_two_terms(product):
+    """The tensor-core kernels' arithmetic, emulated: P (forward P V, dV = P^T
+    dO) and dS (dK = dS^T q) enter a bf16 product after float32 softmax. Rounded
+    to one bf16 term they miss the elementwise tolerances that chip_smoke.py
+    holds the kernels to (O: 2^-7 |O| + 1e-4; gradients: 2^-7 |g| + 1e-3
+    mean|g|) several times over at 77 keys; as hi + lo they keep under half of
+    them. The result is rounded to bf16 once, as the kernels store it."""
+    b, tq, tk, h, d = 1, 256, 77, 2, 64
+    rng = np.random.default_rng(0)
+    q, k, v, do = (
+        _bf16(torch.from_numpy(rng.standard_normal((h, t, d), dtype=np.float32)))
+        for t in (tq, tk, tk, tq)
+    )
+    s = q @ k.transpose(1, 2) / math.sqrt(d)
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    o = p @ v
+    ds = p * (do @ v.transpose(1, 2) - (do * o).sum(-1, keepdim=True)) / math.sqrt(d)
+    operand, other, ref = {
+        "pv": (p, v, o),
+        "dv": (p.transpose(1, 2), do, p.transpose(1, 2) @ do),
+        "dk": (ds.transpose(1, 2), q, ds.transpose(1, 2) @ q),
+    }[product]
+    atol = 1e-4 if product == "pv" else 1e-3 * ref.abs().mean().item()
+
+    def share(rounded):
+        got = _bf16(rounded @ other)
+        return ((got - ref).abs() / (2.0 ** -7 * ref.abs() + atol)).max().item()
+
+    assert share(_bf16(operand)) > 4.0
+    assert share(_two_terms(operand)) < 0.5

@@ -2,7 +2,8 @@
 through the Pallas kernels in interpret mode (forward, dQ, dK/dV) against
 ``torch.autograd.grad`` through the port's ``Function`` (whose backward is the
 plain version on the CPU) and against ``flash_attention_bwd_plain`` called
-directly."""
+directly; the query split of the tensor-core dK/dV kernel and its plain
+version."""
 
 import jax
 import jax.numpy as jnp
@@ -112,4 +113,65 @@ def test_cpu_backward_does_not_count_as_launch():
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(1, 8, 8, 1, 16))
     out, _ = fa.flash_attention(q.requires_grad_(True), k, v)
     out.backward(do)
-    assert fa.launches == before and set(before) == {"fwd", "dq", "dkv"}
+    assert fa.launches == before
+    assert set(before) == {"fwd", "fwd_tc", "dq", "dkv", "dkv_tc"}
+
+
+@pytest.mark.parametrize(
+    "b,h,tq,tk",
+    [
+        (1, 5, 4096, 4096), (1, 5, 4096, 77), (1, 10, 1024, 1024), (1, 10, 1024, 77),
+        (1, 20, 256, 256), (1, 20, 256, 77), (1, 20, 64, 64), (1, 20, 64, 77),
+        (2, 3, 1000, 333), (2, 4, 301, 77), (1, 1, 1, 1), (4, 8, 200, 77),
+    ],
+)
+def test_dkv_query_split(b, h, tq, tk):
+    splits = fa.dkv_query_split(b, h, tq, tk)
+    chunk = fa.dkv_chunk_queries(tq, splits)
+    starts = list(range(0, tq, chunk))
+    assert splits >= 1 and chunk % 64 == 0
+    # the chunks cover Tq exactly, and none is empty
+    assert len(starts) == splits and starts[-1] < tq <= splits * chunk
+    blocks = -(-tk // 64) * b * h * splits
+    if (b, h, tq, tk) == (1, 5, 4096, 4096):
+        assert splits == 1  # 64 key tiles x 5 heads already fill 132 SMs
+    if (b, h, tq, tk) == (1, 5, 4096, 77):
+        assert splits > 1 and blocks >= 132
+    if splits > 1:  # never more chunks than two blocks per SM ask for
+        assert -(-tk // 64) * b * h * (splits - 1) < 2 * fa.SMS
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4])
+def test_dkv_split_plain_matches_bwd_plain(splits):
+    """Partials per chunk of queries, added in chunk order, give the unsplit dK
+    and dV to float32 rounding (the same sums, grouped)."""
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(2, 200, 77, 3, 32, seed=4))
+    out, lse = fa.flash_attention_plain(q, k, v)
+    _, dk, dv = fa.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    assert len(range(0, 200, fa.dkv_chunk_queries(200, splits))) == splits
+    got_k, got_v = fa.flash_attention_dkv_split_plain(q, k, v, out, lse, do, splits)
+    np.testing.assert_allclose(got_k.numpy(), dk.numpy(), atol=1e-6)
+    np.testing.assert_allclose(got_v.numpy(), dv.numpy(), atol=1e-6)
+
+
+def test_dkv_split_plain_matches_pallas_interpret():
+    """The split's plain version against the Pallas dK/dV kernel in interpret
+    mode, through jax.vjp; float32 on both sides, so only the summation order
+    differs (TOL)."""
+    b, tq, tk, h, d, scale = 1, 130, 77, 2, 16, None
+    q, k, v, do = _inputs(b, tq, tk, h, d, seed=5)
+    out_j, vjp = jax.vjp(
+        lambda q_, k_, v_: jax_flash(
+            q_, k_, v_, scale=scale, block_q=32, block_k=32, interpret=True
+        ),
+        *map(jnp.asarray, (q, k, v)),
+    )
+    _, dk_j, dv_j = vjp(jnp.asarray(do))
+    tq_, tk_, tv_, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = fa.flash_attention_plain(tq_, tk_, tv_, scale)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=TOL)
+    splits = 3  # chunks of 64, 64 and 2 queries
+    assert fa.dkv_chunk_queries(tq, splits) == 64
+    dk, dv = fa.flash_attention_dkv_split_plain(tq_, tk_, tv_, out, lse, tdo, splits, scale)
+    np.testing.assert_allclose(dk.numpy(), np.asarray(dk_j), atol=TOL)
+    np.testing.assert_allclose(dv.numpy(), np.asarray(dv_j), atol=TOL)

@@ -119,8 +119,9 @@ def test_kernel_wrappers_do_not_build_on_import():
         from tair_tpu_torch.ops import _build
         assert not _build._LIBS
         assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-            "flash_attention.cu", "flash_attention_bwd.cu", "msda_reduce.cu",
-            "patchify.cu", "probe_gather.cu", "probe_stream.cu", "probe_msda_lab.cu"}
+            "flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_tc.cu",
+            "flash_attention_dkv_tc.cu", "msda_reduce.cu", "patchify.cu",
+            "probe_gather.cu", "probe_stream.cu", "probe_msda_lab.cu"}
         assert set(_build.KERNEL_SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
         print("ok")
         """
