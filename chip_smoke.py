@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout and holds each of the
-eight model kernels (flash attention forward and dK/dV on the tensor cores for
-bfloat16 at D <= 128, and on FMA for float32 and D = 512; dQ; msda corner
-reduce forward, backward; the msda patchify kernel) against its plain PyTorch
-version at every shape the main paths give it, with its time beside its bound
-(each tensor-core kernel timed in turns with the FMA kernel it replaces), and
+ten model kernels (flash attention forward, dQ and dK/dV on the tensor cores for
+bfloat16, the forward at D <= 128 and at the autoencoder's D = 512, and on FMA
+for float32; msda corner reduce forward, backward; the msda patchify kernel)
+against its plain PyTorch version at every shape the main paths give it, with
+its time beside its bound (each tensor-core kernel timed in turns with the FMA
+kernel it replaces), and
 each probe kernel (gather, stream, msda lab) against its plain version at the
 probe's shape. Then it drives the paths of the port and checks that each went
 through its kernels:
@@ -53,9 +54,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # of every flash-attention call of one restore at 512 x 512: UNet + ControlNet
 # self- and cross-attention at the three attention levels (5 + 2 transformer
 # blocks each) and the two middle blocks, the VAE middle block of the encoder
-# and of the decoder. The last two shapes the restore never gives: ragged
-# lengths at batch 2, and a narrow head; both are cut out of wider buffers, so
-# their token strides are not H*D.
+# and of the decoder. The last three shapes the restore never gives: ragged
+# lengths at batch 2 at a wide head and at the autoencoder's width, and a
+# narrow head; all are cut out of wider buffers, so their token strides are not
+# H*D.
 K1_SHAPES = [
     ("unet_self_64", 1, 4096, 4096, 5, 64, 7, 0),
     ("unet_self_32", 1, 1024, 1024, 10, 64, 7, 0),
@@ -67,6 +69,7 @@ K1_SHAPES = [
     ("unet_cross_mid", 1, 64, 77, 20, 64, 2, 0),
     ("vae_mid", 1, 4096, 4096, 1, 512, 0, 2),
     ("ragged_strided", 2, 1000, 333, 3, 128, 0, 0),
+    ("vae_ragged_strided", 2, 1000, 333, 1, 512, 0, 0),
     ("narrow_strided", 2, 301, 77, 4, 32, 0, 0),
 ]
 # O is held elementwise against the plain version run in float32 on the same
@@ -104,6 +107,11 @@ K4_SHAPES = [
     ("spotter_b2_strided", SPOTTER_LEVELS, 2, 8, 32, 0),
     ("ragged_one_pixel", ((1, 1), (1, 5), (7, 1), (3, 4)), 2, 3, 8, 0),
 ]
+
+# flash launches of one pass of the full-width bfloat16 paths (the forwards;
+# dQ and dK/dV in training): every one on a tensor-core kernel
+BF16_FLASH_PER_STEP = {"flash_attention_fwd_tc": 46, "flash_attention_fwd_tc_wide": 2,
+                       "flash_attention_dq_tc": 46, "flash_attention_dkv_tc": 46}
 
 FLATPATCH_STEPS = 10  # of every request of phase restore_flatpatch
 PROBE_REPS = 2        # timed repetitions per setting of the probes' own runs
@@ -244,11 +252,20 @@ def device_ms(calls: dict, n: int = 10) -> dict:
     }
 
 
+# the profiler's kernel names (a part of each) of the flash wrappers' kernels
+FLASH_KERNEL_NAMES = {
+    "fwd": ("flash_fwd_kernel",), "fwd_tc": ("flash_fwd_tc_kernel",),
+    "fwd_tc_wide": ("flash_fwd_wide_tc_kernel",), "dq": ("flash_dq_kernel",),
+    "dq_tc": ("flash_dq_tc_kernel",), "dkv": ("flash_dkv_kernel",),
+    "dkv_tc": ("flash_dkv_tc_kernel", "sum_partials_kernel"),
+}
+
+
 def check_flash(rng: np.random.Generator, smi: str, steps: int) -> list:
-    """The tensor-core forward (bfloat16, D <= 128) and the FMA forward (float32,
-    D = 512, and beside the tensor-core kernel at every bfloat16 shape, timed in
-    turns with it) against the plain version, with times, bounds, plain and
-    library times. Returns the two kernels' entries."""
+    """The tensor-core forwards (bfloat16: D <= 128, and D = 512) and the FMA
+    forward (float32, and beside each tensor-core kernel at every bfloat16
+    shape, timed in turns with it) against the plain version, with times,
+    bounds, plain and library times. Returns the three kernels' entries."""
     import torch.nn.functional as F
 
     from tair_tpu_torch.ops import flash_attention as fa
@@ -264,14 +281,15 @@ def check_flash(rng: np.random.Generator, smi: str, steps: int) -> list:
                 torch.from_numpy(a).cuda().to(dtype)[:, :, :h] for a in (qn, kn, vn)
             )
             scale = 1.0 / d ** 0.5
-            tc = fa.tensor_core_kernels(dtype, d)
+            mine = fa.kernel_name(dtype, d, "fwd")
+            tc = mine != "fwd"
             rtol, atol = K1_TOL[dtype]
             ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float())
             held = {}
             # the wrapper's own choice first; at a tensor-core shape, the FMA
             # kernel on the same values as well
             for which, fn in (
-                ("fwd_tc" if tc else "fwd", lambda: fa.flash_attention(q, k, v)),
+                (mine, lambda: fa.flash_attention(q, k, v)),
                 *((("fwd", lambda: fa._launch(q, k, v, scale, "fwd")),) if tc else ()),
             ):
                 out, lse = fn()
@@ -289,27 +307,26 @@ def check_flash(rng: np.random.Generator, smi: str, steps: int) -> list:
             flops = 4.0 * tq * tk * d * h * b
             nbytes = b * ((2 * tq * d * h + 2 * tk * d * h) * q.element_size() + 4 * tq * h)
             kernels = {
-                "fwd_tc": (lambda: fa._launch(q, k, v, scale, "fwd_tc"), ("flash_fwd_tc_kernel",)),
-                "fwd": (lambda: fa._launch(q, k, v, scale, "fwd"), ("flash_fwd_kernel",)),
+                which: (lambda which=which: fa._launch(q, k, v, scale, which),
+                        FLASH_KERNEL_NAMES[which])
+                for which in dict.fromkeys((mine, "fwd"))
             }
             if tc:
-                ms, fma_ms, turns = in_turns(kernels["fwd_tc"][0], kernels["fwd"][0])
-                dev = device_ms(kernels)
+                ms, fma_ms, turns = in_turns(kernels[mine][0], kernels["fwd"][0])
             else:
                 ms, fma_ms, turns = time_ms(kernels["fwd"][0]), None, None
-                dev = {"fwd": device_ms({"fwd": kernels["fwd"]})["fwd"], "fwd_tc": None}
+            dev = device_ms(kernels)
             plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v))
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-            mine = held["fwd_tc" if tc else "fwd"]
             rows.append(dict(
-                kernel="fwd_tc" if tc else "fwd", shape=name, batch=b, tq=tq, tk=tk,
+                kernel=mine, shape=name, batch=b, tq=tq, tk=tk,
                 heads=h, d=d, dtype=str(dtype).split(".")[-1],
                 calls_per_restore=per_step * steps + per_restore,
-                calls_per_train_step=per_step + per_restore, **mine, held=held,
+                calls_per_train_step=per_step + per_restore, **held[mine], held=held,
                 rtol=rtol, atol=atol, mean_abs_plain=ref_abs_mean, ms=ms,
                 fma_ms=fma_ms, turns_ms=turns,
-                device_ms=dev["fwd_tc" if tc else "fwd"], fma_device_ms=dev["fwd"] if tc else None,
+                device_ms=dev[mine], fma_device_ms=dev["fwd"] if tc else None,
                 plain_ms=plain_ms, library_ms=library_ms,
                 **bound_of(flops, nbytes, dtype),
             ))
@@ -317,23 +334,26 @@ def check_flash(rng: np.random.Generator, smi: str, steps: int) -> list:
     for which, file, head_shape, paths in (
         ("fwd_tc", "flash_attention_tc.cu", ("unet_self_64", "Tq=Tk=4096 H=5 D=64 bfloat16"),
          ("restore", "restore_flatpatch", "train")),
-        ("fwd", "flash_attention.cu", ("vae_mid", "T=4096 H=1 D=512 bfloat16"),
-         ("restore", "restore_flatpatch", "train", "reference")),
+        ("fwd_tc_wide", "flash_attention_wide_tc.cu",
+         ("vae_mid", "T=4096 H=1 D=512 bfloat16"), ("restore", "restore_flatpatch", "train")),
+        ("fwd", "flash_attention.cu", ("unet_self_64", "Tq=Tk=4096 H=5 D=64 float32"),
+         ("reference", "train_reference")),
     ):
         mine = [r for r in rows if r["kernel"] == which]
-        head = next(r for r in mine if r["shape"] == head_shape[0] and r["dtype"] == "bfloat16")
-        emit("kernels", kernel=f"flash_attention_{which}", card=smi, shapes=mine,
-             **per_restore_sums(mine), **per_step_sums(mine, "ms"), **device_sums(mine))
+        head = next(r for r in mine if r["shape"] == head_shape[0])
+        tc = which != "fwd"  # the FMA forward serves float32 only: no bf16 path
+        sums = {**per_restore_sums(mine), **per_step_sums(mine, "ms"),
+                **device_sums(mine)} if tc else {}
+        emit("kernels", kernel=f"flash_attention_{which}", card=smi, shapes=mine, **sums)
         entries.append(dict(
             name=f"flash_attention_{which}", route="cuda",
             source=f"tair_tpu_torch/ops/csrc/{file}",
             replaces="tair_tpu/ops/flash_attention.py:168", shape=head_shape[1],
             max_abs_err=head["max_abs_err"], ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-            library_ms=head["library_ms"], paths=paths, **per_step_sums(mine, "ms"),
-            device_ms=head["device_ms"],
-            **({"fma_ms": head["fma_ms"], "fma_device_ms": head["fma_device_ms"]}
-               if which == "fwd_tc" else {}),
+            library_ms=head["library_ms"], paths=paths, device_ms=head["device_ms"],
+            **({"ms_per_train_step": sums["ms_per_train_step"], "fma_ms": head["fma_ms"],
+                "fma_device_ms": head["fma_device_ms"]} if tc else {}),
         ))
     return entries
 
@@ -388,11 +408,11 @@ def check_msda(rng: np.random.Generator, smi: str, steps: int) -> dict:
 def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
     """dQ and dK/dV kernels at the forward's shapes (all but the autoencoder's
     D=512, which is never differentiated), against the plain backward: the
-    tensor-core dK/dV in bfloat16 with the FMA dK/dV beside it (checked too,
-    timed in turns with it), the FMA dK/dV in float32, dQ in both. Each time
-    stands beside its bound, the plain backward and autograd through PyTorch's
-    fused attention (one call gives all three gradients, so that time stands
-    beside the kernels' sum)."""
+    tensor-core dQ and dK/dV in bfloat16 with the FMA kernels beside them
+    (checked too, timed in turns with them), the FMA kernels in float32. Each
+    time stands beside its bound, the plain backward and autograd through
+    PyTorch's fused attention (one call gives all three gradients, so that time
+    stands beside the kernels' sum)."""
     import torch.nn.functional as F
 
     from tair_tpu_torch.ops import flash_attention as fa
@@ -411,20 +431,23 @@ def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
                 torch.from_numpy(a).cuda().to(dtype)[:, :, :h] for a in arrays
             )
             scale = 1.0 / d ** 0.5
-            dkv = "dkv_tc" if fa.tensor_core_kernels(dtype, d) else "dkv"
+            mine = {kind: fa.kernel_name(dtype, d, kind) for kind in ("dq", "dkv")}
             out, lse = fa.flash_attention(q, k, v, scale)
             delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
-            dq = fa._launch_backward_kernel("dq", q, k, v, do, lse, delta, scale)
-            got = {"dq": (dq,)}
-            for which in dict.fromkeys((dkv, "dkv")):
-                got[which] = fa._launch_backward_kernel(which, q, k, v, do, lse, delta, scale)
+            got = {
+                which: fa._launch_backward_kernel(which, q, k, v, do, lse, delta, scale)
+                for which in dict.fromkeys((*mine.values(), "dq", "dkv"))
+            }
             torch.cuda.synchronize()
             refs = fa.flash_attention_bwd_plain(
                 q.float(), k.float(), v.float(), out.float(), lse, do.float(), scale
             )
             held = {}
             for which, grads in got.items():
-                names, wants = (("dq",), refs[:1]) if which == "dq" else (("dk", "dv"), refs[1:])
+                if which.startswith("dq"):
+                    names, grads, wants = ("dq",), (grads,), refs[:1]
+                else:
+                    names, wants = ("dk", "dv"), refs[1:]
                 for gname, g, ref in zip(names, grads, wants):
                     err, share, mean = held_grad_error(g, ref, dtype)
                     held.setdefault(which, {})[gname] = dict(
@@ -444,29 +467,28 @@ def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
             do_hm = do.transpose(1, 2).contiguous().transpose(1, 2)
             via_fn = torch.autograd.grad(fa.flash_attention(*leaves, scale)[0], leaves, do_hm)
-            if not all(torch.equal(a, b_) for a, b_ in zip(via_fn, (dq, *got[dkv]))):
+            direct = (got[mine["dq"]], *got[mine["dkv"]])
+            if not all(torch.equal(a, b_) for a, b_ in zip(via_fn, direct)):
                 raise AssertionError(
                     f"flash_attention {name} {dtype}: autograd through the Function "
                     "disagrees with the backward kernels called directly"
                 )
-            del leaves, via_fn, do_hm, got
+            del leaves, via_fn, do_hm, got, direct
             qkv_bytes = (2 * tq + 2 * tk) * d * h * b * q.element_size()  # q, dO, k, v
             stats_bytes = 2 * 4 * tq * h * b                              # lse, delta
             prod = 2.0 * tq * tk * d * h * b                              # one product
-            ms_dq = time_ms(lambda: fa._launch_backward_kernel("dq", q, k, v, do, lse, delta, scale))
             kernels = {
                 which: (lambda which=which: fa._launch_backward_kernel(
-                    which, q, k, v, do, lse, delta, scale), parts)
-                for which, parts in (("dkv_tc", ("flash_dkv_tc_kernel", "sum_partials_kernel")),
-                                     ("dkv", ("flash_dkv_kernel",)), ("dq", ("flash_dq_kernel",)))
+                    which, q, k, v, do, lse, delta, scale), FLASH_KERNEL_NAMES[which])
+                for which in dict.fromkeys((*mine.values(), "dq", "dkv"))
             }
-            if dkv == "dkv_tc":
-                ms_dkv, fma_ms, turns = in_turns(kernels["dkv_tc"][0], kernels["dkv"][0])
-                dev = device_ms(kernels)
-            else:
-                ms_dkv = time_ms(kernels["dkv"][0])
-                fma_ms = turns = None
-                dev = device_ms({k: kernels[k] for k in ("dkv", "dq")})
+            times = {}
+            for kind, which in mine.items():
+                if which != kind:  # a tensor-core kernel, in turns with the FMA one
+                    times[kind] = in_turns(kernels[which][0], kernels[kind][0])
+                else:
+                    times[kind] = (time_ms(kernels[kind][0]), None, None)
+            dev = device_ms(kernels)
             plain_ms = time_ms(
                 lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do, scale), reps=3
             )
@@ -482,28 +504,31 @@ def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
                 dtype=str(dtype).split(".")[-1], calls_per_train_step=per_step,
                 plain_ms_dq_and_dkv=plain_ms, library_ms_dq_and_dkv=library_ms,
             )
-            rows.append(dict(
-                kernel="dq", **common, ms=ms_dq, device_ms=dev["dq"], held=held["dq"],
-                **bound_of(3 * prod, qkv_bytes + stats_bytes + tq * d * h * b * q.element_size(), dtype),
-            ))
-            rows.append(dict(
-                kernel=dkv, **common, ms=ms_dkv, device_ms=dev[dkv], held=held[dkv],
-                **({"fma_ms": fma_ms, "turns_ms": turns, "fma_device_ms": dev["dkv"],
-                    "fma_held": held["dkv"],
-                    "query_split": fa.dkv_query_split(b, h, tq, tk)} if dkv == "dkv_tc" else {}),
-                **bound_of(4 * prod, qkv_bytes + stats_bytes + 2 * tk * d * h * b * q.element_size(), dtype),
-            ))
+            out_bytes = {"dq": tq * d * h * b, "dkv": 2 * tk * d * h * b}
+            for kind, which in mine.items():
+                ms, fma_ms, turns = times[kind]
+                rows.append(dict(
+                    kernel=which, **common, ms=ms, device_ms=dev[which], held=held[which],
+                    **({"fma_ms": fma_ms, "turns_ms": turns, "fma_device_ms": dev[kind],
+                        "fma_held": held[kind]} if which != kind else {}),
+                    **({"query_split": fa.dkv_query_split(b, h, tq, tk)}
+                       if which == "dkv_tc" else {}),
+                    **bound_of((3 if kind == "dq" else 4) * prod,
+                               qkv_bytes + stats_bytes + out_bytes[kind] * q.element_size(),
+                               dtype),
+                ))
     entries = []
     for which, site, file, head_dtype, paths in (
-        ("dq", 229, "flash_attention_bwd.cu", "bfloat16", ("train", "train_reference")),
+        ("dq_tc", 229, "flash_attention_dq_tc.cu", "bfloat16", ("train",)),
         ("dkv_tc", 245, "flash_attention_dkv_tc.cu", "bfloat16", ("train",)),
+        ("dq", 229, "flash_attention_bwd.cu", "float32", ("train_reference",)),
         ("dkv", 245, "flash_attention_bwd.cu", "float32", ("train_reference",)),
     ):
         mine = [r for r in rows if r["kernel"] == which]
         head = next(r for r in mine if r["shape"] == "unet_self_64" and r["dtype"] == head_dtype)
-        on_train_step = which != "dkv"  # the FMA dK/dV runs only in float32
+        tc = which.endswith("_tc")  # the FMA kernels run only in float32
         sums = {}
-        if on_train_step:
+        if tc:
             for key in ("ms", "device_ms", "bound_ms", "plain_ms_dq_and_dkv",
                         "library_ms_dq_and_dkv"):
                 sums.update(per_step_sums(mine, key))
@@ -519,9 +544,8 @@ def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
             library_ms=head["library_ms_dq_and_dkv"],
             plain_and_library_cover="dq + dkv (one call gives all three gradients)",
             paths=paths, device_ms=head["device_ms"],
-            **({"ms_per_train_step": sums["ms_per_train_step"]} if on_train_step else {}),
-            **({"fma_ms": head["fma_ms"], "fma_device_ms": head["fma_device_ms"]}
-               if which == "dkv_tc" else {}),
+            **({"ms_per_train_step": sums["ms_per_train_step"], "fma_ms": head["fma_ms"],
+                "fma_device_ms": head["fma_device_ms"]} if tc else {}),
         ))
     return entries
 
@@ -782,9 +806,10 @@ def phase_reference(seed: int) -> dict:
     torch.cuda.synchronize()
     counts = launch_counts()
     launches = (counts["flash_attention_fwd"], counts["msda_corner_reduce_fwd"])
-    backward = [k for k, n in counts.items() if n and not k.endswith(("_fwd", "_fwd_tc"))]
-    if backward:
-        raise AssertionError(f"the restore loop launched backward kernels: {backward}")
+    others = [k for k, n in counts.items() if n and k not in (
+        "flash_attention_fwd", "msda_corner_reduce_fwd")]
+    if others:  # float32: no tensor-core kernel, and no backward
+        raise AssertionError(f"the float32 restore loop launched other kernels: {others}")
     img_r, tok_r = ref.restore_fused_feedback(
         lq, steps=steps, score_threshold=0.0, x_T=x_T, step_noises=noises
     )
@@ -861,37 +886,54 @@ def set_msda(testr, **fields) -> int:
 MSDA_DEFAULT = dict(core="flatlanes", reduce_mode="kernel", patchify="concat")
 
 
-def attention_sites(model, dtype: torch.dtype) -> tuple:
-    """(tensor-core, FMA) attention sites of the UNet and the ControlNet when
-    they compute in `dtype`, by each site's head width."""
+def flash_launches(model, dtype: torch.dtype, steps: int, backward: bool) -> dict:
+    """Flash-attention launches by kernel (the names of `launch_counts`) that
+    the model's structure asks for when it computes in `dtype`: every attention
+    of the UNet and the ControlNet runs its forward in each of `steps` passes,
+    and dQ and dK/dV once if `backward`; the autoencoder's middle attention
+    (D = 512, never differentiated) runs twice (encode and decode in a request,
+    the two encodes of a training step). Each call on the kernel that
+    `kernel_name` picks for its head width."""
     from tair_tpu_torch.models.attention import CrossAttention
-    from tair_tpu_torch.ops.flash_attention import tensor_core_kernels
+    from tair_tpu_torch.models.vae import AttnBlock
+    from tair_tpu_torch.ops import flash_attention as fa
 
-    widths = [
-        m.dim_head for net in (model.cldm.unet, model.cldm.controlnet)
-        for m in net.modules() if isinstance(m, CrossAttention)
-    ]
-    tc = sum(tensor_core_kernels(dtype, d) for d in widths)
-    return tc, len(widths) - tc
+    counts = dict.fromkeys(fa.launches, 0)
+    for net in (model.cldm.unet, model.cldm.controlnet):
+        for m in net.modules():
+            if isinstance(m, CrossAttention):
+                counts[fa.kernel_name(dtype, m.dim_head, "fwd")] += steps
+                for kind in ("dq", "dkv") if backward else ():
+                    counts[fa.kernel_name(dtype, m.dim_head, kind)] += 1
+    (vae_width,) = {m.q.out_channels for m in model.cldm.vae.modules() if isinstance(m, AttnBlock)}
+    counts[fa.kernel_name(dtype, vae_width, "fwd")] += 2
+    return {f"flash_attention_{k}": n for k, n in counts.items()}
+
+
+def check_bf16_flash(want: dict, steps: int, backward: bool) -> None:
+    """The structure's flash launches of a full-width bfloat16 path are all on
+    the tensor-core kernels: 46 attentions a pass (and their dQ and dK/dV once
+    when `backward`), 2 D = 512 forwards; none on an FMA kernel."""
+    expect = {
+        k: n * (steps if k == "flash_attention_fwd_tc" else 1)
+        for k, n in BF16_FLASH_PER_STEP.items() if backward or "fwd" in k
+    }
+    flash = {k: n for k, n in want.items() if k.startswith("flash_attention_") and n}
+    if flash != expect:
+        raise AssertionError(f"the model's bfloat16 flash launches {flash}, expected {expect}")
 
 
 def predicted_train_launches(model, compute_dtype: torch.dtype) -> dict:
     """Kernel launches of one stage-3 training step, from the model's
-    structure: every attention of the UNet and the ControlNet runs forward, dQ
-    and dK/dV once, on the tensor-core kernels where `attention_sites` says so;
-    the frozen autoencoder's middle attention (D = 512) runs the FMA forward in
-    each of the two encodes; every deformable attention of the spotter runs the
-    reduce forward and backward once."""
+    structure: `flash_launches` of one pass with the backward; every deformable
+    attention of the spotter runs the reduce forward and backward once."""
     from tair_tpu_torch.spotter.ms_deform_attn import MSDeformAttn
 
-    tc, fma = attention_sites(model, compute_dtype)
     msda = sum(isinstance(m, MSDeformAttn) for m in model.testr.modules())
     return {
         **dict.fromkeys(launch_counts(), 0),  # no other kernel runs in a training step
-        "flash_attention_fwd": fma + 2, "flash_attention_fwd_tc": tc,
-        "flash_attention_dq": tc + fma, "flash_attention_dkv": fma,
-        "flash_attention_dkv_tc": tc, "msda_corner_reduce_fwd": msda,
-        "msda_corner_reduce_bwd": msda,
+        **flash_launches(model, compute_dtype, 1, backward=True),
+        "msda_corner_reduce_fwd": msda, "msda_corner_reduce_bwd": msda,
     }
 
 
@@ -1106,10 +1148,7 @@ def phase_train(seed: int, steps: int, kernels: list, profile: bool) -> dict:
     }
     gen = torch.Generator(device=dev).manual_seed(seed)
     want = predicted_train_launches(model, torch.bfloat16)
-    if want["flash_attention_fwd_tc"] != 46 or want["flash_attention_dkv_tc"] != 46 \
-            or want["flash_attention_dkv"] != 0:
-        raise AssertionError(f"train: the full model should run 46 attentions a step on the "
-                             f"tensor-core kernels and none on the FMA dK/dV: {want}")
+    check_bf16_flash(want, 1, backward=True)
     before = checksums()
 
     def one_step():
@@ -1219,7 +1258,6 @@ def phase_restore(model, lq, seed: int, steps: int) -> dict:
     from tair_tpu_torch.spotter.ms_deform_attn import MSDeformAttn
 
     check_steps = 10  # of the two requests that check same seed, same image
-    tc_sites, fma_sites = attention_sites(model, torch.bfloat16)
     msda_sites = sum(isinstance(m, MSDeformAttn) for m in model.testr.modules())
 
     torch.cuda.reset_peak_memory_stats()
@@ -1228,17 +1266,13 @@ def phase_restore(model, lq, seed: int, steps: int) -> dict:
     counts = launch_counts()
     check_restored(image, tokens)
     # every UNet/ControlNet attention (46, D=64) on the tensor-core forward in
-    # every step; the autoencoder's two (D=512) on the FMA forward
-    got = {k: counts[k] for k in ("flash_attention_fwd_tc", "flash_attention_fwd",
-                                  "msda_corner_reduce_fwd")}
-    want = {"flash_attention_fwd_tc": tc_sites * steps,
-            "flash_attention_fwd": fma_sites * steps + 2,
+    # every step; the autoencoder's two (D=512) on the wide tensor-core forward
+    want = {**flash_launches(model, torch.bfloat16, steps, backward=False),
             "msda_corner_reduce_fwd": msda_sites * steps}
-    if got != want or tc_sites != 46 or fma_sites != 0:
-        raise AssertionError(
-            f"launches {got}, structure says {want} ({tc_sites} tensor-core and "
-            f"{fma_sites} FMA attention sites, 46 and 0 expected)"
-        )
+    check_bf16_flash(want, steps, backward=False)
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"launches {got}, structure says {want}")
     peak = torch.cuda.max_memory_allocated()
 
     image_b, tokens_b, seconds_b = restore_request(model, lq, seed + 1, steps)
@@ -1255,9 +1289,8 @@ def phase_restore(model, lq, seed: int, steps: int) -> dict:
         "restore", steps=steps, seconds_first_request=seconds,
         seconds_second_request=seconds_b, same_seed_check_steps=check_steps,
         same_seed_check_seconds=[seconds_c, seconds_d],
-        attention_sites=tc_sites + fma_sites, msda_sites=msda_sites,
-        flash_tc_launches=got["flash_attention_fwd_tc"],
-        flash_fma_launches=got["flash_attention_fwd"],
+        msda_sites=msda_sites,
+        flash_launches={k: n for k, n in got.items() if k.startswith("flash_attention_")},
         msda_launches=got["msda_corner_reduce_fwd"],
         peak_memory_bytes=peak, image_mean=image.mean().item(),
         tokens_head=tokens[0, :12].tolist(),
@@ -1280,7 +1313,8 @@ def phase_restore_flatpatch(model, lq, seed: int, steps: int) -> dict:
         "flatpatch_kernel": dict(MSDA_DEFAULT, core="flatpatch", patchify="kernel"),
         "flatlanes_kernel": dict(MSDA_DEFAULT, patchify="kernel"),
     }
-    tc_sites, fma_sites = attention_sites(model, torch.bfloat16)
+    flash = flash_launches(model, torch.bfloat16, steps, backward=False)
+    check_bf16_flash(flash, steps, backward=False)
     runs = {name: [] for name in settings}
     # default, change, change, ..., default: each setting twice in a row, the
     # default at both ends of the same call
@@ -1295,8 +1329,7 @@ def phase_restore_flatpatch(model, lq, seed: int, steps: int) -> dict:
             check_restored(image, tokens)
             runs[name].append(dict(image=image, tokens=tokens, seconds=seconds, counts=counts))
             want = {
-                "flash_attention_fwd_tc": tc_sites * steps,
-                "flash_attention_fwd": fma_sites * steps + 2,
+                **flash,
                 "msda_corner_reduce_fwd": sites * steps if settings[name]["core"] == "flatlanes" else 0,
                 "patchify_value_fwd": sites * steps if settings[name]["patchify"] == "kernel" else 0,
             }

@@ -5,17 +5,18 @@ Counterpart of ``tair_tpu/ops/flash_attention.py``. Tensors are laid out
 ``[B, T, H, D]`` as there. ``flash_attention`` returns the attention output in
 the input type and the per-row logsumexp ``[B, H, Tq]`` in float32, and is
 differentiable with respect to q, k and v through a ``torch.autograd.Function``
-that saves ``q, k, v, O, lse``. On CUDA tensors it launches one of two kernel
-families, as ``tensor_core_kernels(dtype, D)`` decides: bfloat16 with a head
-width of at most 128 takes the tensor-core forward (``csrc/flash_attention_tc.cu``)
-and dK/dV (``csrc/flash_attention_dkv_tc.cu``); float32, and the autoencoder's
-D = 512, take the FMA forward (``csrc/flash_attention.cu``) and dK/dV
-(``csrc/flash_attention_bwd.cu``). dQ is the FMA kernel of
-``csrc/flash_attention_bwd.cu`` for both (``delta = rowsum(dO * O)`` is formed
-here in float32, outside the kernels, as the JAX package does). The plain
-versions are taken only for tensors that lie on the CPU. The backward kernels
-have the head widths ``BWD_HEAD_DIMS``: a wider call that asks for a gradient on
-a CUDA device raises.
+that saves ``q, k, v, O, lse``. On CUDA tensors each of its three kernels
+(forward, dQ, dK/dV) is taken from one of two families, as
+``tensor_core_kernels(dtype, D, kind)`` decides: bfloat16 takes the tensor-core
+kernels, the forward at every head width (``csrc/flash_attention_tc.cu`` at
+D <= 128, ``csrc/flash_attention_wide_tc.cu`` at the autoencoder's D = 512) and
+dQ and dK/dV at D <= 128 (``csrc/flash_attention_dq_tc.cu``,
+``csrc/flash_attention_dkv_tc.cu``); float32 takes the FMA kernels
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``). ``delta =
+rowsum(dO * O)`` is formed here in float32, outside the kernels, as the JAX
+package does. The plain versions are taken only for tensors that lie on the
+CPU. The backward kernels have the head widths ``BWD_HEAD_DIMS``: a wider call
+that asks for a gradient on a CUDA device raises.
 """
 
 from __future__ import annotations
@@ -30,14 +31,18 @@ from . import _build
 
 HEAD_DIMS = (16, 32, 64, 128, 512)
 BWD_HEAD_DIMS = (16, 32, 64, 128)
-TC_HEAD_DIMS = (16, 32, 64, 128)  # of the tensor-core kernels, bfloat16 only
+# head widths of the tensor-core kernels (bfloat16 only), by kind of kernel
+TC_HEAD_DIMS = {"fwd": HEAD_DIMS, "dq": BWD_HEAD_DIMS, "dkv": BWD_HEAD_DIMS}
+WIDE_HEAD_DIM = 512  # the forward's own tensor-core kernel: csrc/flash_attention_wide_tc.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 DKV_QUERY_TILE = 64  # a chunk of the dK/dV query split is a multiple of this
 SMS = 132            # streaming multiprocessors of an H100 SXM
 
 # kernel launches made by the wrapper, one count per kernel (never raised by a
-# plain version): forward (FMA, tensor cores), dQ, dK/dV (FMA, tensor cores)
-launches = {"fwd": 0, "fwd_tc": 0, "dq": 0, "dkv": 0, "dkv_tc": 0}
+# plain version): forward (FMA; tensor cores at D <= 128 and at D = 512), dQ
+# (FMA, tensor cores), dK/dV (FMA, tensor cores)
+launches = {"fwd": 0, "fwd_tc": 0, "fwd_tc_wide": 0, "dq": 0, "dq_tc": 0, "dkv": 0,
+            "dkv_tc": 0}
 
 # the C entry points: (library, symbol, argument types); pointers, then
 # B, H, Tq, Tk, D, the strides, the scale, and what each kernel takes after it
@@ -46,7 +51,10 @@ _SHAPE = [_INT] * 5 + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float]
 _ENTRY = {
     "fwd": ("flash_attention", "flash_attention_fwd", [_PTR] * 5 + _SHAPE + [_INT, _PTR]),
     "fwd_tc": ("flash_attention_tc", "flash_attention_fwd_tc", [_PTR] * 5 + _SHAPE + [_PTR]),
+    "fwd_tc_wide": ("flash_attention_wide_tc", "flash_attention_fwd_wide_tc",
+                    [_PTR] * 5 + _SHAPE + [_PTR]),
     "dq": ("flash_attention_bwd", "flash_attention_dq", [_PTR] * 7 + _SHAPE + [_INT, _PTR]),
+    "dq_tc": ("flash_attention_dq_tc", "flash_attention_dq_tc", [_PTR] * 7 + _SHAPE + [_PTR]),
     "dkv": ("flash_attention_bwd", "flash_attention_dkv", [_PTR] * 8 + _SHAPE + [_INT, _PTR]),
     # + the workspace pointer, and splits, chunk after the scale
     "dkv_tc": ("flash_attention_dkv_tc", "flash_attention_dkv_tc",
@@ -71,11 +79,21 @@ def reset_launches() -> None:
         launches[key] = 0
 
 
-def tensor_core_kernels(dtype: torch.dtype, d: int) -> bool:
-    """Whether a call of this type and head width takes the tensor-core forward
-    and dK/dV kernels (bfloat16, D <= 128) rather than the FMA ones (float32,
-    which is held to 1e-4 and never goes through TF32, and D = 512)."""
-    return dtype == torch.bfloat16 and d in TC_HEAD_DIMS
+def tensor_core_kernels(dtype: torch.dtype, d: int, kind: str) -> bool:
+    """Whether a call of this type and head width takes the tensor-core kernel
+    of `kind` ("fwd", "dq" or "dkv") rather than the FMA one: bfloat16 at every
+    head width of that kind's tensor-core kernels (`TC_HEAD_DIMS`). float32 is
+    held to 1e-4 and never goes through TF32, so it stays on the FMA kernels."""
+    return dtype == torch.bfloat16 and d in TC_HEAD_DIMS[kind]
+
+
+def kernel_name(dtype: torch.dtype, d: int, kind: str) -> str:
+    """The `launches` key of the kernel of `kind` that a call of this type and
+    head width takes: `kind` itself for the FMA kernel, else its tensor-core
+    kernel ("fwd_tc_wide" for the forward at D = 512)."""
+    if not tensor_core_kernels(dtype, d, kind):
+        return kind
+    return "fwd_tc_wide" if kind == "fwd" and d == WIDE_HEAD_DIM else f"{kind}_tc"
 
 
 def dkv_query_split(b: int, h: int, tq: int, tk: int) -> int:
@@ -185,7 +203,7 @@ def _rows_aligned(t: torch.Tensor) -> bool:
 
 def _launch(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-    which: Optional[str] = None,  # "fwd_tc" or "fwd"; by default as tensor_core_kernels says
+    which: Optional[str] = None,  # "fwd" or the tensor-core kernel; by default kernel_name's
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, tq, h, d = q.shape
     tk = k.shape[1]
@@ -193,10 +211,11 @@ def _launch(
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, got {q.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel has head widths {HEAD_DIMS}, got {d}")
+    chosen = kernel_name(q.dtype, d, "fwd")
     if which is None:
-        which = "fwd_tc" if tensor_core_kernels(q.dtype, d) else "fwd"
-    if which == "fwd_tc" and not tensor_core_kernels(q.dtype, d):
-        raise ValueError(f"the tensor-core forward takes bfloat16 at D in {TC_HEAD_DIMS}")
+        which = chosen
+    if which != "fwd" and which != chosen:
+        raise ValueError(f"flash_attention_{which} does not take {q.dtype} at D = {d}")
     if b * h > 65535:
         raise ValueError("flash_attention kernel takes at most 65535 (batch, head) pairs")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -211,7 +230,7 @@ def _launch(
     strides = (ctypes.c_int64 * 9)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3]
     )
-    dtype_code = () if which == "fwd_tc" else (_DTYPE_CODES[q.dtype],)
+    dtype_code = () if which != "fwd" else (_DTYPE_CODES[q.dtype],)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
@@ -225,13 +244,13 @@ def _launch(
 
 
 def _launch_backward_kernel(
-    which: str,  # "dq", "dkv" or "dkv_tc"
+    which: str,  # "dq", "dq_tc", "dkv" or "dkv_tc"
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, scale: float,
 ):
-    """One backward kernel on the tensors the forward launch saw: dq for
-    "dq", (dk, dv) for "dkv" and "dkv_tc". do must pass `_rows_aligned`; lse
-    and delta are float32 [B, H, Tq], contiguous. "dkv_tc" cuts the queries
+    """One backward kernel on the tensors the forward launch saw: dq for "dq"
+    and "dq_tc", (dk, dv) for "dkv" and "dkv_tc". do must pass `_rows_aligned`;
+    lse and delta are float32 [B, H, Tq], contiguous. "dkv_tc" cuts the queries
     as `dkv_query_split` says and sums the chunks' float32 partials in a
     workspace allocated here."""
     b, tq, h, d = q.shape
@@ -240,8 +259,10 @@ def _launch_backward_kernel(
         raise NotImplementedError(
             f"flash_attention backward kernels have head widths {BWD_HEAD_DIMS}, got {d}"
         )
-    if which == "dkv_tc" and not tensor_core_kernels(q.dtype, d):
-        raise ValueError(f"the tensor-core dK/dV takes bfloat16 at D in {TC_HEAD_DIMS}")
+    if which.endswith("_tc") and not tensor_core_kernels(q.dtype, d, which[:-3]):
+        raise ValueError(
+            f"flash_attention_{which} takes bfloat16 at D in {TC_HEAD_DIMS[which[:-3]]}"
+        )
     for name, t in (("do", do), ("lse", lse), ("delta", delta)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must lie on q's device")
@@ -250,7 +271,8 @@ def _launch_backward_kernel(
     for name, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or t.shape != (b, h, tq) or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32 [B, H, Tq]")
-    if which == "dq":
+    is_dq = which in ("dq", "dq_tc")
+    if is_dq:
         outs = (torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device),)
     else:
         outs = tuple(
@@ -270,6 +292,8 @@ def _launch_backward_kernel(
             None if ws is None else ws.data_ptr(), b, h, tq, tk, d, strides,
             float(scale), splits, dkv_chunk_queries(tq, splits),
         )
+    elif which == "dq_tc":
+        tail = (b, h, tq, tk, d, strides, float(scale))
     else:
         tail = (b, h, tq, tk, d, strides, float(scale), _DTYPE_CODES[q.dtype])
     fn = _entry(which)
@@ -282,7 +306,7 @@ def _launch_backward_kernel(
     if err != 0:
         raise RuntimeError(f"flash_attention_{which} launch failed with CUDA error {err}")
     launches[which] += 1
-    return outs[0] if which == "dq" else outs
+    return outs[0] if is_dq else outs
 
 
 def _launch_bwd(
@@ -297,9 +321,11 @@ def _launch_bwd(
         do = do.contiguous()
     # rowsum(dO * O): [B, Tq, H] -> [B, H, Tq]
     delta = (do.float() * o.float()).sum(dim=-1).permute(0, 2, 1).contiguous()
-    dq = _launch_backward_kernel("dq", q, k, v, do, lse, delta, scale)
-    dkv = "dkv_tc" if tensor_core_kernels(q.dtype, q.shape[-1]) else "dkv"
-    dk, dv = _launch_backward_kernel(dkv, q, k, v, do, lse, delta, scale)
+    d = q.shape[-1]
+    dq = _launch_backward_kernel(kernel_name(q.dtype, d, "dq"), q, k, v, do, lse, delta, scale)
+    dk, dv = _launch_backward_kernel(
+        kernel_name(q.dtype, d, "dkv"), q, k, v, do, lse, delta, scale
+    )
     return dq, dk, dv
 
 

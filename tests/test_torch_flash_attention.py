@@ -1,7 +1,8 @@
 """Port's flash attention (plain version, the one the CPU runs) against the
-JAX package's Pallas kernel in interpret mode and against einsum_sdpa; the
-choice between the tensor-core and the FMA kernels; and why the tensor-core
-kernels carry P and dS as two bfloat16 terms."""
+JAX package's Pallas kernel in interpret mode and against einsum_sdpa, at the
+UNet's head widths and the autoencoder's D = 512; the choice between the
+tensor-core and the FMA kernels; and why the tensor-core kernels carry P and
+dS as two bfloat16 terms."""
 
 import math
 
@@ -24,6 +25,7 @@ CASES = [
     (2, 100, 77, 4, 64, None),    # cross-attention, ragged q, 77 keys
     (1, 40, 77, 1, 16, 0.5),      # custom scale
     (1, 33, 130, 3, 128, None),   # ragged both ways, wide head
+    (1, 48, 80, 1, 512, None),    # the autoencoder's single 512-wide head
 ]
 
 
@@ -105,12 +107,41 @@ def test_shape_mismatch_raises(shapes):
         fa.flash_attention(q, k, v)
 
 
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_choice(dtype, d):
-    """bfloat16 at D <= 128 takes the tensor-core kernels; float32 (held to 1e-4,
-    never through TF32) and the autoencoder's D = 512 take the FMA kernels."""
-    assert fa.tensor_core_kernels(dtype, d) == (dtype == torch.bfloat16 and d <= 128)
+def test_kernel_choice(dtype, d, kind):
+    """bfloat16 takes the tensor-core kernels: the forward at every head width
+    (its own kernel at the autoencoder's D = 512), dQ and dK/dV at D <= 128;
+    float32 (held to 1e-4, never through TF32) takes the FMA kernels."""
+    widths = (16, 32, 64, 128, 512) if kind == "fwd" else (16, 32, 64, 128)
+    tc = dtype == torch.bfloat16 and d in widths
+    assert fa.tensor_core_kernels(dtype, d, kind) == tc
+    want = "fwd_tc_wide" if tc and d == 512 else f"{kind}_tc" if tc else kind
+    assert fa.kernel_name(dtype, d, kind) == want
+    assert want in fa.launches
+
+
+@pytest.mark.parametrize(
+    "which,dtype,d",
+    [
+        ("fwd_tc_wide", torch.bfloat16, 64),   # the wide kernel has D = 512 only
+        ("fwd_tc", torch.bfloat16, 512),       # and the narrow one D <= 128
+        ("fwd_tc", torch.float32, 64),         # tensor cores take bfloat16 only
+        ("dq_tc", torch.float32, 64),
+        ("dkv_tc", torch.float32, 32),
+    ],
+)
+def test_tensor_core_kernel_refuses_other_calls(which, dtype, d):
+    """Asking for a tensor-core kernel outside its types and widths raises
+    before anything is launched."""
+    q = torch.zeros((1, 8, 1, d), dtype=dtype)
+    with pytest.raises(ValueError, match=which):
+        if which.startswith("fwd"):
+            fa._launch(q, q, q, 1.0, which)
+        else:
+            stats = torch.zeros((1, 1, 8))
+            fa._launch_backward_kernel(which, q, q, q, q, stats, stats, 1.0)
 
 
 def _bf16(x):
@@ -122,15 +153,16 @@ def _two_terms(x):
     return hi + _bf16(x - hi)
 
 
-@pytest.mark.parametrize("product", ["pv", "dv", "dk"])
+@pytest.mark.parametrize("product", ["pv", "dv", "dk", "dq", "pv512"])
 def test_bf16_probabilities_need_two_terms(product):
-    """The tensor-core kernels' arithmetic, emulated: P (forward P V, dV = P^T
-    dO) and dS (dK = dS^T q) enter a bf16 product after float32 softmax. Rounded
-    to one bf16 term they miss the elementwise tolerances that chip_smoke.py
-    holds the kernels to (O: 2^-7 |O| + 1e-4; gradients: 2^-7 |g| + 1e-3
-    mean|g|) several times over at 77 keys; as hi + lo they keep under half of
-    them. The result is rounded to bf16 once, as the kernels store it."""
-    b, tq, tk, h, d = 1, 256, 77, 2, 64
+    """The tensor-core kernels' arithmetic, emulated: P (forward P V, also at
+    the autoencoder's D = 512; dV = P^T dO) and dS (dK = dS^T q, dQ = dS k)
+    enter a bf16 product after float32 softmax. Rounded to one bf16 term they
+    miss the elementwise tolerances that chip_smoke.py holds the kernels to (O:
+    2^-7 |O| + 1e-4; gradients: 2^-7 |g| + 1e-3 mean|g|) several times over;
+    as hi + lo they keep under half of them. The result is rounded to bf16
+    once, as the kernels store it."""
+    tq, tk, h, d = (128, 256, 1, 512) if product == "pv512" else (256, 77, 2, 64)
     rng = np.random.default_rng(0)
     q, k, v, do = (
         _bf16(torch.from_numpy(rng.standard_normal((h, t, d), dtype=np.float32)))
@@ -142,10 +174,12 @@ def test_bf16_probabilities_need_two_terms(product):
     ds = p * (do @ v.transpose(1, 2) - (do * o).sum(-1, keepdim=True)) / math.sqrt(d)
     operand, other, ref = {
         "pv": (p, v, o),
+        "pv512": (p, v, o),
         "dv": (p.transpose(1, 2), do, p.transpose(1, 2) @ do),
         "dk": (ds.transpose(1, 2), q, ds.transpose(1, 2) @ q),
+        "dq": (ds, k, ds @ k),
     }[product]
-    atol = 1e-4 if product == "pv" else 1e-3 * ref.abs().mean().item()
+    atol = 1e-4 if product.startswith("pv") else 1e-3 * ref.abs().mean().item()
 
     def share(rounded):
         got = _bf16(rounded @ other)

@@ -114,7 +114,7 @@ def test_cpu_backward_does_not_count_as_launch():
     out, _ = fa.flash_attention(q.requires_grad_(True), k, v)
     out.backward(do)
     assert fa.launches == before
-    assert set(before) == {"fwd", "fwd_tc", "dq", "dkv", "dkv_tc"}
+    assert set(before) == {"fwd", "fwd_tc", "fwd_tc_wide", "dq", "dq_tc", "dkv", "dkv_tc"}
 
 
 @pytest.mark.parametrize(

@@ -120,6 +120,7 @@ def test_kernel_wrappers_do_not_build_on_import():
         assert not _build._LIBS
         assert {p.name for p in _build.CSRC.glob("*.cu")} == {
             "flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_tc.cu",
+            "flash_attention_wide_tc.cu", "flash_attention_dq_tc.cu",
             "flash_attention_dkv_tc.cu", "msda_reduce.cu", "patchify.cu",
             "probe_gather.cu", "probe_stream.cu", "probe_msda_lab.cu"}
         assert set(_build.KERNEL_SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
