@@ -26,7 +26,11 @@ through its kernels:
   training  stage 3 (``all_modules``) through ``train.step.make_train_step``:
             one step of the tiny model on the card against the CPU (phase
             train_reference), then full-width steps with float32 master
-            weights and bfloat16 compute on one 512 x 512 image (phase train).
+            weights and bfloat16 compute on one 512 x 512 image (phase train);
+            then the port's trainer as a user starts it, ``python -m
+            tair_tpu_torch.train`` on configs/train_chip_demo.yaml (its own
+            data, degradation on the card, checkpoint, resume, validation and
+            weight export; phase train_entry).
 
 One JSON line per phase; the last line is the verdict. Any failed check raises,
 so the exit code is non-zero and no verdict is printed. ``--phases`` runs a
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -46,6 +51,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tair_tpu_torch.ops.launches import launch_counts, reset_launch_counts
+
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -54,10 +61,12 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # of every flash-attention call of one restore at 512 x 512: UNet + ControlNet
 # self- and cross-attention at the three attention levels (5 + 2 transformer
 # blocks each) and the two middle blocks, the VAE middle block of the encoder
-# and of the decoder. The last three shapes the restore never gives: ragged
-# lengths at batch 2 at a wide head and at the autoencoder's width, and a
-# narrow head; all are cut out of wider buffers, so their token strides are not
-# H*D.
+# and of the decoder. Then the shapes that only the trainer's 256 x 256 images
+# give (phase train_entry; its third level, 64 tokens at 20 heads, is
+# unet_*_mid), with no calls at 512 x 512. The last three shapes no path gives:
+# ragged lengths at batch 2 at a wide head and at the autoencoder's width, and
+# a narrow head; all are cut out of wider buffers, so their token strides are
+# not H*D.
 K1_SHAPES = [
     ("unet_self_64", 1, 4096, 4096, 5, 64, 7, 0),
     ("unet_self_32", 1, 1024, 1024, 10, 64, 7, 0),
@@ -68,6 +77,13 @@ K1_SHAPES = [
     ("unet_cross_16", 1, 256, 77, 20, 64, 7, 0),
     ("unet_cross_mid", 1, 64, 77, 20, 64, 2, 0),
     ("vae_mid", 1, 4096, 4096, 1, 512, 0, 2),
+    ("at256_unet_self_32", 1, 1024, 1024, 5, 64, 0, 0),
+    ("at256_unet_self_16", 1, 256, 256, 10, 64, 0, 0),
+    ("at256_unet_self_mid", 1, 16, 16, 20, 64, 0, 0),
+    ("at256_unet_cross_32", 1, 1024, 77, 5, 64, 0, 0),
+    ("at256_unet_cross_16", 1, 256, 77, 10, 64, 0, 0),
+    ("at256_unet_cross_mid", 1, 16, 77, 20, 64, 0, 0),
+    ("at256_vae_mid", 1, 1024, 1024, 1, 512, 0, 0),
     ("ragged_strided", 2, 1000, 333, 3, 128, 0, 0),
     ("vae_ragged_strided", 2, 1000, 333, 1, 512, 0, 0),
     ("narrow_strided", 2, 301, 77, 4, 32, 0, 0),
@@ -80,9 +96,11 @@ K1_SHAPES = [
 # with the value would pass a product that is wrong by all of it.
 K1_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}  # (rtol, atol)
 K1_LSE_TOL = 1e-4
-# (NQ, calls per spotter pass) of the msda reduce: the 6 encoder layers, the 6
-# decoder layers' control-point and text branches, and one ragged shape
-K3_SHAPES = [("encoder", 9472, 6), ("dec_ctrl", 1600, 6), ("dec_text", 2500, 6), ("ragged", 37, 0)]
+# (NQ, calls per spotter pass at 512 x 512) of the msda reduce: the 6 encoder
+# layers, the 6 decoder layers' control-point and text branches (the same at
+# every image size), the encoder at the trainer's 256 x 256, and one ragged shape
+K3_SHAPES = [("encoder", 9472, 6), ("dec_ctrl", 1600, 6), ("dec_text", 2500, 6),
+             ("at256_encoder", 2368, 0), ("ragged", 37, 0)]
 K3_TOL = 1e-4  # float32 accumulation on both sides, summation order only
 # the training phases: configs/train_stage3.yaml's learning rate and OCR weight
 TRAIN_LR = 1e-4
@@ -117,7 +135,7 @@ FLATPATCH_STEPS = 10  # of every request of phase restore_flatpatch
 PROBE_REPS = 2        # timed repetitions per setting of the probes' own runs
 
 PHASES = ("kernels", "probes", "reference", "restore", "restore_flatpatch", "layers",
-          "train_reference", "train")
+          "train_reference", "train", "train_entry")
 
 
 LOG_PATH = None  # --log: every phase line is appended there as well
@@ -847,30 +865,6 @@ def phase_reference(seed: int) -> dict:
     return counts
 
 
-def _counted_modules():
-    from tair_tpu_torch.ops import flash_attention, msda_reduce, patchify
-    from tair_tpu_torch.probes import dyngather, msda_lab, stream
-
-    return (
-        ("flash_attention_", flash_attention), ("msda_corner_reduce_", msda_reduce),
-        ("patchify_value_", patchify), ("probe_gather_", dyngather),
-        ("probe_stream_", stream), ("probe_msda_lab_", msda_lab),
-    )
-
-
-def reset_launch_counts() -> None:
-    for _, module in _counted_modules():
-        module.reset_launches()
-
-
-def launch_counts() -> dict:
-    """Every wrapper's counts under the names of the `kernels` line."""
-    return {
-        prefix + key: n for prefix, module in _counted_modules()
-        for key, n in module.launches.items()
-    }
-
-
 def set_msda(testr, **fields) -> int:
     """Set fields (core, patchify, ...) on every deformable attention of the
     spotter; returns how many there are."""
@@ -1209,6 +1203,228 @@ def phase_train(seed: int, steps: int, kernels: list, profile: bool) -> dict:
     return timed[-1][2]
 
 
+TRAIN_ENTRY_CONFIG = "configs/train_chip_demo.yaml"
+VAL_STEPS, VAL_TAGS = 10, (10,)  # the trainer's validation: 10 steps, features of the last
+
+
+def read_jsonl(path: Path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def phase_train_entry(seed: int) -> dict:
+    """The port's trainer as a user starts it (``python -m tair_tpu_torch.train``)
+    on configs/train_chip_demo.yaml in a scratch directory: three full-width
+    steps that end in a checkpoint of the whole train state, then a second run
+    that resumes from it at step 3 and takes one step. Then, in this process,
+    the trainer's validation (10 steps at 256 x 256, features of step 10, PSNR,
+    SSIM, OCR loss) on the weights of the last checkpoint, the float16 weight
+    export in the JAX layout and its reload, and the degradation of one batch
+    timed on the card. Returns the launch counts of the trainer's steps and of
+    the validation."""
+    import shutil
+    import tempfile
+
+    from tair_tpu_torch.config import build_dataset, build_model, load_config
+    from tair_tpu_torch.data.batch_transform import degrade_batch
+    from tair_tpu_torch.data.satext import data_iterator
+    from tair_tpu_torch.train import checkpoint as ckpt
+    from tair_tpu_torch.train.__main__ import run_validation, stream_seed
+    from tair_tpu_torch.weights.convert import jax_param_shapes
+
+    root = Path(__file__).resolve().parent
+    config = root / TRAIN_ENTRY_CONFIG
+    cfg = load_config(str(config))
+    torch.cuda.empty_cache()  # the trainer runs in processes of its own
+    (root / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="train_entry_", dir=root / "build"))
+    try:
+        free_gb = shutil.disk_usage(work).free / 1e9
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (str(root), os.environ.get("PYTHONPATH", "")) if p))
+        runs = []
+        for max_steps in (3, 4):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "tair_tpu_torch.train", "--config", str(config),
+                 "--max-steps", str(max_steps)],
+                cwd=work, env=env, capture_output=True, text=True, timeout=900,
+            )
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"the trainer (--max-steps {max_steps}) exited with {proc.returncode}:\n"
+                    f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}"
+                )
+            runs.append(dict(seconds=time.perf_counter() - t0, stdout=proc.stdout))
+        exp = work / Path(cfg.train.exp_dir)
+        steps = read_jsonl(exp / "steps.jsonl")
+        records = read_jsonl(exp / "metrics.jsonl")
+        if [r["step"] for r in steps] != [1, 2, 3, 4]:
+            raise AssertionError(f"train_entry: steps {[r['step'] for r in steps]}, want 1-4")
+        if "at step 3" not in runs[1]["stdout"]:
+            raise AssertionError(f"train_entry: the second run did not resume at step 3:\n"
+                                 f"{runs[1]['stdout'][-2000:]}")
+        for r in steps:
+            losses = {k: r[k] for k in ("loss_total", "loss_diffusion", "loss_ocr")}
+            if not all(np.isfinite(v) for v in losses.values()):
+                raise AssertionError(f"train_entry step {r['step']}: a loss is not finite: {losses}")
+            total = r["loss_diffusion"] + TRAIN_OCR_WEIGHT * r["loss_ocr"]
+            if not abs(r["loss_total"] - total) <= 1e-5 * abs(total):
+                raise AssertionError(f"train_entry step {r['step']}: loss_total "
+                                     f"{r['loss_total']} is not {total}")
+        saved = next(r for r in records if r["step"] == 3 and "checkpoint/write_seconds" in r)
+        restored = next(r for r in records if r["step"] == 3 and "checkpoint/read_seconds" in r)
+        sums = {k[len("checkpoint/saved_"):]: v for k, v in saved.items()
+                if k.startswith("checkpoint/saved_")}
+        mismatched = {k: (v, restored[f"checkpoint/restored_{k}"]) for k, v in sums.items()
+                      if restored[f"checkpoint/restored_{k}"] != v}
+        if len(sums) != 7 or mismatched:
+            raise AssertionError(f"train_entry: the restored state differs from the saved one: "
+                                 f"{mismatched or sums}")
+        last_write = next(r for r in records if r["step"] == 4 and "checkpoint/write_seconds" in r)
+
+        # the trainer's model, as the last checkpoint holds it
+        dev = torch.device("cuda")
+        model = build_model(cfg, dev, training=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = torch.load(Path(ckpt.latest_checkpoint(str(exp / "checkpoints"))) /
+                           ckpt.CHECKPOINT_FILE, map_location="cpu", mmap=True,
+                           weights_only=True)
+        model.load_state_dict(state["model"], strict=True)
+        del state
+        torch.cuda.synchronize()
+        load_model_s = time.perf_counter() - t0
+
+        want = predicted_train_launches(model, torch.bfloat16)
+        check_bf16_flash(want, 1, backward=True)
+        want_step = {k: n for k, n in want.items() if n}
+        for r in steps:
+            if r["launches"] != want_step:
+                raise AssertionError(f"train_entry step {r['step']} launches {r['launches']}, "
+                                     f"structure says {want_step}")
+
+        # float16 export in the JAX package's layout, and its reload
+        names = {key: leaf.shape for key, leaf in ckpt.flat_items(jax_param_shapes(model))}
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        export = work / "params.npz"
+        t0 = time.perf_counter()
+        ckpt.save_params(str(export), model, dtype=np.float16)
+        export_s = time.perf_counter() - t0
+        with np.load(export) as data:
+            stored = {k: data[k].shape for k in data.files}
+            dtypes = {str(data[k].dtype) for k in data.files}
+        if stored != names or dtypes != {"float16"}:
+            raise AssertionError(f"train_entry: the export's keys or dtypes differ from the JAX "
+                                 f"layout ({len(stored)} keys, {len(names)} expected, {dtypes})")
+        t0 = time.perf_counter()
+        ckpt.load_params(str(export), model)
+        torch.cuda.synchronize()
+        reload_s = time.perf_counter() - t0
+        worst = 0.0
+        for n, p in model.named_parameters():
+            err = (p.detach() - before[n]).abs()
+            tol = 2.0 ** -11 * before[n].abs() + 2.0 ** -24  # float16 rounding
+            worst = max(worst, (err / tol).max().item())
+        if worst > 1.0:
+            raise AssertionError(f"train_entry: the reloaded export is {worst} x float16 "
+                                 "rounding away from the weights")
+        del before
+
+        # one batch of the trainer's pipeline, degraded on the card
+        it = data_iterator(build_dataset(cfg, "TRAIN"), cfg.train.batch_size,
+                           seed=cfg.train.seed, max_inst=cfg.dataset.max_instances)
+        raw = next(it)
+        it.close()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()
+                 if isinstance(v, np.ndarray)}
+
+        def degrade():
+            return degrade_batch(
+                batch["hq"], batch["kernel1"], batch["kernel2"], batch["sinc_kernel"],
+                cfg.degradation, rng=np.random.default_rng(stream_seed(seed, 1, 0)),
+                generator=torch.Generator(device=dev).manual_seed(seed))
+
+        gt, lq = degrade()
+        size = cfg.dataset.out_size
+        on_card = gt.device.type == lq.device.type == "cuda"
+        if gt.shape != (cfg.train.batch_size, size, size, 3) or lq.shape != gt.shape \
+                or not on_card or not (-1 <= gt.min() <= gt.max() <= 1) \
+                or not (0 <= lq.min() <= lq.max() <= 1):
+            raise AssertionError(f"train_entry: degrade_batch gave gt {tuple(gt.shape)} on "
+                                 f"{gt.device} in [{gt.min()}, {gt.max()}], lq {tuple(lq.shape)} "
+                                 f"in [{lq.min()}, {lq.max()}]")
+        degrade_ms = time_ms(degrade, warmup=1, reps=5, inner=1)
+
+        def degrade_wall() -> float:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            degrade()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        # device busy seconds of one call, against its wall seconds
+        degrade_prof = {k: v for k, v in profiled(degrade_wall).items() if k != "top_kernels"}
+
+        # the trainer's validation
+        targets = {k: batch[k] for k in ("inst_mask", "boxes", "ctrl_points", "texts")}
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val = run_validation(model, cfg, gt, lq, batch["tokens"], n_images=1, steps=VAL_STEPS,
+                             feat_iterations=VAL_TAGS, targets=targets, image_dir=str(work / "val"))
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - t0
+        val_launches = launch_counts()
+        from tair_tpu_torch.spotter.ms_deform_attn import MSDeformAttn
+
+        msda = sum(isinstance(m, MSDeformAttn) for m in model.testr.modules())
+        want_val = {**dict.fromkeys(val_launches, 0),
+                    **flash_launches(model, torch.bfloat16, VAL_STEPS, backward=False),
+                    "msda_corner_reduce_fwd": msda * len(VAL_TAGS)}
+        if val_launches != want_val:
+            raise AssertionError(f"train_entry validation launches {val_launches}, "
+                                 f"structure says {want_val}")
+        if not all(np.isfinite(val[k]) for k in ("psnr", "ssim", f"ocr_loss_iter{VAL_TAGS[0]}")):
+            raise AssertionError(f"train_entry: validation metrics {val}")
+        if not (work / "val" / "val_0.png").is_file():
+            raise AssertionError("train_entry: validation wrote no image")
+
+        path_launches = dict(val_launches)
+        for r in steps:
+            for k, n in r["launches"].items():
+                path_launches[k] += n
+        step_s = [r["seconds"] for r in steps]
+        emit(
+            "train_entry", command="python -m tair_tpu_torch.train --config "
+            f"{TRAIN_ENTRY_CONFIG} --max-steps 3, then --max-steps 4 (resume)",
+            geometry="build_default_model, stage 3, float32 master weights, bfloat16 compute, "
+            "SyntheticSAText 256x256, batch 1, 8 padded instances",
+            trainer_process_seconds=[r["seconds"] for r in runs],
+            step_seconds=step_s, median_step_seconds_steps_2_3=statistics.median(step_s[1:3]),
+            host_batch_seconds=[r["host_batch_seconds"] for r in steps],
+            data_wait_seconds=[r["data_wait_seconds"] for r in steps],
+            degrade_ms_cuda_events_in_trainer=[r["degrade_ms"] for r in steps],
+            degrade_ms_cuda_events=degrade_ms, degrade_device=degrade_prof,
+            losses=[{k: r[k] for k in r if k.startswith("loss_")} for r in steps],
+            peak_memory_bytes_trainer=max(r["peak_memory_bytes"] for r in steps),
+            checkpoint_write_seconds=[saved["checkpoint/write_seconds"],
+                                      last_write["checkpoint/write_seconds"]],
+            checkpoint_read_seconds=restored["checkpoint/read_seconds"],
+            checkpoint_gigabytes=saved["checkpoint/gigabytes"], checksums_equal=True,
+            free_disk_gigabytes=free_gb, checkpoint_model_load_seconds=load_model_s,
+            float16_export_seconds=export_s, float16_export_reload_seconds=reload_s,
+            float16_export_gigabytes=export.stat().st_size / 1e9,
+            float16_export_keys=len(stored), float16_reload_worst_share_of_rounding=worst,
+            validation_seconds=val_s, validation=val,
+            validation_peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            launches_per_step=want_step, validation_launches={k: n for k, n in val_launches.items() if n},
+        )
+        return path_launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def build_model(seed: int):
     from tair_tpu_torch.pipeline import build_default_model
 
@@ -1505,7 +1721,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=10, help="steps of the two full requests")
-    ap.add_argument("--train-steps", type=int, default=2, help="timed training steps")
+    ap.add_argument("--train-steps", type=int, default=1, help="timed training steps")
     ap.add_argument("--profile-train", action="store_true",
                     help="also trace one training step with torch.profiler")
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1572,6 +1788,11 @@ def main() -> None:
         path_launches["train"] = phase_train(
             args.seed, args.train_steps, model_kernels, args.profile_train
         )
+    if "train_entry" in phases:
+        path_launches["train_entry"] = phase_train_entry(args.seed)
+        for entry in kernels:
+            if "train" in entry["paths"]:  # the trainer runs every kernel of the train step
+                entry["paths"] = (*entry["paths"], "train_entry")
     if phases != set(PHASES):
         # a partial run is for development: it prints what it measured and no verdict
         print(json.dumps({"kernels": kernels, "launches": path_launches}), flush=True)

@@ -4,9 +4,11 @@ Counterpart of ``tair_tpu/pipeline.py`` for its serving path,
 ``TeReDiff.restore_fused_feedback``: LQ -> SwinIR cleaner -> VAE encode ->
 CLIP encode of the empty prompt -> spaced-DDPM steps, each running ControlNet
 + UNet, the TESTR spotter on the UNet's decoder features, the on-device TAG
-prompt splice and a CLIP re-encode -> VAE decode -> clamp; and for what the
-train step needs of the bundle: ``TeReDiff.spotter_loss_fn`` and ``build_*_model``
-that keep float32 master weights (``training=True``).
+prompt splice and a CLIP re-encode -> VAE decode -> clamp; for
+``TeReDiff.restore`` (a fixed prompt, the UNet features kept at tagged
+iterations: the trainer's validation); and for what the train step needs of
+the bundle: ``TeReDiff.spotter_loss_fn`` and ``build_*_model`` that keep
+float32 master weights (``training=True``).
 
 Where it departs from the JAX signature: the modules own their weights, so no
 ``params`` argument; randomness comes from a ``torch.Generator`` (or the
@@ -16,6 +18,7 @@ a Python loop.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Sequence, Union
 
@@ -152,6 +155,47 @@ class TeReDiff(nn.Module):
         return fn
 
     @torch.no_grad()
+    def restore(
+        self,
+        lq: torch.Tensor,
+        prompt_tokens: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        steps: int = 50,
+        cfg_scale: float = 1.0,
+        feat_iterations: Sequence[int] = (),
+        negative_tokens: Optional[torch.Tensor] = None,
+        x_T: Optional[torch.Tensor] = None,
+        step_noises: Optional[Sequence[torch.Tensor]] = None,
+    ):
+        """Restoration with a fixed prompt: returns (restored [0,1], clean,
+        feats), feats the UNet decoder features at `feat_iterations` (see
+        ``SpacedSampler.sample``). prompt_tokens: [B, 77] (tokenized on the
+        host). `x_T` [B, H/8, W/8, 4] and the step noises are drawn from
+        `generator` when not given. Classifier-free guidance
+        (`negative_tokens`) is not part of the port yet and raises."""
+        if negative_tokens is not None:
+            raise NotImplementedError(
+                "classifier-free guidance (negative_tokens) is not part of the port yet"
+            )
+        clean = self.clean(lq)
+        cond = dict(
+            c_txt=self.cldm.clip_encode_tokens(prompt_tokens),
+            c_img=self.cldm.vae_encode(clean * 2.0 - 1.0, sample=False),
+        )
+        b, h, w, _ = lq.shape
+        if x_T is None:
+            x_T = torch.randn(
+                (b, h // 8, w // 8, 4), dtype=torch.float32, device=lq.device,
+                generator=generator,
+            )
+        x0, feats = self.sampler().sample(
+            self.cldm.apply, steps, x_T, cond, cfg_scale=cfg_scale,
+            feat_iterations=feat_iterations, step_noises=step_noises, generator=generator,
+        )
+        restored = self.cldm.vae_decode(x0)
+        return ((restored.float() + 1.0) / 2.0).clamp(0.0, 1.0), clean, feats
+
+    @torch.no_grad()
     def restore_fused_feedback(
         self,
         lq: torch.Tensor,
@@ -269,18 +313,25 @@ def _assemble(cldm_args, swinir_cfg, testr_cfg, dtype, device, training=False) -
 
 
 def build_default_model(
-    dtype: torch.dtype = torch.bfloat16, device: Device = "cuda", training: bool = False
+    dtype: torch.dtype = torch.bfloat16, device: Device = "cuda", training: bool = False,
+    testr_overrides: Optional[dict] = None,
 ) -> TeReDiff:
     """Production geometry (SD-2.1 UNet/ControlNet/VAE, OpenCLIP-H text tower,
     SwinIR cleaner, TESTR spotter). Parameters are uninitialised storage of
     `dtype` on `device` until a ``state_dict`` is loaded or
     ``init_parameters`` is called. `training=True` gives the model the train
     step takes: float32 parameters (pass ``dtype=torch.float32``), in train
-    mode; which of them a stage trains is set by ``train.step.make_optimizer``."""
+    mode; which of them a stage trains is set by ``train.step.make_optimizer``.
+    `testr_overrides`: ``TESTRConfig`` fields to change; a field the port's
+    config lacks raises."""
+    overrides = dict(testr_overrides or {})
+    unknown = sorted(set(overrides) - {f.name for f in dataclasses.fields(TESTRConfig)})
+    if unknown:
+        raise ValueError(f"testr_overrides names fields the port's TESTRConfig lacks: {unknown}")
     return _assemble(
         dict(unet_cfg=UNetConfig(), vae_cfg=VAEConfig(), clip_cfg=CLIPTextConfig()),
         SwinIRConfig(),
-        TESTRConfig(),
+        TESTRConfig(**overrides),
         dtype,
         device,
         training,

@@ -1,17 +1,19 @@
 """Spaced DDPM ancestral sampler (the sampler the restore loop uses).
 
 Counterpart of ``tair_tpu/sampler/spaced.py``: ``make_schedule``,
-``predict_x0``, ``q_posterior``, ``p_sample``. The step index is a Python int,
-so the schedule coefficients are float32 scalars read on the host and no step
+``predict_x0``, ``q_posterior``, ``p_sample`` and ``sample`` with the UNet
+feature capture at tagged iterations. The step index is a Python int, so the
+schedule coefficients are float32 scalars read on the host and no step
 touches the device for them. ``p_sample`` takes the step's noise as an
 argument, or draws it from a ``torch.Generator``, where the JAX function takes
-a key.
+a key; ``sample`` takes the chain's noises as a list, where the JAX function
+folds the iteration into its key. ``lax.scan`` is a Python loop.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -89,3 +91,49 @@ class SpacedSampler(SamplerBase):
             )
         x_prev = mean + float(np.sqrt(np.float32(var))) * noise
         return x_prev.to(x.dtype), feats
+
+    def sample(
+        self,
+        model_fn: ModelFn,
+        steps: int,
+        x_T: torch.Tensor,
+        cond,
+        uncond=None,
+        cfg_scale: float = 1.0,
+        feat_iterations: Sequence[int] = (),
+        step_noises: Optional[Sequence[torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """Run the whole spaced-DDPM chain from `x_T`.
+
+        feat_iterations: 1-based iteration numbers (e.g. 10, 20, ..., 50) at
+        which the UNet decoder features are kept. Returns (x_0, feats), feats a
+        tuple (one per feature level) of float32 tensors [n_tags, B, H, W, C]
+        ordered by tag. `step_noises` (one per iteration, in loop order; the
+        last step adds none) are drawn from `generator` when not given.
+        """
+        sp = self.make_schedule(steps)
+        total = sp.num_steps
+        tags = sorted(int(t) for t in feat_iterations)
+        if tags and tags[-1] > total:
+            # a tag past the chain's end would never fire
+            raise ValueError(
+                f"feat_iterations {tags} exceed the {total}-step chain; tags are "
+                "1-based iteration numbers"
+            )
+        if step_noises is not None and len(step_noises) != total:
+            raise ValueError(
+                f"step_noises holds {len(step_noises)} draws, the chain has {total} steps"
+            )
+        kept = [None] * len(tags)
+        x = x_T
+        for i in range(total):
+            x, feats = self.p_sample(
+                model_fn, sp, x, total - 1 - i, cond, uncond, cfg_scale,
+                noise=None if step_noises is None else step_noises[i], generator=generator,
+            )
+            for j, tag in enumerate(tags):
+                if tag == i + 1:
+                    kept[j] = tuple(f.float() for f in feats)
+        feats = tuple(torch.stack(level) for level in zip(*kept)) if tags else ()
+        return x, feats

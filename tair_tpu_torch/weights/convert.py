@@ -26,7 +26,7 @@ by leaf.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -181,3 +181,92 @@ def from_jax_params(
             for name, value in convert_tree(params[top], dtype).items():
                 state[f"{_PREFIX[top]}.{name}"] = value
     return state
+
+
+class LeafShape:
+    """A leaf of `jax_param_shapes`' tree: the JAX leaf's shape, no data."""
+
+    def __init__(self, shape: Tuple[int, ...]):
+        self.shape = tuple(shape)
+
+    def __repr__(self) -> str:
+        return f"LeafShape{self.shape}"
+
+
+def _jax_leaf(module: torch.nn.Module, parent: Optional[torch.nn.Module], key: str,
+              value: torch.Tensor) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """(the JAX names below the module's path, the JAX shape) of the port's
+    parameter `key` of `module`; `parent` owns `module`."""
+    from ..models.layers import GroupNorm32, MultiHeadAttention
+
+    shape = tuple(value.shape)
+    if isinstance(module, torch.nn.Conv2d) and key == "weight":
+        o, i, kh, kw = shape
+        return ("kernel",), (kh, kw, i, o)
+    if isinstance(module, torch.nn.Linear):
+        out_f, in_f = module.out_features, module.in_features
+        heads = parent.heads if isinstance(parent, MultiHeadAttention) else None
+        proj = next(
+            (n for n, m in parent.named_children() if m is module), None
+        ) if heads else None
+        if key == "weight":
+            if proj in _MHA_PROJ:
+                return ("kernel",), (in_f, heads, out_f // heads)
+            if proj == "out":
+                return ("kernel",), (heads, in_f // heads, out_f)
+            return ("kernel",), (in_f, out_f)
+        if proj in _MHA_PROJ:
+            return ("bias",), (heads, out_f // heads)
+        return ("bias",), shape
+    if isinstance(module, torch.nn.Embedding):
+        return ("embedding",), shape
+    if key in _BARE:
+        return (key,), shape
+    inner = ("GroupNorm_0",) if isinstance(module, GroupNorm32) else ()
+    if key == "weight" and value.dim() == 1:
+        return inner + ("scale",), shape
+    if key == "bias" and value.dim() == 1:
+        return inner + ("bias",), shape
+    raise ValueError(f"no JAX name for parameter {key} of a {type(module).__name__}")
+
+
+def _jax_module_path(path: str) -> Tuple[str, ...]:
+    """``in_1.attn.blocks.0`` -> (in_1, attn, block_0): the inverse of
+    `_module_path` (``GroupNorm_0`` levels are added by `_jax_leaf`)."""
+    out, parts, i = [], path.split(".") if path else [], 0
+    while i < len(parts):
+        if parts[i] in ("blocks", "layers") and i + 1 < len(parts) and parts[i + 1].isdigit():
+            out.append(f"{parts[i][:-1]}_{parts[i + 1]}")
+            i += 2
+        else:
+            out.append(parts[i])
+            i += 1
+    return tuple(out)
+
+
+def jax_param_shapes(model: torch.nn.Module) -> Dict[str, Any]:
+    """The JAX parameter tree of the port's `TeReDiff` {unet, controlnet, vae,
+    clip, swinir, testr}: nested dicts whose leaves are `LeafShape`s, the `like`
+    argument of `to_jax_params`. Worked out from the port's modules, so no
+    JAX is needed; every leaf round-trips through `_convert_leaf` to the
+    parameter it came from."""
+    modules = dict(model.named_modules())
+    tree: Dict[str, Any] = {}
+    for name, value in model.named_parameters():
+        top = next(t for t in BUNDLE_KEYS if name.startswith(_PREFIX[t] + "."))
+        rel = name[len(_PREFIX[top]) + 1:]
+        owner, _, key = rel.rpartition(".")
+        full_owner = f"{_PREFIX[top]}.{owner}" if owner else _PREFIX[top]
+        parent_name = full_owner.rpartition(".")[0]
+        leaf_names, shape = _jax_leaf(
+            modules[full_owner], modules.get(parent_name), key, value
+        )
+        path = _jax_module_path(owner) + leaf_names
+        back, _ = _convert_leaf(path, np.empty(shape, np.float32))
+        if back != rel:
+            raise ValueError(f"{name} maps to JAX {'/'.join(path)}, which maps back to {back}")
+        node = tree.setdefault(top, {})
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = LeafShape(shape)
+    return tree

@@ -18,6 +18,7 @@ MODULES = [
     "tair_tpu_torch.ops.msda_reduce",
     "tair_tpu_torch.ops.patchify",
     "tair_tpu_torch.ops._build",
+    "tair_tpu_torch.ops.launches",
     "tair_tpu_torch.probes",
     "tair_tpu_torch.probes.dyngather",
     "tair_tpu_torch.probes.stream",
@@ -42,6 +43,20 @@ MODULES = [
     "tair_tpu_torch.train.stages",
     "tair_tpu_torch.train.step",
     "tair_tpu_torch.weights.convert",
+    "tair_tpu_torch.models.tokenizer",
+    "tair_tpu_torch.data.kernels",
+    "tair_tpu_torch.data.file_backend",
+    "tair_tpu_torch.data.satext",
+    "tair_tpu_torch.data.resize",
+    "tair_tpu_torch.data.degradation",
+    "tair_tpu_torch.data.diffjpeg",
+    "tair_tpu_torch.data.batch_transform",
+    "tair_tpu_torch.utils.metrics",
+    "tair_tpu_torch.utils.logging",
+    "tair_tpu_torch.utils.png",
+    "tair_tpu_torch.train.checkpoint",
+    "tair_tpu_torch.train.__main__",
+    "tair_tpu_torch.config",
 ]
 
 
@@ -58,9 +73,10 @@ def test_port_imports_no_jax_flax_or_jax_package():
         import importlib, sys
         for name in {MODULES!r}:
             importlib.import_module(name)
+        # nor the packages the GPU machine lacks: regex, yaml, PIL
         bad = sorted(
             m for m in sys.modules
-            if m.split(".")[0] in ("jax", "jaxlib", "flax", "tair_tpu")
+            if m.split(".")[0] in ("jax", "jaxlib", "flax", "tair_tpu", "regex", "yaml", "PIL")
         )
         assert not bad, bad
         print("clean", len({MODULES!r}))
@@ -82,6 +98,20 @@ def test_sources_do_not_name_jax_imports():
             ) or s.startswith(("import tair_tpu ", "from tair_tpu ", "from tair_tpu.", "import tair_tpu.")):
                 offenders.append(f"{path.name}: {s}")
     assert not offenders, offenders
+
+
+def test_sources_import_neither_regex_yaml_nor_pil_outside_the_image_loader():
+    """PIL only where SATextDataset decodes an image file, lazily."""
+    offenders = []
+    files = list((ROOT / "tair_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")) and s.split()[1].split(".")[0] in (
+                "regex", "yaml", "PIL"
+            ):
+                offenders.append(f"{path.relative_to(ROOT)}: {line}")
+    assert offenders == ["tair_tpu_torch/data/satext.py:         from PIL import Image"]
 
 
 @pytest.mark.parametrize("entry_point", ["build_default_model", "build_tiny_model"])
