@@ -30,7 +30,16 @@ through its kernels:
             then the port's trainer as a user starts it, ``python -m
             tair_tpu_torch.train`` on configs/train_chip_demo.yaml (its own
             data, degradation on the card, checkpoint, resume, validation and
-            weight export; phase train_entry).
+            weight export; phase train_entry);
+  entry     the port's serving and evaluation entry points as a user starts
+            them: ``python -m tair_tpu_torch.val`` on two 512 x 512 images in
+            both loops (host-fed CAPTION prompts, and ``--fused``; phase val,
+            which also counts the host synchronisations of a step of each),
+            ``python -m tair_tpu_torch.val_patches`` on a 240 x 240 image, its
+            4 patches restored as one batch of 4 at 512 x 512 and again in
+            chunks of 3 (phase val_patches), and ``python -m
+            tair_tpu_torch.spotter_eval`` on configs/train_chip_demo.yaml
+            (phase spotter_eval).
 
 One JSON line per phase; the last line is the verdict. Any failed check raises,
 so the exit code is non-zero and no verdict is printed. ``--phases`` runs a
@@ -63,7 +72,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # blocks each) and the two middle blocks, the VAE middle block of the encoder
 # and of the decoder. Then the shapes that only the trainer's 256 x 256 images
 # give (phase train_entry; its third level, 64 tokens at 20 heads, is
-# unet_*_mid), with no calls at 512 x 512. The last three shapes no path gives:
+# unet_*_mid), with no calls at 512 x 512. Then the batches of the serving entry
+# points: four 512 x 512 patches at once (phase val_patches) and pairs of 256 x 256
+# images (phase spotter_eval), the largest shapes of each. The last three shapes no path gives:
 # ragged lengths at batch 2 at a wide head and at the autoencoder's width, and
 # a narrow head; all are cut out of wider buffers, so their token strides are
 # not H*D.
@@ -84,6 +95,12 @@ K1_SHAPES = [
     ("at256_unet_cross_16", 1, 256, 77, 10, 64, 0, 0),
     ("at256_unet_cross_mid", 1, 16, 77, 20, 64, 0, 0),
     ("at256_vae_mid", 1, 1024, 1024, 1, 512, 0, 0),
+    ("b4_unet_self_64", 4, 4096, 4096, 5, 64, 0, 0),
+    ("b4_unet_cross_64", 4, 4096, 77, 5, 64, 0, 0),
+    ("b4_vae_mid", 4, 4096, 4096, 1, 512, 0, 0),
+    ("b2_at256_unet_self_32", 2, 1024, 1024, 5, 64, 0, 0),
+    ("b2_at256_unet_cross_32", 2, 1024, 77, 5, 64, 0, 0),
+    ("b2_at256_vae_mid", 2, 1024, 1024, 1, 512, 0, 0),
     ("ragged_strided", 2, 1000, 333, 3, 128, 0, 0),
     ("vae_ragged_strided", 2, 1000, 333, 1, 512, 0, 0),
     ("narrow_strided", 2, 301, 77, 4, 32, 0, 0),
@@ -98,9 +115,13 @@ K1_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-4)}  # (rt
 K1_LSE_TOL = 1e-4
 # (NQ, calls per spotter pass at 512 x 512) of the msda reduce: the 6 encoder
 # layers, the 6 decoder layers' control-point and text branches (the same at
-# every image size), the encoder at the trainer's 256 x 256, and one ragged shape
+# every image size), the encoder at the trainer's 256 x 256, the batches of four
+# 512 x 512 patches (val_patches) and of two 256 x 256 images (spotter_eval), and
+# one ragged shape
 K3_SHAPES = [("encoder", 9472, 6), ("dec_ctrl", 1600, 6), ("dec_text", 2500, 6),
-             ("at256_encoder", 2368, 0), ("ragged", 37, 0)]
+             ("at256_encoder", 2368, 0), ("b4_encoder", 4 * 9472, 0),
+             ("b4_dec_ctrl", 4 * 1600, 0), ("b4_dec_text", 4 * 2500, 0),
+             ("b2_at256_encoder", 2 * 2368, 0), ("ragged", 37, 0)]
 K3_TOL = 1e-4  # float32 accumulation on both sides, summation order only
 # the training phases: configs/train_stage3.yaml's learning rate and OCR weight
 TRAIN_LR = 1e-4
@@ -134,8 +155,13 @@ BF16_FLASH_PER_STEP = {"flash_attention_fwd_tc": 46, "flash_attention_fwd_tc_wid
 FLATPATCH_STEPS = 10  # of every request of phase restore_flatpatch
 PROBE_REPS = 2        # timed repetitions per setting of the probes' own runs
 
+# denoising steps of every request of the serving entry points' phases
+SERVE_STEPS = 4
+
 PHASES = ("kernels", "probes", "reference", "restore", "restore_flatpatch", "layers",
-          "train_reference", "train", "train_entry")
+          "train_reference", "train", "train_entry", "val", "val_patches", "spotter_eval")
+# the paths on which the serving entry points run K1 and K3
+ENTRY_PHASES = ("val", "val_patches", "spotter_eval")
 
 
 LOG_PATH = None  # --log: every phase line is appended there as well
@@ -1425,6 +1451,304 @@ def phase_train_entry(seed: int) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+VAL_CONFIG = "configs/val.yaml"
+SPOTTER_EVAL_CONFIG = "configs/train_chip_demo.yaml"
+
+
+def run_entry_point(module: str, args: list, cwd: Path) -> dict:
+    """``python -m module args`` in `cwd` as a user starts it: its stdout, the
+    JSON line each unit of work (image, batch) printed to stderr, and the
+    process's seconds. Raises when it fails."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH", "")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} {' '.join(args)} exited with {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    reports = [json.loads(line) for line in proc.stderr.splitlines() if line.startswith("{")]
+    return dict(stdout=proc.stdout, reports=reports, seconds=seconds)
+
+
+def serving_structure():
+    """The default model on the meta device: the structure that sets the
+    kernel launches of the serving paths, without weights."""
+    from tair_tpu_torch.pipeline import build_default_model
+
+    return build_default_model(dtype=torch.bfloat16, device="meta")
+
+
+def serving_launches(structure, unet_passes: int, spotter_passes: int) -> dict:
+    """Launches of one request (or batch) of the bfloat16 serving paths: every
+    UNet/ControlNet attention per UNet pass on the tensor-core forward, the
+    autoencoder's two D = 512 forwards (encode and decode of a request, or two
+    encodes), the 18 msda reduces per spotter pass; whatever the batch."""
+    from tair_tpu_torch.spotter.ms_deform_attn import MSDeformAttn
+
+    flash = flash_launches(structure, torch.bfloat16, unet_passes, backward=False)
+    check_bf16_flash(flash, unet_passes, backward=False)
+    msda = sum(isinstance(m, MSDeformAttn) for m in structure.testr.modules())
+    want = {**flash, "msda_corner_reduce_fwd": msda * spotter_passes}
+    return {k: n for k, n in want.items() if n}
+
+
+def check_reports(phase: str, reports: list, want: dict, n: int) -> dict:
+    """Each of the `n` units' launches equal `want` (and no other kernel
+    launched); returns the launches of all of them by kernel."""
+    if len(reports) != n:
+        raise AssertionError(f"{phase}: {len(reports)} reports, expected {n}")
+    total = {}
+    for r in reports:
+        if r["launches"] != want:
+            raise AssertionError(f"{phase}: launches {r['launches']}, structure says {want}")
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def synthetic_pairs(n: int, size: int, seed: int):
+    """n (lq, gt) pairs of [size, size, 3] numpy images in [0, 1]:
+    SyntheticSAText images degraded on the card by ``degrade_batch`` (the
+    trainer's RealESRGAN pipeline, default settings)."""
+    from tair_tpu_torch.data.batch_transform import degrade_batch
+    from tair_tpu_torch.data.satext import SyntheticSAText, collate
+
+    raw = collate([SyntheticSAText(size=size, length=n, seed=seed)[i] for i in range(n)])
+    dev = torch.device("cuda")
+    gt, lq = degrade_batch(
+        *(torch.from_numpy(raw[k]).to(dev) for k in ("hq", "kernel1", "kernel2", "sinc_kernel")),
+        rng=np.random.default_rng(seed), generator=torch.Generator(device=dev).manual_seed(seed))
+    return lq.cpu().numpy(), ((gt + 1.0) / 2.0).clamp(0.0, 1.0).cpu().numpy()
+
+
+def serving_config(path: Path, **val_fields) -> Path:
+    """configs/val.yaml with the `val` fields given set (the block is the
+    file's last)."""
+    root = Path(__file__).resolve().parent
+    lines = []
+    for line in (root / VAL_CONFIG).read_text().splitlines():
+        key = line.strip().split(":")[0]
+        if line.startswith("  ") and key in val_fields:
+            line = f"  {key}: {val_fields.pop(key)}"
+        lines.append(line)
+    lines += [f"  {key}: {value}" for key, value in val_fields.items()]
+    path.write_text("\n".join(lines) + "\n")
+    return path
+
+
+def check_images(phase: str, out: Path, names: list, hw: tuple) -> None:
+    from tair_tpu_torch.utils.image_io import load_image
+
+    for name in names:
+        img = load_image(str(out / name))
+        if img.shape != (*hw, 3) or not np.isfinite(img).all() or img.min() < 0 or img.max() > 1:
+            raise AssertionError(f"{phase}: {name} is {img.shape} in [{img.min()}, {img.max()}]")
+
+
+def check_metrics(phase: str, path: Path, keys: set, n: int) -> list:
+    records = read_jsonl(path)
+    if len(records) != n or any(set(r) != keys for r in records):
+        raise AssertionError(f"{phase}: {path.name} holds {records}, want {n} records of {keys}")
+    for r in records:
+        if not (0 < r["psnr"] < 100 and -1 <= r["ssim"] <= 1):
+            raise AssertionError(f"{phase}: metrics out of range: {r}")
+    return records
+
+
+def count_host_syncs(model, lq, steps=(2, 3)) -> dict:
+    """Host synchronisations of one denoising step of each restore loop at
+    512 x 512, batch 1: CUDA's synchronisation warnings (torch's sync debug
+    mode) of requests of 2 and 3 steps, their difference."""
+    import warnings
+
+    def syncs(fn, n):
+        """(count, {file:line: count}) of the synchronisation warnings of fn(n)."""
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn(n)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        sites = {}
+        for w in caught:
+            if "synchroniz" in str(w.message):
+                site = f"{Path(w.filename).name}:{w.lineno}"
+                sites[site] = sites.get(site, 0) + 1
+        return sum(sites.values()), sites
+
+    def feedback(n):
+        model.restore_with_ocr_feedback(
+            lq, torch.Generator(device=lq.device).manual_seed(0), steps=n, score_threshold=0.0)
+
+    def fused(n):
+        model.restore_fused_feedback(
+            lq, torch.Generator(device=lq.device).manual_seed(0), steps=n, score_threshold=0.0)
+
+    out = {}
+    for name, fn in (("caption_feedback", feedback), ("fused", fused)):
+        fn(1)  # warm-up
+        (short, _), (long, sites) = (syncs(fn, n) for n in steps)
+        out[name] = dict(per_request={str(steps[0]): short, str(steps[1]): long},
+                         per_step=long - short, sites_of_the_longer_request=sites)
+    return out
+
+
+VAL_KEYS = {"step", "time", "image", "pred_texts", "psnr", "ssim"}
+
+
+def phase_val(structure, seed: int, host_syncs: dict) -> dict:
+    """``python -m tair_tpu_torch.val`` as a user starts it, on two 512 x 512
+    LQ/GT pairs (SyntheticSAText, degraded on the card) with configs/val.yaml's
+    settings (but score_threshold 0), once with the host-feedback CAPTION loop
+    (the default) and once ``--fused``, SERVE_STEPS steps each. Returns the launch counts of all four
+    requests."""
+    import shutil
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="val_", dir=root / "build"))
+    try:
+        lq, gt = synthetic_pairs(2, 512, seed)
+        from tair_tpu_torch.utils.image_io import save_image
+
+        for d, imgs in (("lq", lq), ("gt", gt)):
+            (work / d).mkdir()
+            for i, img in enumerate(imgs):
+                save_image(str(work / d / f"img{i}.png"), img)
+        want = serving_launches(structure, SERVE_STEPS, SERVE_STEPS)
+        runs, launches = {}, {}
+        for mode, extra in (("caption_feedback", []), ("fused", ["--fused"])):
+            out = work / f"out_{mode}"
+            # score_threshold 0 keeps every proposal of the randomly initialised
+            # spotter, so the prompts carry words (and the CAPTION ones pass 77 tokens)
+            cfg = serving_config(work / f"{mode}.yaml", lq_dir=work / "lq", gt_dir=work / "gt",
+                                 output_dir=out, score_threshold=0.0)
+            run = run_entry_point("tair_tpu_torch.val",
+                                  ["--config", str(cfg), "--steps", str(SERVE_STEPS), *extra], work)
+            for k, v in check_reports(f"val {mode}", run["reports"], want, 2).items():
+                launches[k] = launches.get(k, 0) + v
+            check_images(f"val {mode}", out, [f"{kind}_img{i}.png" for i in range(2)
+                                              for kind in ("restored", "pred_texts")], (512, 512))
+            records = check_metrics(f"val {mode}", out / "val_metrics.jsonl", VAL_KEYS, 2)
+            runs[mode] = dict(
+                process_seconds=run["seconds"],
+                seconds_per_image=[r["seconds"] for r in run["reports"]],
+                peak_memory_bytes=[r["peak_memory_bytes"] for r in run["reports"]],
+                psnr=[r["psnr"] for r in records], ssim=[r["ssim"] for r in records],
+                words=[len(r["pred_texts"]) for r in records],
+            )
+        emit("val", steps=SERVE_STEPS, images=2, size=512, config=VAL_CONFIG,
+             launches_per_image=want, host_syncs=host_syncs, **runs)
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+PATCHES_KEYS = {"step", "time", "image", "out_hw", "psnr", "ssim"}
+
+
+def phase_val_patches(structure, seed: int) -> dict:
+    """``python -m tair_tpu_torch.val_patches`` on one 240 x 240 LQ (the corner
+    of a degraded 512 x 512 SyntheticSAText image) with configs/val.yaml's
+    tiling (patch 128, overlap 16, x4, the spotter in the loop): 4 patches
+    restored as one batch of 4 at 512 x 512, with ``--dump-dir``; then with
+    ``chunk: 3`` (two batches of 3, the second padded). SERVE_STEPS steps.
+    Returns the launch counts of both runs."""
+    import shutil
+    import tempfile
+    import zipfile
+
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="val_patches_", dir=root / "build"))
+    try:
+        lq, gt = synthetic_pairs(1, 512, seed + 1)
+        from tair_tpu_torch.utils.image_io import save_image
+
+        for d, img in (("lq", lq[0, :240, :240]), ("gt", gt[0, :240, :240])):
+            (work / d).mkdir()
+            save_image(str(work / d / "img0.png"), img)
+        want = serving_launches(structure, SERVE_STEPS, SERVE_STEPS)
+        runs, launches = {}, {}
+        for name, chunk, batches in (("one_batch_of_4", "null", 1), ("chunk_3", 3, 2)):
+            out, dump = work / f"out_{name}", work / f"dump_{name}"
+            cfg = serving_config(work / f"{name}.yaml", lq_dir=work / "lq", gt_dir=work / "gt",
+                                 output_dir=out, chunk=chunk)
+            run = run_entry_point(
+                "tair_tpu_torch.val_patches",
+                ["--config", str(cfg), "--steps", str(SERVE_STEPS), "--dump-dir", str(dump)], work)
+            per_image = {k: n * batches for k, n in want.items()}
+            for k, v in check_reports(f"val_patches {name}", run["reports"], per_image, 1).items():
+                launches[k] = launches.get(k, 0) + v
+            if run["reports"][0]["patches"] != 4:
+                raise AssertionError(f"val_patches: {run['reports'][0]['patches']} patches, want 4")
+            check_images(f"val_patches {name}", out, ["restored_img0.png"], (960, 960))
+            records = check_metrics(f"val_patches {name}", out / "val_patches_metrics.jsonl",
+                                    PATCHES_KEYS, 1)
+            preds = json.loads((dump / "text_results.json").read_text())
+            with zipfile.ZipFile(dump / "det.zip") as z:
+                members = z.namelist()
+            if any(p["image_id"] != 1 or not 0 <= p["score"] <= 1 for p in preds) or \
+                    not set(members) <= {"0000001.txt"}:
+                raise AssertionError(f"val_patches {name}: dump {len(preds)} predictions, {members}")
+            runs[name] = dict(
+                process_seconds=run["seconds"], seconds_per_image=run["reports"][0]["seconds"],
+                peak_memory_bytes=run["reports"][0]["peak_memory_bytes"],
+                psnr=records[0]["psnr"], ssim=records[0]["ssim"],
+                dumped_predictions=len(preds),
+            )
+        per_patch = runs["one_batch_of_4"]["peak_memory_bytes"] - runs["chunk_3"]["peak_memory_bytes"]
+        emit("val_patches", steps=SERVE_STEPS, lq_hw=[240, 240], out_hw=[960, 960], patches=4,
+             config=VAL_CONFIG, launches_per_batch=want,
+             peak_bytes_per_added_patch_b3_to_b4=per_patch, **runs)
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+SPOTTER_EVAL_KEYS = {
+    "det_precision", "det_recall", "det_hmean", "e2e_precision", "e2e_recall", "e2e_hmean",
+    "matched_det", "matched_e2e", "num_gt", "num_pred", "num_gt_det", "num_pred_det",
+    "lexicon_words", "e2e_precision_lex", "e2e_recall_lex", "e2e_hmean_lex",
+}
+
+
+def phase_spotter_eval(structure) -> dict:
+    """``python -m tair_tpu_torch.spotter_eval`` on configs/train_chip_demo.yaml
+    (SyntheticSAText at 256 x 256, the full model), 4 images in pairs,
+    ``--lexicon-from-gt``, every proposal scored (``--score-threshold 0``):
+    one UNet pass and one spotter pass per pair.
+    Returns the launch counts of both pairs."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="spotter_eval_", dir=root / "build") as work:
+        run = run_entry_point(
+            "tair_tpu_torch.spotter_eval",
+            ["--config", str(root / SPOTTER_EVAL_CONFIG), "--num-images", "4", "--lexicon-from-gt",
+             "--score-threshold", "0.0", "--dump-dir", str(Path(work) / "dump")], Path(work))
+        dumped = sorted(p.name for p in (Path(work) / "dump").iterdir())
+    want = serving_launches(structure, 1, 1)
+    launches = check_reports("spotter_eval", run["reports"], want, 2)
+    out = json.loads(run["stdout"].strip().splitlines()[-1])
+    ratios = [k for k in SPOTTER_EVAL_KEYS if k.endswith(("precision", "recall", "hmean"))]
+    if set(out) != SPOTTER_EVAL_KEYS or not all(0 <= out[k] <= 1 for k in ratios) \
+            or out["num_gt_det"] <= 0 or dumped != ["det.zip", "gt.zip", "text_results.json"]:
+        raise AssertionError(f"spotter_eval printed {out}, dumped {dumped}")
+    emit("spotter_eval", config=SPOTTER_EVAL_CONFIG, images=4, pairs=2, result=out,
+         process_seconds=run["seconds"], seconds_per_pair=[r["seconds"] for r in run["reports"]],
+         peak_memory_bytes=[r["peak_memory_bytes"] for r in run["reports"]],
+         launches_per_pair=want)
+    return launches
+
+
 def build_model(seed: int):
     from tair_tpu_torch.pipeline import build_default_model
 
@@ -1764,7 +2088,8 @@ def main() -> None:
         kernels += probe_kernels
     if "reference" in phases:
         path_launches["reference"] = phase_reference(args.seed)
-    if phases & {"restore", "restore_flatpatch", "layers"} or args.profile_steps:
+    host_syncs = None
+    if phases & {"restore", "restore_flatpatch", "layers", "val"} or args.profile_steps:
         model, lq = build_model(args.seed)
         if "restore" in phases:
             path_launches["restore"] = phase_restore(model, lq, args.seed, args.steps)
@@ -1774,6 +2099,8 @@ def main() -> None:
             )
         if "layers" in phases:
             phase_layers(model, lq, args.steps)
+        if "val" in phases:
+            host_syncs = count_host_syncs(model, lq)
         if args.profile_steps:
             def request() -> float:
                 return restore_request(model, lq, args.seed, args.profile_steps)[2]
@@ -1793,6 +2120,19 @@ def main() -> None:
         for entry in kernels:
             if "train" in entry["paths"]:  # the trainer runs every kernel of the train step
                 entry["paths"] = (*entry["paths"], "train_entry")
+    if phases & set(ENTRY_PHASES):
+        torch.cuda.empty_cache()  # the entry points run in processes of their own
+        structure = serving_structure()
+        if "val" in phases:
+            path_launches["val"] = phase_val(structure, args.seed, host_syncs)
+        if "val_patches" in phases:
+            path_launches["val_patches"] = phase_val_patches(structure, args.seed)
+        if "spotter_eval" in phases:
+            path_launches["spotter_eval"] = phase_spotter_eval(structure)
+        for entry in kernels:
+            if entry["name"] in ("flash_attention_fwd_tc", "flash_attention_fwd_tc_wide",
+                                 "msda_corner_reduce_fwd"):
+                entry["paths"] = (*entry["paths"], *(p for p in ENTRY_PHASES if p in phases))
     if phases != set(PHASES):
         # a partial run is for development: it prints what it measured and no verdict
         print(json.dumps({"kernels": kernels, "launches": path_launches}), flush=True)

@@ -284,6 +284,8 @@ def build_model(cfg: ExperimentConfig, device="cuda", training: bool = True):
         return build_default_model(dtype=dtype, device=device, training=training,
                                    testr_overrides=cfg.testr_overrides or None)
     if cfg.model_preset == "tiny":
+        if cfg.testr_overrides:
+            raise ValueError("testr_overrides apply to the default preset only")
         return build_tiny_model(dtype=dtype, device=device, training=training)
     raise ValueError(f"unknown model preset {cfg.model_preset!r}")
 

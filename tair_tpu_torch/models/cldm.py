@@ -1,19 +1,21 @@
 """ControlLDM: UNet + ControlNet + VAE + CLIP composite.
 
 Counterpart of ``tair_tpu/models/cldm.py``: the controlled forward applying 13
-control scales, latent scaling, and the CLIP encode of token ids. The four
+control scales, latent scaling, the CLIP encode of token ids or of prompts (tokenized on the
+host), and ``prepare_condition``. The four
 sub-models are child modules, so ``state_dict`` keys start with ``unet.``,
 ``controlnet.``, ``vae.`` and ``clip.`` like the JAX parameter tree.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from .clip import CLIPTextConfig, CLIPTextTower
+from .tokenizer import tokenize
 from .unet import ControlNet, UNetConfig, UNetModel
 from .vae import AutoencoderKL, VAEConfig
 
@@ -62,6 +64,22 @@ class ControlLDM(nn.Module):
 
     def clip_encode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.clip(tokens)
+
+    def clip_encode(self, texts: Union[str, List[str]]) -> torch.Tensor:
+        """Prompt(s) -> [B, 77, D]: tokenized on the host, encoded on the
+        text tower's device."""
+        device = self.clip.token_embedding.weight.device
+        return self.clip_encode_tokens(torch.from_numpy(tokenize(texts)).to(device).long())
+
+    def prepare_condition(
+        self, cond_img: torch.Tensor, texts: Union[str, List[str]]
+    ) -> Dict[str, torch.Tensor]:
+        """cond_img in [0,1] NHWC (the cleaner's output); texts are prompts.
+        c_img is the autoencoder's mode, not a sample."""
+        return dict(
+            c_txt=self.clip_encode(texts),
+            c_img=self.vae_encode(cond_img * 2.0 - 1.0, sample=False),
+        )
 
     def apply(
         self,

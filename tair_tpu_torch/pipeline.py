@@ -5,10 +5,12 @@ Counterpart of ``tair_tpu/pipeline.py`` for its serving path,
 CLIP encode of the empty prompt -> spaced-DDPM steps, each running ControlNet
 + UNet, the TESTR spotter on the UNet's decoder features, the on-device TAG
 prompt splice and a CLIP re-encode -> VAE decode -> clamp; for
+``TeReDiff.restore_with_ocr_feedback`` (the same loop with the prompt rebuilt
+on the host each step, CAPTION or TAG style: ``val``'s default path); for
 ``TeReDiff.restore`` (a fixed prompt, the UNet features kept at tagged
-iterations: the trainer's validation); and for what the train step needs of
-the bundle: ``TeReDiff.spotter_loss_fn`` and ``build_*_model`` that keep
-float32 master weights (``training=True``).
+iterations: the trainer's validation and untexted tiled restoration); and for
+what the train step needs of the bundle: ``TeReDiff.spotter_loss_fn`` and
+``build_*_model`` that keep float32 master weights (``training=True``).
 
 Where it departs from the JAX signature: the modules own their weights, so no
 ``params`` argument; randomness comes from a ``torch.Generator`` (or the
@@ -194,6 +196,98 @@ class TeReDiff(nn.Module):
         )
         restored = self.cldm.vae_decode(x0)
         return ((restored.float() + 1.0) / 2.0).clamp(0.0, 1.0), clean, feats
+
+    @torch.no_grad()
+    def restore_with_ocr_feedback(
+        self,
+        lq: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        steps: int = 50,
+        prompt_style: str = "CAPTION",
+        score_threshold: float = 0.5,
+        initial_prompt: str = "",
+        x_T: Optional[torch.Tensor] = None,
+        step_noises: Optional[Sequence[torch.Tensor]] = None,
+    ):
+        """The reference's val_sample: every denoising step runs the spotter on
+        the UNet decoder features, decodes the transcriptions on the host,
+        rebuilds the prompt (``make_caption`` for CAPTION, ``make_tag_prompt``
+        for TAG), tokenizes it and re-encodes it as the next step's
+        cross-attention conditioning.
+
+        Each step copies the decode (scores, keep, polygons, recs) to the host
+        as ONE packed float32 tensor: one host synchronisation per step. The
+        new tokens go back from pinned memory without one. `x_T` and `step_noises` are drawn
+        from `generator` when not given, as in ``restore_fused_feedback``.
+        Returns (restored [0,1], ts_results): one list per step of one dict
+        per image (timestep, pred_texts, pred_prompt, pred_polys int32 [n, Np,
+        2], scores float32 [n]).
+        """
+        import numpy as np
+
+        from .data.satext import make_caption, make_tag_prompt
+        from .models.tokenizer import tokenize
+        from .spotter.charset import decode_text
+
+        if prompt_style not in ("CAPTION", "TAG"):
+            raise ValueError(f"prompt_style {prompt_style!r}: choose CAPTION or TAG")
+        sampler = self.sampler()
+        sp = sampler.make_schedule(steps)
+        b, h, w, _ = lq.shape
+        dev = lq.device
+
+        clean = self.clean(lq)
+        cond = dict(
+            c_txt=self.cldm.clip_encode([initial_prompt] * b),
+            c_img=self.cldm.vae_encode(clean * 2.0 - 1.0, sample=False),
+        )
+
+        def step_fn(x, step_idx, cond, noise, gen):
+            return sampler.p_sample(
+                self.cldm.apply, sp, x, step_idx, cond, noise=noise, generator=gen
+            )
+
+        ts_results = []
+
+        def feedback(feats, cond, i):
+            res = spotter_inference(self.spotter_apply(feats), score_threshold, image_size=h)
+            k, n_pts = res["polygons"].shape[1:3]
+            packed = torch.cat([
+                res["scores"][..., None], res["keep"][..., None].float(),
+                res["polygons"].reshape(b, k, 2 * n_pts), res["recs"].float(),
+            ], dim=-1).cpu().numpy()  # the step's one device-to-host copy
+            scores, keep = packed[..., 0], packed[..., 1] > 0.5
+            polys = packed[..., 2 : 2 + 2 * n_pts].reshape(b, k, n_pts, 2)
+            recs = packed[..., 2 + 2 * n_pts :].astype(np.int64)
+            prompts, step_info = [], []
+            for bi in range(b):
+                texts = [decode_text(r) for r, kp in zip(recs[bi], keep[bi]) if kp]
+                prompt = make_caption(texts) if prompt_style == "CAPTION" else make_tag_prompt(texts)
+                prompts.append(prompt)
+                step_info.append(dict(
+                    timestep=int(sp.timesteps[sp.num_steps - 1 - i]),
+                    pred_texts=texts,
+                    pred_prompt=prompt,
+                    pred_polys=polys[bi][keep[bi]].astype(np.int32),
+                    scores=scores[bi][keep[bi]],
+                ))
+            tokens = torch.from_numpy(tokenize(prompts)).long()
+            if dev.type == "cuda":  # a copy from pageable memory would wait for the card
+                tokens = tokens.pin_memory()
+            tokens = tokens.to(dev, non_blocking=True)
+            cond = dict(cond, c_txt=self.cldm.clip_encode_tokens(tokens))
+            ts_results.append(step_info)
+            return cond, step_info
+
+        if x_T is None:
+            x_T = torch.randn(
+                (b, h // 8, w // 8, 4), dtype=torch.float32, device=dev, generator=generator
+            )
+        x0, _ = sampler.val_sample_loop(
+            step_fn, steps, x_T, cond, feedback, step_noises=step_noises, generator=generator
+        )
+        restored = self.cldm.vae_decode(x0)
+        return ((restored.float() + 1.0) / 2.0).clamp(0.0, 1.0), ts_results
 
     @torch.no_grad()
     def restore_fused_feedback(

@@ -1,8 +1,9 @@
 """Spaced DDPM ancestral sampler (the sampler the restore loop uses).
 
 Counterpart of ``tair_tpu/sampler/spaced.py``: ``make_schedule``,
-``predict_x0``, ``q_posterior``, ``p_sample`` and ``sample`` with the UNet
-feature capture at tagged iterations. The step index is a Python int, so the
+``predict_x0``, ``q_posterior``, ``p_sample``, ``sample`` with the UNet
+feature capture at tagged iterations, and ``val_sample_loop``, the
+host-driven loop with a per-step feedback hook. The step index is a Python int, so the
 schedule coefficients are float32 scalars read on the host and no step
 touches the device for them. ``p_sample`` takes the step's noise as an
 argument, or draws it from a ``torch.Generator``, where the JAX function takes
@@ -137,3 +138,39 @@ class SpacedSampler(SamplerBase):
                     kept[j] = tuple(f.float() for f in feats)
         feats = tuple(torch.stack(level) for level in zip(*kept)) if tags else ()
         return x, feats
+
+    # ---- host-driven loop with per-step feedback ---------------------------
+
+    def val_sample_loop(
+        self,
+        step_fn: Callable,  # (x, step_idx, cond, noise, generator) -> (x_prev, feats)
+        steps: int,
+        x_T: torch.Tensor,
+        cond,
+        feedback_fn: Optional[Callable] = None,
+        step_noises: Optional[Sequence[torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """The reference's val_sample: per-step OCR -> prompt recycling.
+
+        `step_fn` is one denoising step (``p_sample`` with the model bound);
+        `feedback_fn(feats, cond, iteration) -> (cond, info)` runs on the host
+        after each step and may rewrite ``cond['c_txt']``. `step_noises` (one
+        per iteration, in loop order) are drawn from `generator` when not
+        given. Returns (x_0, [info of each step]).
+        """
+        sp = self.make_schedule(steps)
+        total = sp.num_steps
+        if step_noises is not None and len(step_noises) != total:
+            raise ValueError(
+                f"step_noises holds {len(step_noises)} draws, the chain has {total} steps"
+            )
+        x = x_T
+        infos = []
+        for i in range(total):
+            noise = None if step_noises is None else step_noises[i]
+            x, feats = step_fn(x, total - 1 - i, cond, noise, generator)
+            if feedback_fn is not None:
+                cond, info = feedback_fn(feats, cond, i)
+                infos.append(info)
+        return x, infos

@@ -11,6 +11,7 @@ part of this slice. Tokens are ``[B, S, C]`` throughout.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -60,6 +61,16 @@ def proposal_grid(spatial_shapes) -> Tuple[np.ndarray, np.ndarray]:
     logit = np.log(props / (1 - props))
     logit[~valid] = np.inf
     return logit.astype(np.float32), valid
+
+
+@functools.lru_cache(maxsize=16)
+def _grid_tensors(spatial_shapes, device: torch.device):
+    """(proposal logits, proposal validity, encoder reference points) on
+    `device`, made once per geometry: a copy from the host in every pass
+    would wait for the card."""
+    prop_logit, prop_valid = proposal_grid(spatial_shapes)
+    ref = encoder_reference_points(spatial_shapes)
+    return tuple(torch.from_numpy(a).to(device) for a in (prop_logit, prop_valid, ref))
 
 
 def sine_pos_embed_2d(h: int, w: int, num_pos_feats: int = 128) -> np.ndarray:
@@ -273,11 +284,7 @@ class DeformableTransformer(nn.Module):
             dim=1,
         ).expand(src_flat.shape)
 
-        prop_logit, prop_valid = proposal_grid(spatial_shapes)
-        prop_logit = torch.from_numpy(prop_logit).to(dev)
-        prop_valid = torch.from_numpy(prop_valid).to(dev)
-
-        ref = torch.from_numpy(encoder_reference_points(spatial_shapes)).to(dev)
+        prop_logit, prop_valid, ref = _grid_tensors(spatial_shapes, dev)
         ref = ref[None].expand(b, -1, -1, -1)
         memory = src_flat
         for i in range(self.num_encoder_layers):

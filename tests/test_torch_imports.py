@@ -57,7 +57,18 @@ MODULES = [
     "tair_tpu_torch.train.checkpoint",
     "tair_tpu_torch.train.__main__",
     "tair_tpu_torch.config",
+    "tair_tpu_torch.tiling",
+    "tair_tpu_torch.utils.image_io",
+    "tair_tpu_torch.utils.visualizer",
+    "tair_tpu_torch.utils.text_eval",
+    "tair_tpu_torch.utils.submission",
+    "tair_tpu_torch.utils.niqe",
+    "tair_tpu_torch.val",
+    "tair_tpu_torch.val_patches",
+    "tair_tpu_torch.spotter_eval",
 ]
+
+ENTRY_POINTS = ["tair_tpu_torch.val", "tair_tpu_torch.val_patches", "tair_tpu_torch.spotter_eval"]
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -73,10 +84,12 @@ def test_port_imports_no_jax_flax_or_jax_package():
         import importlib, sys
         for name in {MODULES!r}:
             importlib.import_module(name)
-        # nor the packages the GPU machine lacks: regex, yaml, PIL
+        # nor regex, yaml, PIL or cv2 at import (PIL is imported where an image
+        # file is decoded or drawn)
         bad = sorted(
             m for m in sys.modules
-            if m.split(".")[0] in ("jax", "jaxlib", "flax", "tair_tpu", "regex", "yaml", "PIL")
+            if m.split(".")[0] in ("jax", "jaxlib", "flax", "tair_tpu", "regex", "yaml", "PIL",
+                                   "cv2")
         )
         assert not bad, bad
         print("clean", len({MODULES!r}))
@@ -101,17 +114,25 @@ def test_sources_do_not_name_jax_imports():
 
 
 def test_sources_import_neither_regex_yaml_nor_pil_outside_the_image_loader():
-    """PIL only where SATextDataset decodes an image file, lazily."""
+    """PIL only where an image file is decoded (other than the PNGs the port
+    reads itself) or drawn, lazily; cv2 nowhere."""
     offenders = []
     files = list((ROOT / "tair_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for path in files:
         for line in path.read_text().splitlines():
             s = line.strip()
             if s.startswith(("import ", "from ")) and s.split()[1].split(".")[0] in (
-                "regex", "yaml", "PIL"
+                "regex", "yaml", "PIL", "cv2"
             ):
-                offenders.append(f"{path.relative_to(ROOT)}: {line}")
-    assert offenders == ["tair_tpu_torch/data/satext.py:         from PIL import Image"]
+                assert line != s, f"{path}: a top-level import of {s.split()[1]}"
+                offenders.append(f"{path.relative_to(ROOT)}: {s}")
+    assert sorted(offenders) == [
+        "tair_tpu_torch/data/satext.py: from PIL import Image",
+        "tair_tpu_torch/utils/image_io.py: from PIL import Image",
+        "tair_tpu_torch/utils/visualizer.py: from PIL import Image",
+        "tair_tpu_torch/utils/visualizer.py: from PIL import ImageDraw",
+        "tair_tpu_torch/utils/visualizer.py: from PIL import ImageDraw",
+    ]
 
 
 @pytest.mark.parametrize("entry_point", ["build_default_model", "build_tiny_model"])
@@ -124,6 +145,27 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry_point):
         pytest.skip("a CUDA device is present: the default device works here")
     with pytest.raises(RuntimeError, match="CUDA"):
         getattr(pipeline, entry_point)()
+
+
+@pytest.mark.parametrize("module", ENTRY_POINTS)
+def test_entry_point_help_works_without_a_card(module):
+    proc = subprocess.run([sys.executable, "-m", module, "--help"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "--device" in proc.stdout and "--config" in proc.stdout
+
+
+@pytest.mark.parametrize("module", ENTRY_POINTS)
+def test_entry_points_raise_without_a_card_unless_told_cpu(module):
+    import torch
+
+    if torch.cuda.is_available():  # decided inside the test, never at import
+        pytest.skip("a CUDA device is present: the default device works here")
+    config = "configs/train_smoke.yaml" if module.endswith("spotter_eval") else "configs/val_smoke.yaml"
+    proc = subprocess.run([sys.executable, "-m", module, "--config", config], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "RuntimeError" in proc.stderr and "CUDA" in proc.stderr
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
