@@ -9,7 +9,8 @@ bfloat16, the forward at D <= 128 and at the autoencoder's D = 512, and on FMA
 for float32; msda corner reduce forward, backward; the msda patchify kernel)
 against its plain PyTorch version at every shape the main paths give it, with
 its time beside its bound (each tensor-core kernel timed in turns with the FMA
-kernel it replaces), and
+kernel it replaces, the patchify kernel's band design with its first design,
+by CUDA-graph replay), and
 each probe kernel (gather, stream, msda lab) against its plain version at the
 probe's shape. Then it drives the paths of the port and checks that each went
 through its kernels:
@@ -139,12 +140,16 @@ GRAD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-3)}  # (
 # (levels, B, H, D, calls per spotter pass) of the patchify kernel: the spotter's
 # table at 512 x 512 (encoder layers and decoder cross-attentions pack the same
 # [1, 9472, 8, 32] memory), the same at batch 2 cut out of a wider projection
-# (rows 16-byte aligned, not contiguous), and a ragged shape with 1-pixel levels
+# (rows 16-byte aligned, not contiguous), a ragged shape with 1-pixel levels,
+# and a level taller than one band beside one whose two rows do not fit the
+# band kernel's slab (so a band boundary falls inside the first and the second
+# is cut into runs of columns)
 SPOTTER_LEVELS = ((16, 16), (32, 32), (64, 64), (64, 64))
 K4_SHAPES = [
     ("spotter", SPOTTER_LEVELS, 1, 8, 32, 18),
     ("spotter_b2_strided", SPOTTER_LEVELS, 2, 8, 32, 0),
     ("ragged_one_pixel", ((1, 1), (1, 5), (7, 1), (3, 4)), 2, 3, 8, 0),
+    ("bands_and_column_runs", ((40, 24), (5, 200)), 2, 2, 64, 0),
 ]
 
 # flash launches of one pass of the full-width bfloat16 paths (the forwards;
@@ -270,17 +275,71 @@ def phase_build() -> None:
          libraries={p.name: _build.resource_usage(p) for p in paths})
 
 
-def in_turns(first, second) -> tuple:
+def in_turns(first, second, timer=time_ms) -> tuple:
     """Times of two functions timed in turns in one call (first, second,
     second, first): (median ms of first, median ms of second, all four)."""
-    t = [time_ms(first), time_ms(second), time_ms(second), time_ms(first)]
+    t = [timer(first), timer(second), timer(second), timer(first)]
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
 
 
-def device_ms(calls: dict, n: int = 10) -> dict:
-    """Device milliseconds per call of each function of `calls` (name -> (fn,
-    parts of its kernels' names)) from `profiled` over n calls of each: the
-    kernels' own time, without the host's time to launch them."""
+def captured(fn, n: int):
+    """A CUDA graph that holds n back-to-back calls of fn."""
+    fn()  # builds, binds and caches what the call needs, outside the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
+def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device milliseconds of one call: CUDA events around the replay of a
+    CUDA graph that holds n back-to-back calls of fn, over n (median of reps
+    replays). Only the kernels run, with no host work between them; inputs
+    stay where the last call left them (warm in L2 if they fit)."""
+    graph = captured(fn, n)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def per_launch_ms(run, calls: dict, n: int) -> tuple:
+    """torch.profiler over one call of `run` (which returns its wall seconds)
+    that makes n calls of each function of `calls` (name -> (fn, parts of its
+    kernels' names), each call launching its first part's kernel once):
+    (device milliseconds of each function's kernels per launch the profiler
+    recorded, without the host's time to launch them; for each function, the
+    launches of its first part recorded against the n made, and `partial`
+    when the profiler dropped some)."""
+    watched = profiled(run, watch=tuple(p for _, parts in calls.values() for p in parts))["watched"]
+    ms = {
+        name: 1e3 * sum(watched[p]["seconds"] / max(watched[p]["calls"], 1) for p in parts)
+        for name, (_, parts) in calls.items()
+    }
+    sample = {
+        name: dict(recorded=watched[parts[0]]["calls"], expected=n,
+                   partial=watched[parts[0]]["calls"] != n)
+        for name, (_, parts) in calls.items()
+    }
+    return ms, sample
+
+
+def device_ms(calls: dict, n: int = 10) -> tuple:
+    """`per_launch_ms` of n eager calls of each function of `calls`."""
     def run() -> float:
         t = time.perf_counter()
         for fn, _ in calls.values():
@@ -289,11 +348,35 @@ def device_ms(calls: dict, n: int = 10) -> dict:
         torch.cuda.synchronize()
         return time.perf_counter() - t
 
-    watched = profiled(run, watch=tuple(p for _, parts in calls.values() for p in parts))["watched"]
-    return {
-        name: 1e3 * sum(watched[p]["seconds"] for p in parts) / n
-        for name, (_, parts) in calls.items()
-    }
+    return per_launch_ms(run, calls, n)
+
+
+def graph_device_ms(calls: dict, n: int = 20) -> tuple:
+    """`per_launch_ms` of the launches that `graph_ms` times: one replay of a
+    CUDA graph of n back-to-back calls of each function of `calls`."""
+    graphs = [captured(fn, n) for fn, _ in calls.values()]
+
+    def run() -> float:
+        t = time.perf_counter()
+        for graph in graphs:
+            graph.replay()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    return per_launch_ms(run, calls, n)
+
+
+def host_ms(fn, n: int = 1000) -> float:
+    """Host milliseconds of one call: time.perf_counter over n calls with no
+    synchronise between them, over n (the device runs behind the host)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return 1e3 * t / n
 
 
 # the profiler's kernel names (a part of each) of the flash wrappers' kernels
@@ -359,7 +442,7 @@ def check_flash(rng: np.random.Generator, smi: str, steps: int) -> list:
                 ms, fma_ms, turns = in_turns(kernels[mine][0], kernels["fwd"][0])
             else:
                 ms, fma_ms, turns = time_ms(kernels["fwd"][0]), None, None
-            dev = device_ms(kernels)
+            dev, sampled = device_ms(kernels)
             plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v))
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
@@ -371,6 +454,8 @@ def check_flash(rng: np.random.Generator, smi: str, steps: int) -> list:
                 rtol=rtol, atol=atol, mean_abs_plain=ref_abs_mean, ms=ms,
                 fma_ms=fma_ms, turns_ms=turns,
                 device_ms=dev[mine], fma_device_ms=dev["fwd"] if tc else None,
+                device_ms_launches=sampled[mine],
+                fma_device_ms_launches=sampled["fwd"] if tc else None,
                 plain_ms=plain_ms, library_ms=library_ms,
                 **bound_of(flops, nbytes, dtype),
             ))
@@ -396,6 +481,7 @@ def check_flash(rng: np.random.Generator, smi: str, steps: int) -> list:
             max_abs_err=head["max_abs_err"], ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], paths=paths, device_ms=head["device_ms"],
+            device_ms_launches=head["device_ms_launches"],
             **({"ms_per_train_step": sums["ms_per_train_step"], "fma_ms": head["fma_ms"],
                 "fma_device_ms": head["fma_device_ms"]} if tc else {}),
         ))
@@ -532,7 +618,7 @@ def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
                     times[kind] = in_turns(kernels[which][0], kernels[kind][0])
                 else:
                     times[kind] = (time_ms(kernels[kind][0]), None, None)
-            dev = device_ms(kernels)
+            dev, sampled = device_ms(kernels)
             plain_ms = time_ms(
                 lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do, scale), reps=3
             )
@@ -552,8 +638,10 @@ def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
             for kind, which in mine.items():
                 ms, fma_ms, turns = times[kind]
                 rows.append(dict(
-                    kernel=which, **common, ms=ms, device_ms=dev[which], held=held[which],
+                    kernel=which, **common, ms=ms, device_ms=dev[which],
+                    device_ms_launches=sampled[which], held=held[which],
                     **({"fma_ms": fma_ms, "turns_ms": turns, "fma_device_ms": dev[kind],
+                        "fma_device_ms_launches": sampled[kind],
                         "fma_held": held[kind]} if which != kind else {}),
                     **({"query_split": fa.dkv_query_split(b, h, tq, tk)}
                        if which == "dkv_tc" else {}),
@@ -588,6 +676,7 @@ def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
             library_ms=head["library_ms_dq_and_dkv"],
             plain_and_library_cover="dq + dkv (one call gives all three gradients)",
             paths=paths, device_ms=head["device_ms"],
+            device_ms_launches=head["device_ms_launches"],
             **({"ms_per_train_step": sums["ms_per_train_step"], "fma_ms": head["fma_ms"],
                 "fma_device_ms": head["fma_device_ms"]} if tc else {}),
         ))
@@ -663,9 +752,40 @@ def check_msda_bwd(rng: np.random.Generator, smi: str) -> dict:
     )
 
 
+# the profiler's kernel names of the two designs
+K4_KERNEL_NAMES = {"band": ("patchify_band_kernel",), "per_piece": ("patchify_per_piece_kernel",)}
+
+
+def patchify_host_parts(tp, value: torch.Tensor, levels) -> dict:
+    """Host ms of each part of one call of the band kernel's wrapper, each
+    timed alone by `host_ms`: the level tuple, the checks of value and the
+    plan's lookup, the output's allocation, the device and stream lookups,
+    and the ctypes call that launches the kernel (into one output, uncounted)."""
+    b, s, h, d = value.shape
+    tiles, n, g, slab = tp._plan(levels, value.shape, value.element_size(), value.device)
+    out = tp._launch(value, levels)
+    dev = value.device.index
+    args = (value.data_ptr(), out.data_ptr(), tiles.data_ptr(), n, s, h, d, g,
+            value.element_size(), *value.stride()[:3], slab,
+            torch._C._cuda_getCurrentRawStream(dev))
+    return dict(
+        levels_tuple=host_ms(lambda: tuple((int(y), int(x)) for y, x in levels)),
+        input_check_and_plan=host_ms(lambda: tp._plan(
+            levels, tp._kernel_input(value).shape, value.element_size(), value.device)),
+        output_empty=host_ms(lambda: torch.empty_like(out)),
+        current_device=host_ms(torch.cuda.current_device),
+        raw_stream=host_ms(lambda: torch._C._cuda_getCurrentRawStream(dev)),
+        stream_object=host_ms(lambda: torch.cuda.current_stream().cuda_stream),
+        ctypes_launch=host_ms(lambda: tp._FWD["fwd"](*args)),
+    )
+
+
 def check_patchify(rng: np.random.Generator, smi: str, steps: int) -> dict:
-    """The patchify kernel against `patchify_value`, bit for bit (it moves
-    values), and its backward against autograd through `patchify_value`."""
+    """The patchify kernel (band design) and its first design (one thread per
+    piece) against `patchify_value`, bit for bit (they move values), and the
+    backward against autograd through `patchify_value`. Device time of one
+    launch of each design by CUDA-graph replay, timed in turns, and by
+    torch.profiler; the host's time to make one call."""
     from tair_tpu_torch.ops import patchify as tp
 
     rows = []
@@ -677,14 +797,16 @@ def check_patchify(rng: np.random.Generator, smi: str, steps: int) -> dict:
         for dtype in (torch.bfloat16, torch.float32):
             value = torch.from_numpy(vn).cuda().to(dtype)[:, :, :h]
             cot = torch.from_numpy(cn).cuda().to(dtype)
-            table = tp.patchify_value_kernel(value, levels)
-            torch.cuda.synchronize()
             want = tp.patchify_value(value, levels)
-            if table.dtype != dtype or not torch.equal(table, want):
-                raise AssertionError(
-                    f"patchify {name} {dtype}: the kernel's table is not equal to the plain "
-                    f"version's, max |d| {(table.float() - want.float()).abs().max().item()}"
-                )
+            for design, table in (("band", tp.patchify_value_kernel(value, levels)),
+                                  ("per_piece", tp._launch_per_piece(value, levels))):
+                torch.cuda.synchronize()
+                if table.dtype != dtype or not torch.equal(table, want):
+                    raise AssertionError(
+                        f"patchify {design} {name} {dtype}: the kernel's table is not equal to "
+                        f"the plain version's, max |d| "
+                        f"{(table.float() - want.float()).abs().max().item()}"
+                    )
             # backward: the wrapper sums in float32 and rounds once; autograd through
             # the plain version run in float32 on the same values is the reference
             leaf = value.detach().requires_grad_(True)
@@ -700,22 +822,71 @@ def check_patchify(rng: np.random.Generator, smi: str, steps: int) -> dict:
                     f"tolerance {rtol} * |g| + {atol}"
                 )
             del leaf, leaf32, got, ref, cot
-            nbytes = (value.numel() + table.numel()) * value.element_size()
+            nbytes = (value.numel() + want.numel()) * value.element_size()
+            designs = {
+                "band": (lambda: tp._launch(value, levels), K4_KERNEL_NAMES["band"]),
+                "per_piece": (lambda: tp._launch_per_piece(value, levels),
+                              K4_KERNEL_NAMES["per_piece"]),
+            }
+            ms, per_piece_ms, turns = in_turns(designs["band"][0], designs["per_piece"][0],
+                                               timer=graph_ms)
+            dev, dev_sample = graph_device_ms(designs)
+            eager, eager_sample = device_ms(designs)
+            bound = bound_of(0.0, nbytes, dtype)
+            _, tiles, heads_per_tile, slab = tp._plan(
+                levels, value.shape, value.element_size(), value.device)
             rows.append(dict(
                 shape=name, levels=[list(l) for l in levels], batch=b, heads=h, d=d,
                 dtype=str(dtype).split(".")[-1], calls_per_restore=per_pass * steps,
-                max_abs_err=0.0, equal_to_plain=True, backward_max_abs_err=bwd_err,
-                backward_rtol=rtol, backward_max_share_of_tol=bwd_share,
-                value_contiguous=value.is_contiguous(), bytes=nbytes,
-                ms=time_ms(lambda: tp.patchify_value_kernel(value, levels)),
+                max_abs_err=0.0, equal_to_plain=True, per_piece_equal_to_plain=True,
+                backward_max_abs_err=bwd_err, backward_rtol=rtol,
+                backward_max_share_of_tol=bwd_share,
+                value_contiguous=value.is_contiguous(), bytes=nbytes, tiles=tiles,
+                heads_per_tile=heads_per_tile, slab_bytes=slab,
+                ms=ms, per_piece_ms=per_piece_ms, turns_ms=turns,
+                device_ms=dev["band"], per_piece_device_ms=dev["per_piece"],
+                device_ms_launches=dev_sample,
+                eager_device_ms=eager["band"], per_piece_eager_device_ms=eager["per_piece"],
+                eager_device_ms_launches=eager_sample,
+                share_of_bound=bound["bound_ms"] / ms,
+                per_piece_share_of_bound=bound["bound_ms"] / per_piece_ms,
+                wrapper_ms=time_ms(lambda: tp.patchify_value_kernel(value, levels)),
                 plain_ms=time_ms(lambda: tp.patchify_value(value, levels)),
-                library_ms=None, **bound_of(0.0, nbytes, dtype),
+                library_ms=None, **bound,
             ))
-            del value, table, want
+            if name == "spotter" and dtype == torch.bfloat16:
+                class FirstDesign(torch.autograd.Function):
+                    # the wrapper's autograd.Function as it was with the first design
+                    @staticmethod
+                    def forward(ctx, v, lv):
+                        ctx.value_shape, ctx.spatial_shapes = tuple(v.shape), lv
+                        return tp._launch_per_piece(v, lv)
+
+                def first_call():
+                    # the user's call as it was with the first design: checks,
+                    # level tuple, autograd.Function, then the entry typed, the
+                    # level array made and the device entered on every call
+                    tp._check(value.shape, levels)
+                    return FirstDesign.apply(value, tuple((int(y), int(x)) for y, x in levels))
+
+                before, after, host_turns = in_turns(
+                    first_call, lambda: tp.patchify_value_kernel(value, levels), timer=host_ms)
+                host = dict(before=before, after=after, turns=host_turns,
+                            band_launch=host_ms(lambda: tp._launch(value, levels)))
+                host_parts = patchify_host_parts(tp, value, levels)
+            del value, want
     head = next(r for r in rows if r["shape"] == "spotter" and r["dtype"] == "bfloat16")
     emit("kernels", kernel="patchify_value_fwd", card=smi, shapes=rows, **per_restore_sums(rows),
-         note="a launch-sized kernel: at the spotter's shape its bound is a few microseconds, "
-              "so ms is the time Python takes to make one launch, not the kernel's own")
+         host_ms_per_call=host, host_ms_of_parts=host_parts,
+         note="ms and per_piece_ms: device time of one launch by CUDA events around the "
+              "replay of a CUDA graph of 20 back-to-back launches, value warm in L2, band and "
+              "first design in turns; device_ms: torch.profiler over one replay of the same "
+              "graph; eager_device_ms: torch.profiler over 10 eager calls, each alone on the "
+              "card between the host's launches (both per launch the profiler recorded, "
+              "with the launches recorded against those made); "
+              "wrapper_ms: CUDA events around eager calls "
+              "(the host's time); host_ms_per_call: time.perf_counter over 1000 calls "
+              "without a synchronise, the first design's user call and the band's in turns")
     return dict(
         name="patchify_value_fwd", route="cuda",
         source="tair_tpu_torch/ops/csrc/patchify.cu",
@@ -723,6 +894,12 @@ def check_patchify(rng: np.random.Generator, smi: str, steps: int) -> dict:
         shape="B=1 S=9472 H=8 D=32 bfloat16", max_abs_err=head["max_abs_err"],
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=None, paths=("restore_flatpatch",),
+        device_ms=head["device_ms"], eager_device_ms=head["eager_device_ms"],
+        device_ms_launches=head["device_ms_launches"]["band"],
+        eager_device_ms_launches=head["eager_device_ms_launches"]["band"],
+        per_piece_ms=head["per_piece_ms"],
+        share_of_bound=head["share_of_bound"],
+        host_ms_per_call=host["after"], first_design_host_ms_per_call=host["before"],
     )
 
 
@@ -1927,7 +2104,7 @@ def phase_restore_flatpatch(model, lq, seed: int, steps: int) -> dict:
 
                 one_pass()
                 walls = [one_pass() for _ in range(5)]
-                prof = profiled(one_pass, watch=("patchify_kernel", "msda_corner_reduce_kernel"))
+                prof = profiled(one_pass, watch=("patchify_band_kernel", "msda_corner_reduce_kernel"))
                 passes[name] = dict(
                     wall_seconds_median_of_5=statistics.median(walls),
                     kernel_launches=prof["kernel_launches"],
@@ -1953,6 +2130,14 @@ def phase_restore_flatpatch(model, lq, seed: int, steps: int) -> dict:
         },
         patchify_launches_per_step=runs["flatpatch_kernel"][0]["counts"]["patchify_value_fwd"] / steps,
         spotter_pass=passes,
+        # the A/B of the three settings in brief: one pass's launches and device
+        # seconds (profiler), and host seconds per step of each request
+        summary={name: dict(
+            pass_launches=passes[name]["kernel_launches"],
+            pass_device_seconds=passes[name]["device_busy_seconds"],
+            pass_patchify_device_seconds=passes[name]["device_seconds_of"]["patchify_band_kernel"],
+            seconds_per_step=[r["seconds"] / steps for r in runs[name]],
+        ) for name in settings},
     )
     return runs["flatpatch_kernel"][0]["counts"]
 
