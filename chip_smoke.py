@@ -24,6 +24,13 @@ through its kernels:
             ``flatpatch`` core and the patchify kernel (phase
             restore_flatpatch, which also times ``flatlanes`` with the patchify
             kernel beside the default);
+  diffbir   ``DiffBIRPipeline.run``, full width, bfloat16, 4 steps: an untiled
+            request with classifier-free guidance, strength, noise_aug, MSE
+            guidance and the colour fix; a tiled 1024 x 1024 request (9 latent
+            tiles a model pass, the tiled autoencoder with pooled GroupNorm);
+            every sampler family; SCUNet as the cleaner and BSRNet alone; and
+            the tiny model's tiled request in float32 against the CPU (phases
+            diffbir, diffbir_reference);
   training  stage 3 (``all_modules``) through ``train.step.make_train_step``:
             one step of the tiny model on the card against the CPU (phase
             train_reference), then full-width steps with float32 master
@@ -75,7 +82,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # give (phase train_entry; its third level, 64 tokens at 20 heads, is
 # unet_*_mid), with no calls at 512 x 512. Then the batches of the serving entry
 # points: four 512 x 512 patches at once (phase val_patches) and pairs of 256 x 256
-# images (phase spotter_eval), the largest shapes of each. The last three shapes no path gives:
+# images (phase spotter_eval), the largest shapes of each; the 9 latent tiles of 64 x 64
+# of a tiled 1024 x 1024 DiffBIR request in one batch, and its autoencoder's 9 image
+# tiles of 512 x 512 (phase diffbir). The last three shapes no path gives:
 # ragged lengths at batch 2 at a wide head and at the autoencoder's width, and
 # a narrow head; all are cut out of wider buffers, so their token strides are
 # not H*D.
@@ -102,6 +111,8 @@ K1_SHAPES = [
     ("b2_at256_unet_self_32", 2, 1024, 1024, 5, 64, 0, 0),
     ("b2_at256_unet_cross_32", 2, 1024, 77, 5, 64, 0, 0),
     ("b2_at256_vae_mid", 2, 1024, 1024, 1, 512, 0, 0),
+    ("b9_unet_self_64", 9, 4096, 4096, 5, 64, 0, 0),
+    ("b9_vae_mid", 9, 4096, 4096, 1, 512, 0, 0),
     ("ragged_strided", 2, 1000, 333, 3, 128, 0, 0),
     ("vae_ragged_strided", 2, 1000, 333, 1, 512, 0, 0),
     ("narrow_strided", 2, 301, 77, 4, 32, 0, 0),
@@ -164,7 +175,8 @@ PROBE_REPS = 2        # timed repetitions per setting of the probes' own runs
 SERVE_STEPS = 4
 
 PHASES = ("kernels", "probes", "reference", "restore", "restore_flatpatch", "layers",
-          "train_reference", "train", "train_entry", "val", "val_patches", "spotter_eval")
+          "diffbir", "train_reference", "train", "train_entry", "val", "val_patches",
+          "spotter_eval")
 # the paths on which the serving entry points run K1 and K3
 ENTRY_PHASES = ("val", "val_patches", "spotter_eval")
 
@@ -462,11 +474,12 @@ def check_flash(rng: np.random.Generator, smi: str, steps: int) -> list:
     entries = []
     for which, file, head_shape, paths in (
         ("fwd_tc", "flash_attention_tc.cu", ("unet_self_64", "Tq=Tk=4096 H=5 D=64 bfloat16"),
-         ("restore", "restore_flatpatch", "train")),
+         ("restore", "restore_flatpatch", "diffbir", "train")),
         ("fwd_tc_wide", "flash_attention_wide_tc.cu",
-         ("vae_mid", "T=4096 H=1 D=512 bfloat16"), ("restore", "restore_flatpatch", "train")),
+         ("vae_mid", "T=4096 H=1 D=512 bfloat16"),
+         ("restore", "restore_flatpatch", "diffbir", "train")),
         ("fwd", "flash_attention.cu", ("unet_self_64", "Tq=Tk=4096 H=5 D=64 float32"),
-         ("reference", "train_reference")),
+         ("reference", "diffbir_reference", "train_reference")),
     ):
         mine = [r for r in rows if r["kernel"] == which]
         head = next(r for r in mine if r["shape"] == head_shape[0])
@@ -1739,25 +1752,6 @@ def count_host_syncs(model, lq, steps=(2, 3)) -> dict:
     """Host synchronisations of one denoising step of each restore loop at
     512 x 512, batch 1: CUDA's synchronisation warnings (torch's sync debug
     mode) of requests of 2 and 3 steps, their difference."""
-    import warnings
-
-    def syncs(fn, n):
-        """(count, {file:line: count}) of the synchronisation warnings of fn(n)."""
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                fn(n)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        sites = {}
-        for w in caught:
-            if "synchroniz" in str(w.message):
-                site = f"{Path(w.filename).name}:{w.lineno}"
-                sites[site] = sites.get(site, 0) + 1
-        return sum(sites.values()), sites
-
     def feedback(n):
         model.restore_with_ocr_feedback(
             lq, torch.Generator(device=lq.device).manual_seed(0), steps=n, score_threshold=0.0)
@@ -1766,13 +1760,38 @@ def count_host_syncs(model, lq, steps=(2, 3)) -> dict:
         model.restore_fused_feedback(
             lq, torch.Generator(device=lq.device).manual_seed(0), steps=n, score_threshold=0.0)
 
-    out = {}
-    for name, fn in (("caption_feedback", feedback), ("fused", fused)):
-        fn(1)  # warm-up
-        (short, _), (long, sites) = (syncs(fn, n) for n in steps)
-        out[name] = dict(per_request={str(steps[0]): short, str(steps[1]): long},
-                         per_step=long - short, sites_of_the_longer_request=sites)
-    return out
+    return {name: syncs_per_step(fn, steps)
+            for name, fn in (("caption_feedback", feedback), ("fused", fused))}
+
+
+def host_syncs(fn, n):
+    """(count, {file:line: count}) of CUDA's synchronisation warnings (torch's
+    sync debug mode) of fn(n)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn(n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = f"{Path(w.filename).name}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    return sum(sites.values()), sites
+
+
+def syncs_per_step(fn, steps=(2, 3)) -> dict:
+    """Host synchronisations of `fn(n)`, a request of n steps, after a warm-up
+    request: requests of 2 and 3 steps, and their difference, one step's."""
+    fn(steps[0])
+    (short, _), (long, sites) = (host_syncs(fn, n) for n in steps)
+    return dict(per_request={str(steps[0]): short, str(steps[1]): long},
+                per_step=long - short, sites_of_the_longer_request=sites)
 
 
 VAL_KEYS = {"step", "time", "image", "pred_texts", "psnr", "ssim"}
@@ -2187,6 +2206,203 @@ def phase_layers(model, lq, steps: int) -> None:
     )
 
 
+# DiffBIRPipeline.run (phase diffbir): model passes of each sampler family in a
+# request of n steps without guidance (classifier-free guidance doubles them):
+# the multistep DPM-Solver++ evaluates its n + 1 nodes once each, the
+# singlestep one order passes an interval and the final node, EDM's heun skips
+# its second pass where the next sigma is 0
+DIFFBIR_SAMPLER_PASSES = {
+    "spaced": lambda n: n, "ddim": lambda n: n,
+    "dpm_solver_1": lambda n: n + 1, "dpm_solver_2": lambda n: n + 1,
+    "dpm_solver_3": lambda n: n + 1, "dpm_solver_s1": lambda n: n + 1,
+    "dpm_solver_s2": lambda n: 2 * n + 1, "dpm_solver_s3": lambda n: 3 * n + 1,
+    "edm_euler": lambda n: n, "edm_heun": lambda n: 2 * n - 1, "edm_dpmpp_2m": lambda n: n,
+    "edm_euler_ancestral": lambda n: n, "edm_dpmpp_2m_sde": lambda n: n,
+}
+DIFFBIR_REF_TOL = 1e-3  # float32 on both sides through a whole tiled request
+
+
+def random_init(module, seed: int):
+    """Weights of a cleaner from a seed: normal with variance 1/fan_in, norm
+    scales 1, biases 0, relative-position tables 0.02-normal."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.dim() == 1:
+                p.fill_(1.0 if name.endswith(".weight") else 0.0)
+            else:
+                std = 0.02 if name.endswith("rel_pos_bias_table") else p[0].numel() ** -0.5
+                p.copy_(torch.randn(p.shape, generator=gen) * std)
+    return module
+
+
+def phase_diffbir_reference(seed: int) -> dict:
+    """A tiled request with classifier-free guidance (DDIM) of the tiny model
+    in float32 on the card against the same weights, input and noise on the CPU;
+    returns the card's launches."""
+    from tair_tpu_torch.diffbir_pipeline import DiffBIRPipeline
+    from tair_tpu_torch.models.tokenizer import tokenize
+    from tair_tpu_torch.pipeline import build_tiny_model
+
+    ref = build_tiny_model(dtype=torch.float32, device="cpu")
+    ref.init_parameters(torch.Generator().manual_seed(seed))
+    dut = build_tiny_model(dtype=torch.float32, device="cuda")
+    dut.load_state_dict(ref.state_dict(), strict=True)
+    rng = np.random.default_rng(seed)
+    lq = torch.from_numpy(rng.random((1, 96, 96, 3), dtype=np.float32))
+    x_T = torch.from_numpy(rng.standard_normal((1, 16, 16, 4), dtype=np.float32))
+    toks = torch.from_numpy(tokenize(["a shop sign"])).long()
+    kw = dict(steps=2, cfg_scale=3.0, rescale_cfg=True, tiled=True, tile_size=64,
+              tile_stride=32, sampler_type="ddim")
+    reset_launch_counts()
+    out_d = DiffBIRPipeline(dut).run(lq.cuda(), toks.cuda(), x_T=x_T.cuda(), **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {**dict.fromkeys(counts, 0), **flash_launches(dut, torch.float32, 2 * 2, backward=False)}
+    if counts != want:
+        raise AssertionError(f"diffbir reference: launches {counts}, structure says {want}")
+    out_r = DiffBIRPipeline(ref).run(lq, toks, x_T=x_T, **kw)
+    err = (out_d.cpu() - out_r).abs().max().item()
+    if not err <= DIFFBIR_REF_TOL or tuple(out_d.shape) != (1, 96, 96, 3):
+        raise AssertionError(f"diffbir tiny model on the card against the CPU: |d| {err} "
+                             f"(tol {DIFFBIR_REF_TOL}), shape {tuple(out_d.shape)}")
+    emit("diffbir_reference", model="build_tiny_model float32", request=kw, max_abs_err=err,
+         tol=DIFFBIR_REF_TOL, flash_launches=counts["flash_attention_fwd"])
+    return counts
+
+
+def phase_diffbir(model, seed: int, steps: int) -> dict:
+    """``DiffBIRPipeline.run`` on the full-width model (bf16, random weights):
+    an untiled request with classifier-free guidance (rescaled), strength,
+    noise_aug, MSE guidance and the colour fix on a 460 x 500 LQ; a tiled
+    1024 x 1024 request (9 latent tiles of 64 x 64 in one batch per model
+    pass, the tiled VAE of 9 tiles with pooled GroupNorm) with guidance and
+    DDIM; every sampler family once; SCUNet as the cleaner; BSRNet alone. For
+    each: shape, range, finite, the same seed giving the same image, and the
+    kernel launches equal to the structure's (no other kernel). Returns the
+    launches of all its requests together."""
+    from tair_tpu_torch.diffbir_pipeline import DiffBIRPipeline
+    from tair_tpu_torch.models.cleaners import RRDBNet, SCUNet
+    from tair_tpu_torch.models.tokenizer import tokenize
+    from tair_tpu_torch.utils.guidance import MSEGuidance
+    from tair_tpu_torch.utils.tilevae import tiled_vae_decode, tiled_vae_encode
+
+    t_phase = time.perf_counter()
+    dev = next(model.parameters()).device
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(tokenize(["a shop sign"])).long().to(dev)
+    total, report = {}, {}
+
+    def request(pipe, lq, passes: int, req_seed: int, **kw):
+        """Two runs from one seed: both equal, each launching the structure's
+        kernels; returns the seconds of both, the peak and the image."""
+        want = {**dict.fromkeys(launch_counts(), 0),
+                **flash_launches(model, torch.bfloat16, passes, backward=False)}
+        images, seconds = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t = time.perf_counter()
+            image = pipe.run(lq, tokens, torch.Generator(device=dev).manual_seed(req_seed),
+                             steps=steps, **kw)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t)
+            counts = launch_counts()
+            if counts != want:
+                raise AssertionError(f"diffbir {kw}: launches "
+                                     f"{ {k: n for k, n in counts.items() if n} }, structure "
+                                     f"says { {k: n for k, n in want.items() if n} }")
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+            images.append(image)
+        image = images[0]
+        if (tuple(image.shape) != tuple(lq.shape) or not torch.isfinite(image).all()
+                or image.min().item() < 0.0 or image.max().item() > 1.0):
+            raise AssertionError(f"diffbir {kw}: image {tuple(image.shape)} for "
+                                 f"{tuple(lq.shape)}, not finite or not in [0, 1]")
+        if not torch.equal(images[0], images[1]):
+            raise AssertionError(f"diffbir {kw}: the same seed gave two different images")
+        return dict(seconds=seconds, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                    image_mean=image.mean().item(),
+                    fwd_tc_launches=want["flash_attention_fwd_tc"],
+                    fwd_tc_wide_launches=want["flash_attention_fwd_tc_wide"]), image
+
+    def lq_of(h, w):
+        return torch.from_numpy(rng.random((1, h, w, 3), dtype=np.float32)).to(dev)
+
+    pipe = DiffBIRPipeline(model)
+    cfg = dict(cfg_scale=4.0, rescale_cfg=True, sampler_type="spaced", strength=0.9,
+               noise_aug=10, guidance=MSEGuidance(scale=1e-4), color_fix=True)
+    lq = lq_of(460, 500)
+    report["untiled_cfg"], _ = request(pipe, lq, 2 * steps, seed, **cfg)
+    report["untiled_cfg"]["host_syncs"] = syncs_per_step(
+        lambda n: pipe.run(lq, tokens, torch.Generator(device=dev).manual_seed(seed),
+                           steps=n, **cfg))
+
+    tiled = dict(cfg_scale=4.0, tiled=True, tile_size=512, tile_stride=256, sampler_type="ddim")
+    big = lq_of(1024, 1024)
+    report["tiled_cfg_ddim"], _ = request(pipe, big, 2 * steps, seed, **tiled)
+    report["tiled_cfg_ddim"]["host_syncs"] = syncs_per_step(
+        lambda n: pipe.run(big, tokens, torch.Generator(device=dev).manual_seed(seed),
+                           steps=n, **tiled))
+    # the tiled autoencoder alone: one D = 512 launch a call, its 9 tiles one batch
+    with torch.no_grad():
+        clean = model.clean(big) * 2.0 - 1.0
+        vae = {}
+        for name, fn in (("encode", lambda: tiled_vae_encode(model.cldm, clean, 512, 256)),
+                         ("decode", lambda: tiled_vae_decode(model.cldm, z, 64, 32))):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+                wide = launch_counts()["flash_attention_fwd_tc_wide"]
+                if wide != 1:
+                    raise AssertionError(f"tiled VAE {name}: {wide} D = 512 launches, not 1")
+            if name == "encode":
+                z = out
+            vae[f"{name}_seconds"] = times
+        if tuple(z.shape) != (1, 128, 128, 4) or tuple(out.shape) != (1, 1024, 1024, 3):
+            raise AssertionError(f"tiled VAE shapes {tuple(z.shape)}, {tuple(out.shape)}")
+    report["tiled_vae"] = vae
+
+    samplers = {}
+    lq512 = lq_of(512, 512)
+    for k, (name, passes) in enumerate(DIFFBIR_SAMPLER_PASSES.items()):
+        samplers[name], _ = request(pipe, lq512, passes(steps), seed + k, sampler_type=name)
+    report["samplers"] = samplers
+
+    scunet = random_init(SCUNet(), seed).to(dev, model.cldm.vae.dtype)
+    report["scunet_cleaner"], _ = request(DiffBIRPipeline(model, cleaner=scunet), lq512,
+                                          steps, seed)
+    del scunet
+    bsrnet = random_init(RRDBNet(), seed).to(dev, model.cldm.vae.dtype)
+    with torch.no_grad():
+        lq128 = lq_of(128, 128)
+        outs, times = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs.append(bsrnet(lq128))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+    if tuple(outs[0].shape) != (1, 512, 512, 3) or not torch.isfinite(outs[0]).all() \
+            or not torch.equal(outs[0], outs[-1]):
+        raise AssertionError(f"BSRNet x4 on 128 x 128: {tuple(outs[0].shape)}, finite "
+                             f"{bool(torch.isfinite(outs[0]).all())}, repeatable "
+                             f"{torch.equal(outs[0], outs[-1])}")
+    report["bsrnet_x4_128"] = dict(seconds=times)
+    del bsrnet
+    emit("diffbir", steps=steps, model="build_default_model bfloat16", **report,
+         flash_launches={k: n for k, n in total.items() if n},
+         phase_seconds=time.perf_counter() - t_phase)
+    return total
+
+
 def phase_profile(phase: str, run) -> None:
     emit(phase, **profiled(run))
 
@@ -2274,7 +2490,9 @@ def main() -> None:
     if "reference" in phases:
         path_launches["reference"] = phase_reference(args.seed)
     host_syncs = None
-    if phases & {"restore", "restore_flatpatch", "layers", "val"} or args.profile_steps:
+    if "diffbir" in phases:
+        path_launches["diffbir_reference"] = phase_diffbir_reference(args.seed)
+    if phases & {"restore", "restore_flatpatch", "layers", "diffbir", "val"} or args.profile_steps:
         model, lq = build_model(args.seed)
         if "restore" in phases:
             path_launches["restore"] = phase_restore(model, lq, args.seed, args.steps)
@@ -2284,6 +2502,8 @@ def main() -> None:
             )
         if "layers" in phases:
             phase_layers(model, lq, args.steps)
+        if "diffbir" in phases:
+            path_launches["diffbir"] = phase_diffbir(model, args.seed, SERVE_STEPS)
         if "val" in phases:
             host_syncs = count_host_syncs(model, lq)
         if args.profile_steps:

@@ -87,16 +87,20 @@ class ControlLDM(nn.Module):
         t: torch.Tensor,
         cond: Dict[str, torch.Tensor],
         extract_features: bool = True,
+        control_scales: Optional[Tuple[float, ...]] = None,
     ):
         """(x_t, t, cond) -> (model_output, extracted_feats).
 
         cond: {c_txt: [B,77,D], c_img: [B,h,w,4]}; c_img optional (then the
-        UNet runs uncontrolled).
+        UNet runs uncontrolled). `control_scales` (13 floats) replace the
+        module's own for this call: the JAX package's ``dataclasses.replace``
+        of ``control_scales``, which leaves the shared module as it was.
         """
         c_txt = cond["c_txt"]
         if cond.get("c_img") is not None:
             control = self.controlnet(x_noisy, cond["c_img"], t, c_txt)
-            control = tuple(c * s for c, s in zip(control, self.control_scales))
+            scales = self.control_scales if control_scales is None else control_scales
+            control = tuple(c * s for c, s in zip(control, scales))
         else:
             control = None
         return self.unet(

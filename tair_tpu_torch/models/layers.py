@@ -11,6 +11,8 @@ the working type and cast back.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -44,8 +46,29 @@ def group_count(channels: int, num_groups: int = 32) -> int:
     return groups
 
 
+# Inside `gn_stats_over_batch()`, every GroupNorm32 pools its statistics over
+# the batch axis as well as (H, W, channels of the group): the tiled VAE
+# (utils/tilevae.py) runs the tiles of one image as one batch, and pooled
+# statistics stand in for the whole image's. Read when a module runs.
+_GN_STATS_OVER_BATCH: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "gn_stats_over_batch", default=False
+)
+
+
+@contextlib.contextmanager
+def gn_stats_over_batch():
+    """Within this context, GroupNorm32 statistics pool over the batch axis.
+    Only meaningful when the batch rows are tiles of one image."""
+    token = _GN_STATS_OVER_BATCH.set(True)
+    try:
+        yield
+    finally:
+        _GN_STATS_OVER_BATCH.reset(token)
+
+
 class GroupNorm32(nn.Module):
-    """GroupNorm over NCHW, always computed in float32, cast back to the input type."""
+    """GroupNorm over NCHW, always computed in float32, cast back to the input
+    type; statistics pooled over the batch inside `gn_stats_over_batch`."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
         super().__init__()
@@ -64,6 +87,15 @@ class GroupNorm32(nn.Module):
             # channels-last input that needs no gradient itself: the first
             # trained norm behind a frozen convolution meets exactly that
             xf = xf.contiguous()
+        if _GN_STATS_OVER_BATCH.get():
+            # population statistics over (batch, channels of the group, H, W),
+            # the same weight and bias as the per-image branch
+            b, c, h, w = xf.shape
+            xg = xf.reshape(b, self.groups, c // self.groups, h, w)
+            var, mu = torch.var_mean(xg, dim=(0, 2, 3, 4), correction=0, keepdim=True)
+            y = ((xg - mu) * torch.rsqrt(var + self.eps)).reshape(b, c, h, w)
+            y = y * self.weight.float()[:, None, None] + self.bias.float()[:, None, None]
+            return y.to(x.dtype)
         y = F.group_norm(xf, self.groups, self.weight.float(), self.bias.float(), self.eps)
         return y.to(x.dtype)
 
@@ -95,6 +127,15 @@ def conv1x1(in_ch: int, out_ch: int) -> nn.Conv2d:
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x spatial upsample of an NCHW tensor."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def edge_pad(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """NHWC `x` padded at the bottom by `ph` rows and at the right by `pw`
+    columns that repeat the edge pixels (``jnp.pad(mode="edge")``)."""
+    _, h, w, _ = x.shape
+    rows = torch.arange(h + ph, device=x.device).clamp(max=h - 1)
+    cols = torch.arange(w + pw, device=x.device).clamp(max=w - 1)
+    return x.index_select(1, rows).index_select(2, cols)
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:

@@ -121,8 +121,10 @@ class TeReDiff(nn.Module):
             p.copy_((noise * std).to(p.dtype))
         return self
 
-    def sampler(self) -> SpacedSampler:
-        return SpacedSampler(training_betas=self.schedule.betas, parameterization="v")
+    def sampler(self, rescale_cfg: bool = False) -> SpacedSampler:
+        return SpacedSampler(
+            training_betas=self.schedule.betas, parameterization="v", rescale_cfg=rescale_cfg
+        )
 
     # ---- stages -----------------------------------------------------------
 
@@ -166,32 +168,31 @@ class TeReDiff(nn.Module):
         cfg_scale: float = 1.0,
         feat_iterations: Sequence[int] = (),
         negative_tokens: Optional[torch.Tensor] = None,
+        rescale_cfg: bool = False,
         x_T: Optional[torch.Tensor] = None,
         step_noises: Optional[Sequence[torch.Tensor]] = None,
     ):
         """Restoration with a fixed prompt: returns (restored [0,1], clean,
         feats), feats the UNet decoder features at `feat_iterations` (see
         ``SpacedSampler.sample``). prompt_tokens: [B, 77] (tokenized on the
-        host). `x_T` [B, H/8, W/8, 4] and the step noises are drawn from
-        `generator` when not given. Classifier-free guidance
-        (`negative_tokens`) is not part of the port yet and raises."""
-        if negative_tokens is not None:
-            raise NotImplementedError(
-                "classifier-free guidance (negative_tokens) is not part of the port yet"
-            )
+        host); `negative_tokens` [B, 77] give the unconditional branch of
+        classifier-free guidance at `cfg_scale` (cosine-rescaled with
+        `rescale_cfg`). `x_T` [B, H/8, W/8, 4] and the step noises are drawn
+        from `generator` when not given."""
         clean = self.clean(lq)
-        cond = dict(
-            c_txt=self.cldm.clip_encode_tokens(prompt_tokens),
-            c_img=self.cldm.vae_encode(clean * 2.0 - 1.0, sample=False),
-        )
+        c_img = self.cldm.vae_encode(clean * 2.0 - 1.0, sample=False)
+        cond = dict(c_txt=self.cldm.clip_encode_tokens(prompt_tokens), c_img=c_img)
+        uncond = None
+        if negative_tokens is not None:
+            uncond = dict(c_txt=self.cldm.clip_encode_tokens(negative_tokens), c_img=c_img)
         b, h, w, _ = lq.shape
         if x_T is None:
             x_T = torch.randn(
                 (b, h // 8, w // 8, 4), dtype=torch.float32, device=lq.device,
                 generator=generator,
             )
-        x0, feats = self.sampler().sample(
-            self.cldm.apply, steps, x_T, cond, cfg_scale=cfg_scale,
+        x0, feats = self.sampler(rescale_cfg).sample(
+            self.cldm.apply, steps, x_T, cond, uncond=uncond, cfg_scale=cfg_scale,
             feat_iterations=feat_iterations, step_noises=step_noises, generator=generator,
         )
         restored = self.cldm.vae_decode(x0)

@@ -3,9 +3,10 @@
 Counterpart of ``tair_tpu/sampler/spaced.py``: ``make_schedule``,
 ``predict_x0``, ``q_posterior``, ``p_sample``, ``sample`` with the UNet
 feature capture at tagged iterations, and ``val_sample_loop``, the
-host-driven loop with a per-step feedback hook. The step index is a Python int, so the
-schedule coefficients are float32 scalars read on the host and no step
-touches the device for them. ``p_sample`` takes the step's noise as an
+host-driven loop with a per-step feedback hook, and classifier-free guidance
+in ``apply_model`` (``SamplerBase.guided``). The step index is a Python int, so
+the schedule coefficients and the guidance scale are float32 scalars read on
+the host and no step touches the device for them. ``p_sample`` takes the step's noise as an
 argument, or draws it from a ``torch.Generator``, where the JAX function takes
 a key; ``sample`` takes the chain's noises as a list, where the JAX function
 folds the iteration into its key. ``lax.scan`` is a Python loop.
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from ..diffusion.schedules import SpacedSchedule
-from .base import SamplerBase
+from .base import SamplerBase, check_noises
 
 ModelFn = Callable  # (x, model_t, cond) -> (model_output, feats_tuple)
 
@@ -53,14 +54,13 @@ class SpacedSampler(SamplerBase):
         return mean, _coef(sp.posterior_variance, t_idx)
 
     def apply_model(self, model_fn: ModelFn, x, model_t, cond, uncond=None,
-                    cfg_scale: float = 1.0):
-        # at scale 1.0 classifier-free mixing returns the conditional branch exactly
-        if uncond is not None and float(cfg_scale) != 1.0:
-            raise NotImplementedError(
-                "classifier-free guidance (cfg_scale != 1.0) is not part of "
-                "this slice of the port"
-            )
-        return model_fn(x, model_t, cond)
+                    cfg_scale: float = 1.0, t: Optional[int] = None):
+        """(model output, features), under classifier-free guidance when
+        `uncond` is given and `cfg_scale` is not 1.0 (see ``guided``); `t` is
+        the integer timestep of every row of `model_t`, read from the host."""
+        if t is None:
+            t = int(model_t[0])
+        return self.guided(model_fn, x, model_t, t, cond, uncond, cfg_scale)
 
     def p_sample(
         self,
@@ -76,11 +76,10 @@ class SpacedSampler(SamplerBase):
     ):
         """One ancestral step x_i -> x_{i-1}; returns (x_prev, feats)."""
         bs = x.shape[0]
-        model_t = torch.full(
-            (bs,), int(sp.timesteps[step_idx]), dtype=torch.int32, device=x.device
-        )
+        t = int(sp.timesteps[step_idx])
+        model_t = torch.full((bs,), t, dtype=torch.int32, device=x.device)
         model_output, feats = self.apply_model(
-            model_fn, x, model_t, cond, uncond, cfg_scale
+            model_fn, x, model_t, cond, uncond, cfg_scale, t=t
         )
         x0 = self.predict_x0(sp, x, step_idx, model_output.float())
         mean, var = self.q_posterior(sp, x0, x, step_idx)
@@ -122,10 +121,7 @@ class SpacedSampler(SamplerBase):
                 f"feat_iterations {tags} exceed the {total}-step chain; tags are "
                 "1-based iteration numbers"
             )
-        if step_noises is not None and len(step_noises) != total:
-            raise ValueError(
-                f"step_noises holds {len(step_noises)} draws, the chain has {total} steps"
-            )
+        check_noises(step_noises, total)
         kept = [None] * len(tags)
         x = x_T
         for i in range(total):
@@ -161,10 +157,7 @@ class SpacedSampler(SamplerBase):
         """
         sp = self.make_schedule(steps)
         total = sp.num_steps
-        if step_noises is not None and len(step_noises) != total:
-            raise ValueError(
-                f"step_noises holds {len(step_noises)} draws, the chain has {total} steps"
-            )
+        check_noises(step_noises, total)
         x = x_T
         infos = []
         for i in range(total):

@@ -1,6 +1,7 @@
-"""Tiled (patch-based) restoration: batched split -> restore -> blend-merge.
+"""Tiled (patch-based) restoration: batched split -> restore -> blend-merge,
+and gaussian-blended tiled application of a function (tiled latent sampling).
 
-Counterpart of ``tair_tpu/tiling.py:25-161``: 128² input patches with a 16-px
+Counterpart of ``tair_tpu/tiling.py``: 128² input patches with a 16-px
 overlap, each upscaled x4 (bicubic) and restored at 512², merged with a linear
 edge-fade window at the 512-px patch / 64-px overlap scale and cropped to 4x
 the original size. All patches of an image form one batch (or ``chunk``-sized
@@ -11,7 +12,9 @@ device; the x4 upscale is ``data.resize.resize`` (``jax.image.resize``'s
 Keys cubic, a = -0.5, not ``F.interpolate``'s -0.75); randomness is a
 ``torch.Generator`` (see ``restore_tiled``). The merge is a Python loop over
 the patches in row-major order in float32, so the overlaps sum in the order
-of JAX's ``lax.scan``.
+of JAX's ``lax.scan``. ``make_tiled_fn`` runs all tiles through one batched
+call and blends them with ``gaussian_window`` on a float32 canvas, in the
+JAX function's order.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .data.resize import resize
+from .models.layers import edge_pad
 
 
 def split_grid(height: int, width: int, patch: int = 128, overlap: int = 16):
@@ -141,3 +145,70 @@ def restore_tiled(
 
     merged = merge_with_overlap(restored, (h, w), patch, overlap, big, overlap * out_scale)
     return (merged, aux) if return_aux else merged
+
+
+def gaussian_window(patch: int, var: float = 0.01) -> np.ndarray:
+    """DiffBIR's gaussian tile weights: a separable gaussian over normalized
+    tile coordinates, peaked at the tile centre (float32 [patch, patch])."""
+    xs = (np.arange(patch) - patch / 2 + 0.5) / patch
+    g = np.exp(-(xs**2) / (2 * var)) / np.sqrt(2 * np.pi * var)
+    return np.outer(g, g).astype(np.float32)
+
+
+def make_tiled_fn(fn: Callable, size: int, stride: int):
+    """Gaussian-blended sliding-window application of a function that keeps
+    the spatial size (DiffBIR's make_tiled_fn, used for tiled latent sampling).
+
+    `fn(x_tile, *extra_tiles, **kwargs)` maps [n_tiles * B, size, size, C] (the
+    tiles in row-major order, each tile's B rows together; any extra arrays
+    tiled over the same H, W grid; keyword arguments passed through as they
+    are) -> [n_tiles * B, size, size, C']. The last row and column of tiles
+    snap to the edge; an axis smaller than the tile is edge-padded and cropped
+    back; an input no larger than one tile goes to `fn` whole. The blend sums
+    in float32 with a 1e-12 floor on the weights and returns the tiles' dtype.
+    The window and the weight map are made once per grid and device (the JAX
+    function's `window="fade"` has no caller in either package and is not
+    ported)."""
+    win_np = gaussian_window(size)
+    grids = {}  # (padded h, padded w, device) -> (tile positions, window, 1 / weights)
+
+    def starts(extent: int):
+        ss = list(range(0, extent - size + 1, stride))
+        if not ss or ss[-1] != extent - size:
+            ss.append(extent - size)
+        return ss
+
+    def grid(h: int, w: int, device):
+        key = (h, w, device)
+        if key not in grids:
+            pos = [(i, j) for i in starts(h) for j in starts(w)]
+            win = torch.from_numpy(win_np).to(device)[..., None]
+            weights = torch.zeros((1, h, w, 1), dtype=torch.float32, device=device)
+            for i, j in pos:
+                weights[:, i : i + size, j : j + size] += win
+            # corner gaussian weights get as small as ~5e-9; the floor stays below them
+            grids[key] = pos, win, weights.clamp(min=1e-12)
+        return grids[key]
+
+    def tiled(x: torch.Tensor, *extras: torch.Tensor, **kwargs) -> torch.Tensor:
+        b, h, w, _ = x.shape
+        if h <= size and w <= size:
+            return fn(x, *extras, **kwargs)
+        ph, pw = max(size - h, 0), max(size - w, 0)
+        if ph or pw:
+            x = edge_pad(x, ph, pw)
+            extras = tuple(edge_pad(e, ph, pw) for e in extras)
+        pos, win, weights = grid(h + ph, w + pw, x.device)
+
+        def grab(a):
+            return torch.cat([a[:, i : i + size, j : j + size] for (i, j) in pos], dim=0)
+
+        tiles_out = fn(grab(x), *[grab(e) for e in extras], **kwargs)
+        co = tiles_out.shape[-1]
+        tiles_out = tiles_out.reshape(len(pos), b, size, size, co)
+        canvas = torch.zeros((b, h + ph, w + pw, co), dtype=torch.float32, device=x.device)
+        for k, (i, j) in enumerate(pos):
+            canvas[:, i : i + size, j : j + size] += tiles_out[k].float() * win
+        return (canvas / weights).to(tiles_out.dtype)[:, :h, :w]
+
+    return tiled

@@ -203,6 +203,12 @@ def _jax_leaf(module: torch.nn.Module, parent: Optional[torch.nn.Module], key: s
     if isinstance(module, torch.nn.Conv2d) and key == "weight":
         o, i, kh, kw = shape
         return ("kernel",), (kh, kw, i, o)
+    if isinstance(module, torch.nn.ConvTranspose2d) and key == "weight":
+        # flax ConvTranspose(transpose_kernel=True) keeps [kh, kw, out, in],
+        # the forward convolution's kernel, which the conv rule maps to
+        # PyTorch's [in, out, kh, kw]
+        i, o, kh, kw = shape
+        return ("kernel",), (kh, kw, o, i)
     if isinstance(module, torch.nn.Linear):
         out_f, in_f = module.out_features, module.in_features
         heads = parent.heads if isinstance(parent, MultiHeadAttention) else None
@@ -244,19 +250,19 @@ def _jax_module_path(path: str) -> Tuple[str, ...]:
     return tuple(out)
 
 
-def jax_param_shapes(model: torch.nn.Module) -> Dict[str, Any]:
-    """The JAX parameter tree of the port's `TeReDiff` {unet, controlnet, vae,
-    clip, swinir, testr}: nested dicts whose leaves are `LeafShape`s, the `like`
-    argument of `to_jax_params`. Worked out from the port's modules, so no
-    JAX is needed; every leaf round-trips through `_convert_leaf` to the
-    parameter it came from."""
+def _shapes_of(model: torch.nn.Module, tops) -> Dict[str, Any]:
+    """{top: JAX tree of `LeafShape`s} of `model`'s parameters, each under the
+    first (top, prefix) of `tops` whose prefix (``""`` for the whole model)
+    starts its name."""
     modules = dict(model.named_modules())
     tree: Dict[str, Any] = {}
     for name, value in model.named_parameters():
-        top = next(t for t in BUNDLE_KEYS if name.startswith(_PREFIX[t] + "."))
-        rel = name[len(_PREFIX[top]) + 1:]
+        top, prefix = next(
+            (t, p) for t, p in tops if not p or name.startswith(p + ".")
+        )
+        rel = name[len(prefix) + 1:] if prefix else name
         owner, _, key = rel.rpartition(".")
-        full_owner = f"{_PREFIX[top]}.{owner}" if owner else _PREFIX[top]
+        full_owner = ".".join(filter(None, (prefix, owner)))
         parent_name = full_owner.rpartition(".")[0]
         leaf_names, shape = _jax_leaf(
             modules[full_owner], modules.get(parent_name), key, value
@@ -270,3 +276,21 @@ def jax_param_shapes(model: torch.nn.Module) -> Dict[str, Any]:
             node = node.setdefault(part, {})
         node[path[-1]] = LeafShape(shape)
     return tree
+
+
+def jax_param_shapes(model: torch.nn.Module) -> Dict[str, Any]:
+    """The JAX parameter tree of the port's `TeReDiff` {unet, controlnet, vae,
+    clip, swinir, testr}: nested dicts whose leaves are `LeafShape`s, the `like`
+    argument of `to_jax_params`. Worked out from the port's modules, so no
+    JAX is needed; every leaf round-trips through `_convert_leaf` to the
+    parameter it came from."""
+    return _shapes_of(model, [(top, _PREFIX[top]) for top in BUNDLE_KEYS])
+
+
+def module_param_shapes(module: torch.nn.Module) -> Dict[str, Any]:
+    """The JAX parameter tree of one stand-alone module of the port (a cleaner:
+    ``RRDBNet``, ``SCUNet``), laid out as `jax_param_shapes` lays out a part of
+    the bundle: the `like` of `to_jax_tree`. Its JAX tree loads through
+    `convert_tree`; cleaners are not parts of the bundle, so `BUNDLE_KEYS` and
+    `from_jax_params` do not name them."""
+    return _shapes_of(module, [("", "")]).get("", {})

@@ -66,6 +66,14 @@ MODULES = [
     "tair_tpu_torch.val",
     "tair_tpu_torch.val_patches",
     "tair_tpu_torch.spotter_eval",
+    "tair_tpu_torch.sampler.base",
+    "tair_tpu_torch.sampler.ddim",
+    "tair_tpu_torch.sampler.dpm",
+    "tair_tpu_torch.sampler.edm",
+    "tair_tpu_torch.models.cleaners",
+    "tair_tpu_torch.utils.tilevae",
+    "tair_tpu_torch.utils.guidance",
+    "tair_tpu_torch.diffbir_pipeline",
 ]
 
 ENTRY_POINTS = ["tair_tpu_torch.val", "tair_tpu_torch.val_patches", "tair_tpu_torch.spotter_eval"]

@@ -101,6 +101,9 @@ def test_predict_x0_and_posterior_match():
 
 
 def test_p_sample_draws_from_generator_and_guidance_raises():
+    """The step's noise comes from the generator; classifier-free guidance,
+    which raised before the port had it, now mixes the two branches as JAX's
+    ``apply_model`` does (the name is kept from then)."""
     tsamp = SpacedSampler(training_betas=_betas(ts))
     sp = tsamp.make_schedule(5)
     x = torch.zeros(1, 4, 4, 4)
@@ -112,5 +115,24 @@ def test_p_sample_draws_from_generator_and_guidance_raises():
     b, _ = tsamp.p_sample(model, sp, x, 3, {}, generator=torch.Generator().manual_seed(1))
     c, _ = tsamp.p_sample(model, sp, x, 3, {}, generator=torch.Generator().manual_seed(2))
     assert torch.equal(a, b) and not torch.equal(a, c)
-    with pytest.raises(NotImplementedError):
-        tsamp.p_sample(model, sp, x, 3, {}, uncond={}, cfg_scale=2.0)
+    # classifier-free guidance: the mix of JAX's apply_model, the features of
+    # the conditional branch, bfloat16 outputs mixed in float32
+    rng = np.random.default_rng(45)
+    xs = rng.standard_normal((2, 4, 4, 4), dtype=np.float32)
+    outs = {k: rng.standard_normal((2, 4, 4, 4), dtype=np.float32) for k in ("c", "u")}
+
+    def jax_model(x_, t_, cond):
+        return jnp.asarray(outs[cond]).astype(jnp.bfloat16), (cond,)
+
+    def torch_model(x_, t_, cond):
+        return torch.from_numpy(outs[cond]).to(torch.bfloat16), (cond,)
+
+    for rescale in (False, True):
+        jsamp = JaxSampler(training_betas=_betas(js), rescale_cfg=rescale)
+        tsamp = SpacedSampler(training_betas=_betas(ts), rescale_cfg=rescale)
+        t = jnp.full((2,), 601, jnp.int32)
+        want, wf = jsamp.apply_model(jax_model, jnp.asarray(xs), t, "c", "u", 3.0)
+        got, gf = tsamp.apply_model(torch_model, torch.from_numpy(xs),
+                                    torch.full((2,), 601, dtype=torch.int32), "c", "u", 3.0)
+        assert wf == gf == ("c",) and got.dtype == torch.float32 and want.dtype == jnp.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)

@@ -98,3 +98,40 @@ def test_dtype_argument(pair):
     state = from_jax_params({"swinir": params["swinir"]}, dtype=torch.bfloat16)
     assert all(v.dtype == torch.bfloat16 for v in state.values())
     assert all(k.startswith("swinir.") for k in state)
+
+
+@pytest.mark.parametrize("cleaner", ["rrdbnet", "scunet"])
+def test_cleaner_trees_round_trip(cleaner):
+    """The cleaners load through `convert_tree` (they are not parts of the
+    bundle); `module_param_shapes` gives the JAX tree of each from the port's
+    modules alone, and `to_jax_tree` inverts the conversion leaf by leaf, the
+    transposed convolution of SCUNet ([kh, kw, out, in] in JAX) included."""
+    import jax.numpy as jnp
+
+    from tair_tpu.models import cleaners as jc
+    from tair_tpu_torch.models import cleaners as tc
+    from tair_tpu_torch.weights.convert import module_param_shapes, to_jax_tree
+    from test_torch_common import jax_shapes, noise_params
+
+    if cleaner == "scunet":
+        cfg = dict(dim=16, config=(1, 1, 1, 1, 1, 1, 1), head_dim=8)
+        jmod, tmod = jc.SCUNet(jc.SCUNetConfig(**cfg)), tc.SCUNet(tc.SCUNetConfig(**cfg))
+    else:
+        cfg = dict(nf=8, nb=2, gc=4, sf=4)
+        jmod, tmod = jc.RRDBNet(jc.RRDBNetConfig(**cfg)), tc.RRDBNet(tc.RRDBNetConfig(**cfg))
+    shapes = jax_shapes(jmod.init, jnp.zeros((1, 64, 64, 3)))["params"]
+    params = noise_params(shapes, 62)
+    state = convert_tree(params)
+    tmod.load_state_dict(state, strict=True)
+    like = module_param_shapes(tmod)
+    assert jax.tree.map(lambda s: tuple(s.shape), like) == jax.tree.map(
+        lambda s: tuple(s.shape), shapes)
+    back = to_jax_tree(tmod.state_dict(), like)
+    for (path, got), want in zip(jax.tree_util.tree_leaves_with_path(back),
+                                 jax.tree.leaves(params)):
+        np.testing.assert_array_equal(got, want, err_msg=jax.tree_util.keystr(path))
+    if cleaner == "scunet":
+        kernel = params["up1_conv"]["kernel"]  # [kh, kw, out, in]
+        assert tuple(state["up1_conv.weight"].shape) == (kernel.shape[3], kernel.shape[2], 2, 2)
+        np.testing.assert_array_equal(state["up1_conv.weight"].numpy(),
+                                      kernel.transpose(3, 2, 0, 1))
