@@ -23,7 +23,16 @@ through its kernels:
             same request with every deformable attention of the spotter on the
             ``flatpatch`` core and the patchify kernel (phase
             restore_flatpatch, which also times ``flatlanes`` with the patchify
-            kernel beside the default);
+            kernel beside the default), and the same request with the sparse
+            spotter encoder, ``enc_topk`` = 2048 of the 9472 tokens, beside
+            the dense one and ``enc_topk`` = 9472 (phase enc_topk, which also
+            holds K3 at the sparse encoder's 2048 rows and checks its
+            launches by row count);
+  weights   the released checkpoints' path: the seeded full-width model
+            exported under the reference's names (SD-2.1 bundle, ControlNet,
+            SwinIR, TESTR), ``python -m tair_tpu_torch.convert_weights``, the
+            npz loaded by ``val.load_model``; every tensor and a request's
+            image equal to the seeded model's (phase ckpt);
   diffbir   ``DiffBIRPipeline.run``, full width, bfloat16, 4 steps: an untiled
             request with classifier-free guidance, strength, noise_aug, MSE
             guidance and the colour fix; a tiled 1024 x 1024 request (9 latent
@@ -134,6 +143,10 @@ K3_SHAPES = [("encoder", 9472, 6), ("dec_ctrl", 1600, 6), ("dec_text", 2500, 6),
              ("at256_encoder", 2368, 0), ("b4_encoder", 4 * 9472, 0),
              ("b4_dec_ctrl", 4 * 1600, 0), ("b4_dec_text", 4 * 2500, 0),
              ("b2_at256_encoder", 2 * 2368, 0), ("ragged", 37, 0)]
+# the sparse encoder update (phase enc_topk): each encoder layer's msda queries
+# are the ENC_TOPK selected tokens of the 9472, so K3 runs at NQ = ENC_TOPK
+ENC_TOPK = 2048
+K3_ENC_TOPK_SHAPE = ("enc_topk_encoder", ENC_TOPK, 0)
 K3_TOL = 1e-4  # float32 accumulation on both sides, summation order only
 # the training phases: configs/train_stage3.yaml's learning rate and OCR weight
 TRAIN_LR = 1e-4
@@ -175,8 +188,8 @@ PROBE_REPS = 2        # timed repetitions per setting of the probes' own runs
 SERVE_STEPS = 4
 
 PHASES = ("kernels", "probes", "reference", "restore", "restore_flatpatch", "layers",
-          "diffbir", "train_reference", "train", "train_entry", "val", "val_patches",
-          "spotter_eval")
+          "enc_topk", "diffbir", "ckpt", "train_reference", "train", "train_entry", "val",
+          "val_patches", "spotter_eval")
 # the paths on which the serving entry points run K1 and K3
 ENTRY_PHASES = ("val", "val_patches", "spotter_eval")
 
@@ -501,12 +514,15 @@ def check_flash(rng: np.random.Generator, smi: str, steps: int) -> list:
     return entries
 
 
-def check_msda(rng: np.random.Generator, smi: str, steps: int) -> dict:
+def check_msda(rng: np.random.Generator, smi: str, steps: int) -> list:
+    """K3 at every shape of K3_SHAPES and at the sparse encoder's NQ; two
+    entries of the kernels line: the dense paths' (NQ = 9472) and the sparse
+    encoder's (NQ = ENC_TOPK), whose ms is device time by CUDA-graph replay."""
     from tair_tpu_torch.ops import msda_reduce as mr
 
     lanes, k, d = 128, 16, 32
     rows = []
-    for name, nq, per_pass in K3_SHAPES:
+    for name, nq, per_pass in [*K3_SHAPES, K3_ENC_TOPK_SHAPE]:
         for dtype in (torch.bfloat16, torch.float32):
             g = torch.from_numpy(
                 rng.standard_normal((nq * lanes, 4 * d), dtype=np.float32)
@@ -533,19 +549,39 @@ def check_msda(rng: np.random.Generator, smi: str, steps: int) -> dict:
                 library_ms=None, bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
             ))
+            if name == K3_ENC_TOPK_SHAPE[0] and dtype == torch.bfloat16:
+                def call():
+                    return mr.msda_corner_reduce(g, *ws, k)
+
+                device, sample = device_ms({"k3": (call, ("msda_corner_reduce_kernel",))})
+                sparse = dict(graph_ms=graph_ms(call), device_ms=device["k3"],
+                              device_ms_launches=sample["k3"], input_bytes=nbytes)
+                rows[-1].update(sparse)
             del g, ws, out, ref
     head = next(r for r in rows if r["shape"] == "encoder" and r["dtype"] == "bfloat16")
+    topk = next(r for r in rows if r["shape"] == K3_ENC_TOPK_SHAPE[0] and r["dtype"] == "bfloat16")
     emit("kernels", kernel="msda_corner_reduce_fwd", card=smi, shapes=rows,
-         **per_restore_sums(rows), **per_step_sums(rows, "ms"))
-    return dict(
-        name="msda_corner_reduce_fwd", route="cuda",
-        source="tair_tpu_torch/ops/csrc/msda_reduce.cu",
-        replaces="tair_tpu/ops/msda_reduce.py:150",
-        shape="NQ=9472 lanes=128 K=16 D=32 bfloat16", max_abs_err=head["max_abs_err"],
-        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=None, paths=("restore", "train"),
-        **per_step_sums(rows, "ms"),
-    )
+         **per_restore_sums(rows), **per_step_sums(rows, "ms"),
+         note=f"{K3_ENC_TOPK_SHAPE[0]} (NQ={ENC_TOPK}) is the sparse encoder's shape: "
+              "graph_ms by CUDA events around the replay of a CUDA graph of 20 launches, "
+              "device_ms by torch.profiler over 10 eager calls; on no dense path")
+    common = dict(route="cuda", source="tair_tpu_torch/ops/csrc/msda_reduce.cu",
+                  replaces="tair_tpu/ops/msda_reduce.py:150", library_ms=None)
+    return [
+        dict(name="msda_corner_reduce_fwd", **common,
+             shape="NQ=9472 lanes=128 K=16 D=32 bfloat16", max_abs_err=head["max_abs_err"],
+             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+             bound_by=head["bound_by"], paths=("restore", "train"),
+             **per_step_sums(rows, "ms")),
+        # the same kernel at the sparse encoder's row count; its launches are
+        # those at ENC_TOPK rows in phase enc_topk's request (the wrapper counts
+        # them by row count), the kernel's other launches there are the entry above's
+        dict(name=f"msda_corner_reduce_fwd_nq{ENC_TOPK}", **common, shape=f"NQ={ENC_TOPK} lanes=128 K=16 D=32 bfloat16",
+             max_abs_err=topk["max_abs_err"], ms=topk["graph_ms"], plain_ms=topk["plain_ms"],
+             bound_ms=topk["bound_ms"], bound_by=topk["bound_by"],
+             wrapper_ms=topk["ms"], device_ms=topk["device_ms"],
+             share_of_bound=topk["bound_ms"] / topk["graph_ms"], paths=("enc_topk",)),
+    ]
 
 
 def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
@@ -2206,6 +2242,278 @@ def phase_layers(model, lq, steps: int) -> None:
     )
 
 
+def spotter_features(model, lq):
+    """The UNet's four decoder taps of one noised ControlNet + UNet pass on
+    `lq` (t = 500): the spotter's input in a request."""
+    from tair_tpu_torch.models.prompt_splice import empty_tokens
+
+    dev = lq.device
+    with torch.no_grad():
+        cond = dict(
+            c_txt=model.cldm.clip_encode_tokens(torch.from_numpy(empty_tokens(1)).to(dev).long()),
+            c_img=model.cldm.vae_encode(model.clean(lq) * 2.0 - 1.0, sample=False),
+        )
+        side = lq.shape[1] // 8
+        x = torch.randn((1, side, side, 4), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+        return model.cldm.apply(x, torch.full((1,), 500, dtype=torch.int32, device=dev), cond)[1]
+
+
+# the spotter encoder's work in the profiler: kernels by a part of their name
+# (PyTorch's gather kernel runs both the msda row gather and the sparse
+# update's row gathers; K3), and the operators whose kernels' device time is
+# told apart: the msda row gather (``index_select``), the sparse update's
+# gathers of its rows and its scatter back
+ENCODER_KERNELS = ("vectorized_gather_kernel", "msda_corner_reduce_kernel")
+ENCODER_OPS = ("aten::index_select", "aten::gather", "aten::scatter")
+
+
+def phase_enc_topk(model, lq, seed: int, steps: int) -> dict:
+    """The sparse spotter encoder (``TESTRConfig.enc_topk``) on the full-width
+    request: fused requests of `steps` steps at 512 x 512 in bfloat16 with
+    enc_topk = ENC_TOPK beside enc_topk = 0 (every one of the S = 9472 tokens)
+    and enc_topk = S, in the order dense, sparse, sparse, S, dense. Checks:
+    each image finite, in range; the same seed the same image; enc_topk = S
+    the dense image bit for bit; every request's launches the structure's
+    (the sparse encoder launches K3 once a layer, as the dense one). Then one
+    spotter pass of each setting on the same features: its wall seconds, its
+    launches and device seconds (torch.profiler), and those of the 6 encoder
+    layers alone (the row gather, the sparse update's gathers and scatter,
+    K3). K3's launches are also counted by row count: each request's encoder
+    layers launch it num_encoder_layers x steps times at their row count
+    (ENC_TOPK when sparse, S otherwise) and the decoder's launches are the
+    dense request's; the sparse image differs from the dense one. Returns the
+    launches of the first sparse request, K3's split into those at ENC_TOPK
+    rows (under msda_corner_reduce_fwd_nq<ENC_TOPK>) and the others."""
+    from tair_tpu_torch.ops import msda_reduce as mr
+    from tair_tpu_torch.spotter.transformer import encoder_reference_points
+
+    t_phase = time.perf_counter()
+    transformer = model.testr.transformer
+    s_tokens = len(encoder_reference_points(SPOTTER_LEVELS))
+    want = serving_launches(model, steps, steps)
+    enc_launches = transformer.num_encoder_layers * steps
+    settings = {"dense": 0, f"enc_topk_{ENC_TOPK}": ENC_TOPK, f"enc_topk_{s_tokens}": s_tokens}
+    sparse_name = f"enc_topk_{ENC_TOPK}"
+    order = ["dense", sparse_name, sparse_name, f"enc_topk_{s_tokens}", "dense"]
+    runs = {name: [] for name in settings}
+    passes = {}
+    try:
+        for name in order:
+            transformer.enc_topk = settings[name]
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            image, tokens, seconds = restore_request(model, lq, seed, steps)
+            counts = {k: n for k, n in launch_counts().items() if n}
+            rows = dict(sorted(mr.fwd_launches_by_rows.items()))
+            check_restored(image, tokens)
+            if counts != want:
+                raise AssertionError(f"enc_topk {name}: launches {counts}, structure says {want}")
+            enc_rows = settings[name] if 0 < settings[name] < s_tokens else s_tokens
+            decoder_rows = {n: c for n, c in rows.items() if n != enc_rows}
+            # the first request is dense: the others' decoder launches are its
+            dense_decoder = runs["dense"][0]["decoder_rows"] if runs["dense"] else decoder_rows
+            if (rows.get(enc_rows) != enc_launches
+                    or sum(rows.values()) != counts["msda_corner_reduce_fwd"]
+                    or s_tokens in decoder_rows or decoder_rows != dense_decoder):
+                raise AssertionError(
+                    f"enc_topk {name}: K3 launches by row count {rows}; want {enc_launches} "
+                    f"at {enc_rows} rows and the dense request's decoder launches")
+            runs[name].append(dict(image=image, tokens=tokens, seconds=seconds, counts=counts,
+                                   rows=rows, decoder_rows=decoder_rows,
+                                   peak=torch.cuda.max_memory_allocated()))
+        for name, rs in runs.items():
+            if not all(torch.equal(r["image"], rs[0]["image"]) and
+                       torch.equal(r["tokens"], rs[0]["tokens"]) for r in rs):
+                raise AssertionError(f"enc_topk {name}: the same seed gave two different images")
+        dense, exact = runs["dense"][0], runs[f"enc_topk_{s_tokens}"][0]
+        if not (torch.equal(dense["image"], exact["image"])
+                and torch.equal(dense["tokens"], exact["tokens"])):
+            raise AssertionError(f"enc_topk = S = {s_tokens} differs from the dense request")
+        sparse = runs[sparse_name][0]
+        if torch.equal(sparse["image"], dense["image"]):
+            raise AssertionError(f"enc_topk = {ENC_TOPK} gave the dense request's image")
+
+        feats = spotter_features(model, lq)
+        captured_args = []
+        hook = transformer.enc_0.register_forward_pre_hook(
+            lambda mod, args: captured_args.append(args))
+        try:
+            for name in ("dense", sparse_name):
+                transformer.enc_topk = settings[name]
+                captured_args.clear()
+                with torch.no_grad():
+                    model.spotter_apply(feats)
+                memory, *rest = captured_args[-1]
+
+                def one_pass() -> float:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    with torch.no_grad():
+                        model.spotter_apply(feats)
+                    torch.cuda.synchronize()
+                    return time.perf_counter() - t
+
+                def encoder() -> float:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    m = memory
+                    with torch.no_grad():
+                        for i in range(transformer.num_encoder_layers):
+                            m = getattr(transformer, f"enc_{i}")(m, *rest)
+                    torch.cuda.synchronize()
+                    return time.perf_counter() - t
+
+                one_pass()
+                walls = [one_pass() for _ in range(5)]
+                whole = profiled(one_pass, watch=ENCODER_KERNELS, ops=ENCODER_OPS)
+                enc = profiled(encoder, watch=ENCODER_KERNELS, ops=ENCODER_OPS)
+                passes[name] = dict(
+                    selected_rows=settings[name] or s_tokens,
+                    wall_seconds_median_of_5=statistics.median(walls),
+                    pass_launches=whole["kernel_launches"],
+                    pass_device_seconds=whole["device_busy_seconds"],
+                    pass_device_seconds_of={**whole["watched"], **whole["ops"]},
+                    encoder_launches=enc["kernel_launches"],
+                    encoder_device_seconds=enc["device_busy_seconds"],
+                    encoder_device_seconds_of={**enc["watched"], **enc["ops"]},
+                    encoder_top_kernels=enc["top_kernels"][:12],
+                )
+        finally:
+            hook.remove()
+    finally:
+        transformer.enc_topk = 0
+
+    emit(
+        "enc_topk", steps=steps, tokens=s_tokens, enc_topk=ENC_TOPK, order=order,
+        seconds={name: [r["seconds"] for r in rs] for name, rs in runs.items()},
+        peak_memory_bytes={name: rs[0]["peak"] for name, rs in runs.items()},
+        launches_per_request=want, same_seed_same_image=True,
+        enc_topk_s_equals_dense=True, sparse_differs_from_dense=True,
+        k3_launches_by_rows={name: rs[0]["rows"] for name, rs in runs.items()},
+        sparse_against_dense=dict(
+            image_max_abs_diff=(sparse["image"].float() - dense["image"].float()).abs().max().item(),
+            image_mean_abs_diff=(sparse["image"].float() - dense["image"].float()).abs().mean().item(),
+            tokens_equal=bool(torch.equal(sparse["tokens"], dense["tokens"])),
+        ),
+        spotter_pass=passes, phase_seconds=time.perf_counter() - t_phase,
+    )
+    at_topk = sparse["rows"][ENC_TOPK]
+    return {**sparse["counts"],
+            "msda_corner_reduce_fwd": sparse["counts"]["msda_corner_reduce_fwd"] - at_topk,
+            f"msda_corner_reduce_fwd_nq{ENC_TOPK}": at_topk}
+
+
+def _tensors(sd: dict) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def phase_ckpt(seed: int) -> dict:
+    """The released checkpoints' path at full width: the default model from
+    seed + 1 (another seed than the 0 that convert_weights and ``val``'s
+    load_model start from, so that every equal tensor came through the files),
+    exported by the port's exporters into the reference's files (the SD-2.1
+    bundle as a Lightning .ckpt under state_dict with its three prefixes, the
+    ControlNet as a .pt, SwinIR as a .pth with ``module.``, TESTR as a
+    detectron2 .pkl under model and ``testr.``; float32, as released), turned
+    into one npz by ``python -m tair_tpu_torch.convert_weights`` as a user runs
+    it, and loaded on the card by ``val.load_model(..., ckpt=)`` with
+    configs/val.yaml. Checks: every tensor of the loaded model equals the
+    seeded model's bit for bit, and a fused SERVE_STEPS-step request at 512 x
+    512 gives the seeded model's image bit for bit at the same seed, with the
+    structure's launches. The files live in a temporary directory under build/,
+    removed at the end. Returns the loaded model's request's launches."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from tair_tpu_torch.config import load_config
+    from tair_tpu_torch.val import load_model
+    from tair_tpu_torch.weights import export as ex
+    from tair_tpu_torch.weights.convert import SD_BUNDLE_PREFIX, jax_param_shapes, to_jax_params
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="ckpt_", dir=root / "build"))
+    try:
+        model, lq = build_model(seed + 1)
+        t0 = time.perf_counter()
+        tree = to_jax_params(model.state_dict(), jax_param_shapes(model))
+        cldm = model.cldm
+        files = {"sd": work / "sd21-base-zsnr.ckpt", "controlnet": work / "DiffBIR_v2.1.pt",
+                 "swinir": work / "realesrgan_s4_swinir_100k.pth",
+                 "testr": work / "pretrain_testr_R50_polygon.pkl"}
+        sd = {}
+        for part, prefix in SD_BUNDLE_PREFIX.items():
+            sd.update(getattr(ex, f"export_{part}")(tree[part], getattr(cldm, part).cfg, prefix))
+        torch.save({"state_dict": _tensors(sd), "global_step": 0}, files["sd"])
+        del sd
+        torch.save(_tensors(ex.export_controlnet(tree["controlnet"], cldm.controlnet.cfg)),
+                   files["controlnet"])
+        swinir = ex.export_swinir(tree["swinir"], model.swinir.cfg)
+        torch.save(_tensors({f"module.{k}": v for k, v in swinir.items()}), files["swinir"])
+        with open(files["testr"], "wb") as f:
+            pickle.dump({"model": {k: np.ascontiguousarray(v) for k, v in
+                                   ex.export_testr(tree["testr"], model.testr.cfg).items()},
+                         "__author__": "chip_smoke"}, f)
+        del tree
+        write_seconds = time.perf_counter() - t0
+
+        npz = work / "tair.npz"
+        run = run_entry_point(
+            "tair_tpu_torch.convert_weights",
+            ["--out", str(npz), *(a for k, p in files.items() for a in (f"--{k}", str(p)))], work)
+        printed = run["stdout"].splitlines()
+        expect = [f"loaded SD bundle from {files['sd']}",
+                  f"loaded ControlNet from {files['controlnet']} (missing=0, unused=0)",
+                  f"loaded SwinIR from {files['swinir']} (missing=0)",
+                  f"loaded TESTR from {files['testr']} (missing=0)", f"wrote {npz}"]
+        if printed != expect:
+            raise AssertionError(f"convert_weights printed {printed}, expected {expect}")
+
+        cfg = load_config(str(serving_config(work / "serve.yaml")))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_model(cfg, lq.device, str(npz))
+        torch.cuda.synchronize()
+        load_seconds = time.perf_counter() - t0
+        want_state, got_state = model.state_dict(), loaded.state_dict()
+        if set(got_state) != set(want_state):
+            raise AssertionError("the loaded model's parameters are not the seeded model's")
+        differ = [k for k, v in want_state.items()
+                  if v.dtype != got_state[k].dtype or not torch.equal(v, got_state[k])]
+        if differ:
+            raise AssertionError(f"{len(differ)} tensors differ from the seeded model: {differ[:5]}")
+
+        image, tokens, seconds = restore_request(model, lq, seed, SERVE_STEPS)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        image_l, tokens_l, seconds_l = restore_request(loaded, lq, seed, SERVE_STEPS)
+        counts = {k: n for k, n in launch_counts().items() if n}
+        peak = torch.cuda.max_memory_allocated()
+        check_restored(image_l, tokens_l)
+        want = serving_launches(loaded, SERVE_STEPS, SERVE_STEPS)
+        if counts != want:
+            raise AssertionError(f"ckpt: launches {counts}, structure says {want}")
+        if not (torch.equal(image, image_l) and torch.equal(tokens, tokens_l)):
+            raise AssertionError("the converted weights' request differs from the seeded model's")
+        emit(
+            "ckpt", steps=SERVE_STEPS, files_bytes={k: p.stat().st_size for k, p in files.items()},
+            npz_bytes=npz.stat().st_size, write_seconds=write_seconds,
+            convert_seconds=run["seconds"], load_seconds=load_seconds,
+            tensors=len(want_state), tensors_equal=True, image_equal=True,
+            request_seconds=dict(seeded=seconds, converted=seconds_l),
+            peak_memory_bytes=peak, launches_per_request=want,
+            phase_seconds=time.perf_counter() - t_phase,
+        )
+        del model, loaded
+        return counts
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 # DiffBIRPipeline.run (phase diffbir): model passes of each sampler family in a
 # request of n steps without guidance (classifier-free guidance doubles them):
 # the multistep DPM-Solver++ evaluates its n + 1 nodes once each, the
@@ -2407,11 +2715,13 @@ def phase_profile(phase: str, run) -> None:
     emit(phase, **profiled(run))
 
 
-def profiled(run, watch=()) -> dict:
+def profiled(run, watch=(), ops=()) -> dict:
     """Device time by kernel over one call of `run` (which returns its wall
     seconds), from torch.profiler, and the device's idle share against the
     same call's time without the profiler. `watch` names kernels (by a part of
-    their name) whose device time and calls are reported whatever their rank."""
+    their name) whose device time and calls are reported whatever their rank;
+    `ops` names operators (``aten::...``) whose kernels' device time and
+    calls are reported."""
     from torch.profiler import ProfilerActivity, profile
 
     wall = run()
@@ -2419,9 +2729,10 @@ def profiled(run, watch=()) -> dict:
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True
     ) as prof:
         wall_profiled = run()
+    averages = prof.key_averages()
     rows = [
         (e.key, e.device_time_total / 1e6, e.count)
-        for e in prof.key_averages()
+        for e in averages
         if e.device_time_total > 0 and e.device_type.name == "CUDA"
         # a range such as "Optimizer.step#AdamW.step" repeats its kernels' time
         and not getattr(e, "is_user_annotation", False)
@@ -2439,6 +2750,10 @@ def profiled(run, watch=()) -> dict:
             w: dict(seconds=sum(s for n, s, _ in rows if w in n),
                     calls=sum(c for n, _, c in rows if w in n)) for w in watch
         }} if watch else {}),
+        **({"ops": {
+            o: dict(seconds=sum(e.device_time_total for e in averages if e.key == o) / 1e6,
+                    calls=sum(e.count for e in averages if e.key == o)) for o in ops
+        }} if ops else {}),
     )
 
 
@@ -2480,7 +2795,7 @@ def main() -> None:
         kernels = [
             *check_flash(rng, smi, args.steps),
             *check_flash_bwd(rng, smi),
-            check_msda(rng, smi, args.steps),
+            *check_msda(rng, smi, args.steps),
             check_msda_bwd(rng, smi),
             check_patchify(rng, smi, args.steps),
         ]
@@ -2492,7 +2807,8 @@ def main() -> None:
     host_syncs = None
     if "diffbir" in phases:
         path_launches["diffbir_reference"] = phase_diffbir_reference(args.seed)
-    if phases & {"restore", "restore_flatpatch", "layers", "diffbir", "val"} or args.profile_steps:
+    if phases & {"restore", "restore_flatpatch", "layers", "enc_topk", "diffbir", "val"} \
+            or args.profile_steps:
         model, lq = build_model(args.seed)
         if "restore" in phases:
             path_launches["restore"] = phase_restore(model, lq, args.seed, args.steps)
@@ -2502,6 +2818,8 @@ def main() -> None:
             )
         if "layers" in phases:
             phase_layers(model, lq, args.steps)
+        if "enc_topk" in phases:
+            path_launches["enc_topk"] = phase_enc_topk(model, lq, args.seed, SERVE_STEPS)
         if "diffbir" in phases:
             path_launches["diffbir"] = phase_diffbir(model, args.seed, SERVE_STEPS)
         if "val" in phases:
@@ -2513,6 +2831,8 @@ def main() -> None:
             phase_profile("profile", request)
         del model, lq
         torch.cuda.empty_cache()
+    if "ckpt" in phases:
+        path_launches["ckpt"] = phase_ckpt(args.seed)
     if "train_reference" in phases:
         path_launches["train_reference"] = phase_train_reference(args.seed)
     if "train" in phases:
@@ -2538,6 +2858,11 @@ def main() -> None:
             if entry["name"] in ("flash_attention_fwd_tc", "flash_attention_fwd_tc_wide",
                                  "msda_corner_reduce_fwd"):
                 entry["paths"] = (*entry["paths"], *(p for p in ENTRY_PHASES if p in phases))
+    for entry in kernels:
+        # the requests of phases ckpt and enc_topk run the serving path's kernels
+        if entry["name"] in ("flash_attention_fwd_tc", "flash_attention_fwd_tc_wide",
+                             "msda_corner_reduce_fwd"):
+            entry["paths"] = (*entry["paths"], *(p for p in ("enc_topk", "ckpt") if p in phases))
     if phases != set(PHASES):
         # a partial run is for development: it prints what it measured and no verdict
         print(json.dumps({"kernels": kernels, "launches": path_launches}), flush=True)

@@ -32,11 +32,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel launches made by the wrapper, one count per kernel (never raised by a
 # plain version): forward, backward
 launches = {"fwd": 0, "bwd": 0}
+# the forward's launches again, by query count NQ: which row counts a path ran
+fwd_launches_by_rows: dict = {}
 
 
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
+    fwd_launches_by_rows.clear()
 
 
 def msda_corner_reduce_plain(
@@ -134,6 +137,7 @@ def _launch(g, ws, k: int) -> torch.Tensor:
         )
     _raise_for(err, "fwd", g, lanes, k)
     launches["fwd"] += 1
+    fwd_launches_by_rows[nq] = fwd_launches_by_rows.get(nq, 0) + 1
     return out
 
 

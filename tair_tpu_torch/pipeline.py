@@ -417,26 +417,31 @@ def build_default_model(
     ``init_parameters`` is called. `training=True` gives the model the train
     step takes: float32 parameters (pass ``dtype=torch.float32``), in train
     mode; which of them a stage trains is set by ``train.step.make_optimizer``.
-    `testr_overrides`: ``TESTRConfig`` fields to change; a field the port's
-    config lacks raises."""
-    overrides = dict(testr_overrides or {})
-    unknown = sorted(set(overrides) - {f.name for f in dataclasses.fields(TESTRConfig)})
-    if unknown:
-        raise ValueError(f"testr_overrides names fields the port's TESTRConfig lacks: {unknown}")
+    `testr_overrides`: ``TESTRConfig`` fields to change (``enc_topk``...); a
+    field the port's config lacks raises."""
     return _assemble(
         dict(unet_cfg=UNetConfig(), vae_cfg=VAEConfig(), clip_cfg=CLIPTextConfig()),
         SwinIRConfig(),
-        TESTRConfig(**overrides),
+        _with_overrides(TESTRConfig(), testr_overrides),
         dtype,
         device,
         training,
     )
 
 
+def _with_overrides(cfg: TESTRConfig, overrides: Optional[dict]) -> TESTRConfig:
+    unknown = sorted(set(overrides or {}) - {f.name for f in dataclasses.fields(TESTRConfig)})
+    if unknown:
+        raise ValueError(f"testr_overrides names fields the port's TESTRConfig lacks: {unknown}")
+    return dataclasses.replace(cfg, **(overrides or {}))
+
+
 def build_tiny_model(
-    dtype: torch.dtype = torch.float32, device: Device = "cuda", training: bool = False
+    dtype: torch.dtype = torch.float32, device: Device = "cuda", training: bool = False,
+    testr_overrides: Optional[dict] = None,
 ) -> TeReDiff:
-    """Small geometry for tests: same topology, tiny widths."""
+    """Small geometry for tests: same topology, tiny widths; `testr_overrides`
+    as for `build_default_model`."""
     return _assemble(
         dict(
             unet_cfg=UNetConfig(model_channels=32, num_head_channels=16, context_dim=64),
@@ -444,16 +449,19 @@ def build_tiny_model(
             clip_cfg=CLIPTextConfig(width=64, heads=4, layers=3),
         ),
         SwinIRConfig(embed_dim=16, depths=(2,), num_heads=(2,), window_size=4, num_feat=8),
-        TESTRConfig(
-            d_model=32,
-            n_heads=4,
-            num_encoder_layers=1,
-            num_decoder_layers=2,
-            dim_feedforward=64,
-            num_proposals=10,
-            num_ctrl_points=16,
-            num_chars=25,
-            in_channels=(128, 128, 64, 32),
+        _with_overrides(
+            TESTRConfig(
+                d_model=32,
+                n_heads=4,
+                num_encoder_layers=1,
+                num_decoder_layers=2,
+                dim_feedforward=64,
+                num_proposals=10,
+                num_ctrl_points=16,
+                num_chars=25,
+                in_channels=(128, 128, 64, 32),
+            ),
+            testr_overrides,
         ),
         dtype,
         device,

@@ -45,6 +45,8 @@ class TESTRConfig:
     # encoder msda query block; 16384 leaves inference shapes unchunked, lower
     # it for large-batch training to bound what autograd saves
     enc_msda_q_chunk: int = 16384
+    # the sparse encoder update (DeformableTransformer.enc_topk): 0 = exact
+    enc_topk: int = 0
 
 
 class DiffFeatProj(nn.Module):
@@ -102,6 +104,7 @@ class TESTR(nn.Module):
             dec_n_points=cfg.dec_n_points,
             num_proposals=cfg.num_proposals,
             enc_msda_q_chunk=cfg.enc_msda_q_chunk,
+            enc_topk=cfg.enc_topk,
         )
         # heads shared across decoder layers
         self.ctrl_point_class = nn.Linear(c, 1)

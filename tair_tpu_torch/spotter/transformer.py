@@ -5,8 +5,8 @@ MSDeformAttn self-attention over the flattened multi-scale tokens, two-stage
 proposal generation with top-K selection, and a 6-layer composite decoder
 (location branch and factorized text branch). Feature maps are never padded,
 so valid-ratio bookkeeping is omitted; dropout is omitted. The sparse encoder
-update, sequence parallelism and rematerialisation of the JAX module are not
-part of this slice. Tokens are ``[B, S, C]`` throughout.
+update (``enc_topk``) is the JAX module's; its sequence parallelism and
+rematerialisation are not ported. Tokens are ``[B, S, C]`` throughout.
 """
 
 from __future__ import annotations
@@ -133,11 +133,30 @@ class EncoderLayer(nn.Module):
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
 
-    def forward(self, src, pos, reference_points, spatial_shapes):
-        src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes)
-        src = self.norm1(src + src2).to(src.dtype)
-        h = self.linear2(F.relu(self.linear1(src)))
-        return self.norm2(src + h).to(src.dtype)
+    def forward(self, src, pos, reference_points, spatial_shapes, sel_idx=None):
+        """`sel_idx` None: every token is updated. `sel_idx` [B, N] (ascending
+        token indices): the sparse update, in which only the selected tokens
+        are msda queries and go through the norms and the FFN; every token
+        stays a sampling source (the value is the layer's input `src`), and
+        every other token passes through unchanged."""
+        if sel_idx is None:
+            src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes)
+            src = self.norm1(src + src2).to(src.dtype)
+            h = self.linear2(F.relu(self.linear1(src)))
+            return self.norm2(src + h).to(src.dtype)
+
+        b, n = sel_idx.shape
+        rows = sel_idx[..., None].expand(b, n, src.shape[-1])
+        src_sel = src.gather(1, rows)
+        pos_sel = pos.expand(src.shape).gather(1, rows)
+        ref_sel = reference_points.gather(
+            1, sel_idx[:, :, None, None].expand((b, n) + reference_points.shape[2:])
+        )
+        src2 = self.self_attn(src_sel + pos_sel, ref_sel, src, spatial_shapes)
+        upd = self.norm1(src_sel + src2).to(src.dtype)
+        h = self.linear2(F.relu(self.linear1(upd)))
+        upd = self.norm2(upd + h).to(src.dtype)
+        return src.scatter(1, rows, upd)  # a new tensor: `src` is left as it was
 
 
 class CompositeDecoderLayer(nn.Module):
@@ -246,9 +265,17 @@ class DeformableTransformer(nn.Module):
         dec_n_points: int = 4,
         num_proposals: int = 100,
         enc_msda_q_chunk: int = 16384,
+        enc_topk: int = 0,
     ):
         super().__init__()
+        if enc_topk < 0:
+            raise ValueError(f"enc_topk must be 0 (off) or positive, got {enc_topk}")
         self.d_model = d_model
+        # the sparse encoder update (a serving knob; 0 = every token, the exact
+        # path): when 0 < enc_topk < S, each encoder layer updates only the
+        # enc_topk tokens that the two-stage objectness head scores highest on
+        # the encoder's input, so the msda gather's rows fall by S / enc_topk
+        self.enc_topk = enc_topk
         self.n_levels = n_levels
         self.num_encoder_layers = num_encoder_layers
         self.num_decoder_layers = num_decoder_layers
@@ -268,6 +295,20 @@ class DeformableTransformer(nn.Module):
             setattr(self, f"dec_{i}",
                     CompositeDecoderLayer(d_model, d_ffn, n_levels, n_heads, dec_n_points))
 
+    def select_tokens(self, src_flat: torch.Tensor, prop_valid: torch.Tensor) -> torch.Tensor:
+        """[B, enc_topk] ascending indices of the tokens with the highest
+        salience: the two-stage head (the same modules that score the final
+        memory) on the encoder's input, invalid proposals at -inf. Among equal
+        saliences the lower index wins, as in ``jax.lax.top_k``: a stable
+        descending sort, not ``torch.topk``, whose order of ties CUDA leaves
+        open. On the device, with no copy to the host."""
+        sal = self.bbox_class_embed(
+            self.enc_output_norm(self.enc_output(src_flat)).to(src_flat.dtype)
+        )[..., 0]
+        sal = sal.masked_fill(~prop_valid[None], -torch.inf)
+        order = torch.sort(sal, dim=1, descending=True, stable=True).indices
+        return order[:, : self.enc_topk].sort(dim=1).values
+
     def forward(self, srcs, pos_embeds, ctrl_point_embed, text_embed, text_pos_embed):
         spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
         b = srcs[0].shape[0]
@@ -286,9 +327,13 @@ class DeformableTransformer(nn.Module):
 
         prop_logit, prop_valid, ref = _grid_tensors(spatial_shapes, dev)
         ref = ref[None].expand(b, -1, -1, -1)
+        sel_idx = (
+            self.select_tokens(src_flat, prop_valid)
+            if 0 < self.enc_topk < src_flat.shape[1] else None
+        )
         memory = src_flat
         for i in range(self.num_encoder_layers):
-            memory = getattr(self, f"enc_{i}")(memory, pos_flat, ref, spatial_shapes)
+            memory = getattr(self, f"enc_{i}")(memory, pos_flat, ref, spatial_shapes, sel_idx)
 
         # two-stage proposals
         output_memory = torch.where(

@@ -101,17 +101,23 @@ def flat_items(tree, prefix: str = ""):
             yield path, node
 
 
-def save_params(path: str, model: torch.nn.Module, dtype=None) -> None:
-    """Weight-only export in the JAX package's npz layout. `dtype` casts
-    floating leaves before writing (float16 halves the size; bfloat16 does not
-    survive an npz round trip)."""
-    jax_tree = to_jax_params(model.state_dict(), jax_param_shapes(model))
+def save_tree(path: str, tree, dtype=None) -> None:
+    """A JAX-layout tree (nested dicts of numpy arrays) as an npz, one array
+    per leaf keyed by its ``/``-joined path. `dtype` casts floating leaves
+    before writing (float16 halves the size; bfloat16 does not survive an npz
+    round trip)."""
     arrays = {}
-    for key, arr in flat_items(jax_tree):
+    for key, arr in flat_items(tree):
         if dtype is not None and np.issubdtype(arr.dtype, np.floating):
             arr = arr.astype(dtype)
         arrays[key] = arr
     np.savez(path, **arrays)
+
+
+def save_params(path: str, model: torch.nn.Module, dtype=None) -> None:
+    """Weight-only export of `model` in the JAX package's npz layout
+    (`save_tree` of its JAX-layout tree)."""
+    save_tree(path, to_jax_params(model.state_dict(), jax_param_shapes(model)), dtype)
 
 
 def load_params(path: str, model: torch.nn.Module) -> torch.nn.Module:

@@ -14,9 +14,11 @@ Usage:
     python -m tair_tpu_torch.val --config configs/val_smoke.yaml --device cpu
 
 It runs on the CUDA device unless ``--device cpu`` is given, and raises when
-there is none. The weights are random from seed 0 unless ``--ckpt`` names a
-weight export in the JAX package's npz layout. Image i draws its noise from a
-``torch.Generator`` seeded with ``val.seed + i``. A config that names the
+there is none. The weights are random from seed 0 unless ``--ckpt`` names an
+npz in the JAX package's layout: ``python -m tair_tpu_torch.convert_weights``
+writes one from the released PyTorch checkpoints. ``--enc-topk N`` serves
+with the sparse spotter encoder update (``TESTRConfig.enc_topk``). Image i
+draws its noise from a ``torch.Generator`` seeded with ``val.seed + i``. A config that names the
 weights of a learned IQA metric (LPIPS, DISTS, CLIP-IQA, MANIQA, MUSIQ)
 raises: the port has none of them yet. Besides the files, each image prints
 one JSON line to stderr: its seconds (host clock, after a synchronise), the
@@ -38,7 +40,12 @@ UNPORTED_METRICS = ("lpips", "dists", "clipiqa", "maniqa", "musiq")
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m tair_tpu_torch.val")
     parser.add_argument("--config", required=True)
-    parser.add_argument("--ckpt", default=None, help="weight export (.npz, the JAX layout)")
+    parser.add_argument(
+        "--ckpt", default=None,
+        help="weights as an .npz in the JAX layout: written by `python -m "
+             "tair_tpu_torch.convert_weights` from the released checkpoints, or by a "
+             "weight export of either package",
+    )
     parser.add_argument("--steps", type=int, default=None)
     parser.add_argument("--image-size", type=int, default=512)
     parser.add_argument(
@@ -52,7 +59,7 @@ def _parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--enc-topk", type=int, default=None,
-        help="sparse spotter encoder top-K (not in the port yet: raises)",
+        help="sparse spotter encoder top-K (0 or unset: every token, the exact path)",
     )
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="cuda (the default; raises without a card) or cpu")
@@ -84,7 +91,8 @@ def load_model(cfg, device, ckpt=None):
         if os.path.isdir(ckpt):
             raise NotImplementedError(
                 f"{ckpt} is a directory (an orbax checkpoint): the port reads weight "
-                "exports (.npz) only"
+                "exports (.npz) only; the JAX package's train/checkpoint.py::save_params "
+                "writes one from it"
             )
         load_params(ckpt, model)
         print(f"loaded weights from {ckpt}", flush=True)

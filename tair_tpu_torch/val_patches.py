@@ -43,7 +43,7 @@ def _parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--enc-topk", type=int, default=None,
-        help="sparse spotter encoder top-K (not in the port yet: raises)",
+        help="sparse spotter encoder top-K (0 or unset: every token, the exact path)",
     )
     parser.add_argument(
         "--dump-dir", default=None,

@@ -1,4 +1,5 @@
-"""JAX parameter tree -> ``state_dict`` of the port's ``TeReDiff``.
+"""JAX parameter tree -> ``state_dict`` of the port's ``TeReDiff``; and the
+released PyTorch checkpoints -> JAX parameter trees.
 
 The port's modules are named after the JAX parameter tree, so the mapping is a
 rule per leaf rather than a table per model:
@@ -21,6 +22,12 @@ any parameter of the port that no leaf filled. ``to_jax_tree`` and
 ``to_jax_params`` go the other way, given a tree of the JAX shapes, so that
 parameters or gradients of the port can be held against the JAX package's leaf
 by leaf.
+
+The readers of the released checkpoints (``load_torch_file``, ``convert_*``,
+``load_pretrained_sd_bundle``, ``_cast_like``, at the end of the file) give
+trees in the same JAX layout, so they reach the port's modules through
+`from_jax_params` or an npz in the JAX layout, and the rules above stay the
+only layout rules.
 """
 
 from __future__ import annotations
@@ -294,3 +301,618 @@ def module_param_shapes(module: torch.nn.Module) -> Dict[str, Any]:
     `convert_tree`; cleaners are not parts of the bundle, so `BUNDLE_KEYS` and
     `from_jax_params` do not name them."""
     return _shapes_of(module, [("", "")]).get("", {})
+
+
+# --------------------------------------------------------------------------
+# Reading the released PyTorch checkpoints
+#
+# The reference's files name their tensors after the reference's modules
+# (``input_blocks.1.0.in_layers.2.weight``, ``transformer.resblocks.3.attn
+# .in_proj_weight`` ...). The tables below say which reference tensor feeds
+# which leaf of the JAX-layout tree; the tree then reaches the port's modules
+# through `from_jax_params` (or an npz in the JAX layout), so the layout rules
+# of `_convert_leaf` stay the only ones. The tables are those of the JAX
+# package's ``weights/convert.py``, kept here so that the port needs no JAX.
+#
+# Each table is written once, as a function ``_<part>_table(out, r, cfg)``
+# whose every step is `_move` (or `_mha`). A `Reader` over a checkpoint runs
+# it forwards (``convert_<part>``: reference tensors -> leaves of `out`); a
+# `Reader` made with ``export=True`` runs it backwards (``weights/export.py``:
+# the leaves of the tree `out` -> reference tensors).
+# --------------------------------------------------------------------------
+
+Params = Dict[str, Any]
+TorchDict = Dict[str, np.ndarray]
+
+
+def t_conv(w: np.ndarray) -> np.ndarray:
+    """Convolution kernel, PyTorch [O, I, kh, kw] -> JAX [kh, kw, I, O]."""
+    return np.transpose(w, (2, 3, 1, 0))
+
+
+def t_conv_inv(w: np.ndarray) -> np.ndarray:
+    """JAX [kh, kw, I, O] -> PyTorch [O, I, kh, kw]."""
+    return np.transpose(w, (3, 2, 0, 1))
+
+
+def t_lin(w: np.ndarray) -> np.ndarray:
+    """Dense kernel, PyTorch [out, in] <-> JAX [in, out]."""
+    return np.transpose(w)
+
+
+def _same(w: np.ndarray) -> np.ndarray:
+    return w
+
+
+def _set(tree: Params, path: str, value: np.ndarray) -> None:
+    parts = path.split("/")
+    node = tree
+    for p in parts[:-1]:
+        node = node.setdefault(p, {})
+    node[parts[-1]] = np.asarray(value)
+
+
+def _get(tree: Mapping[str, Any], path: str) -> np.ndarray:
+    node = tree
+    for p in path.split("/"):
+        node = node[p]
+    return np.asarray(node)
+
+
+def _has(tree: Mapping[str, Any], path: str) -> bool:
+    node = tree
+    for p in path.split("/"):
+        if not isinstance(node, Mapping) or p not in node:
+            return False
+        node = node[p]
+    return True
+
+
+class Reader:
+    """Reads the tensors of a checkpoint under `prefix` and records which it
+    read (`used`) and which a table asked for but the file lacks
+    (`missing`); `unused()` is what the file holds under `prefix` that no
+    table read. With ``export=True`` a table runs backwards through it: `sd`
+    receives, under `prefix`, each reference tensor that the tree's leaves
+    give (`put`)."""
+
+    def __init__(self, sd: TorchDict, prefix: str = "", export: bool = False):
+        self.sd = sd
+        self.prefix = prefix
+        self.export = export
+        self.used: set = set()
+        self.missing: set = set()
+
+    def __call__(self, key: str) -> np.ndarray:
+        full = self.prefix + key
+        if full not in self.sd:
+            self.missing.add(full)
+            raise KeyError(full)
+        self.used.add(full)
+        return np.asarray(self.sd[full])
+
+    def put(self, key: str, value: np.ndarray) -> None:
+        self.sd[self.prefix + key] = value
+
+    def has(self, key: str) -> bool:
+        return self.prefix + key in self.sd
+
+    def unused(self) -> set:
+        return {k for k in self.sd if k.startswith(self.prefix)} - self.used
+
+
+def _move(out: Params, dst: str, r: Reader, src: str, fwd=_same, inv=_same) -> None:
+    """The step of every table: the reference tensor `src` (a name under the
+    reader's prefix) is the leaf `dst` of `out` after `fwd`. Run backwards
+    (``r.export``), `out` is the tree read and ``inv(leaf)`` goes to `src`."""
+    if r.export:
+        r.put(src, inv(_get(out, dst)))
+    else:
+        _set(out, dst, fwd(r(src)))
+
+
+def _present(out: Params, dst: str, r: Reader, src: str) -> bool:
+    """Whether an optional module is there: the tensor `src` in the checkpoint
+    read, the subtree `dst` in the tree exported."""
+    return _has(out, dst) if r.export else r.has(src)
+
+
+def _conv(out: Params, dst: str, r: Reader, src: str, bias: bool = True) -> None:
+    _move(out, f"{dst}/kernel", r, f"{src}.weight", t_conv, t_conv_inv)
+    if bias:
+        _move(out, f"{dst}/bias", r, f"{src}.bias")
+
+
+def _lin(out: Params, dst: str, r: Reader, src: str, bias: bool = True) -> None:
+    _move(out, f"{dst}/kernel", r, f"{src}.weight", t_lin, t_lin)
+    if bias:
+        _move(out, f"{dst}/bias", r, f"{src}.bias")
+
+
+def _norm(out: Params, dst: str, r: Reader, src: str) -> None:
+    _move(out, f"{dst}/scale", r, f"{src}.weight")
+    _move(out, f"{dst}/bias", r, f"{src}.bias")
+
+
+def _gn32(out: Params, dst: str, r: Reader, src: str) -> None:
+    # the float32 GroupNorm wrapper holds its norm as a module named GroupNorm_0
+    _norm(out, f"{dst}/GroupNorm_0", r, src)
+
+
+_QKV = ("query", "key", "value")
+
+
+def _mha(out: Params, dst: str, r: Reader, src: str, heads: int) -> None:
+    """``nn.MultiheadAttention`` (packed ``in_proj``) -> per-head query, key,
+    value kernels [C, heads, C/heads] and the output kernel [heads, C/heads, C]."""
+    if r.export:
+        kernels = [_get(out, f"{dst}/{n}/kernel") for n in _QKV]  # [C, heads, hd]
+        c = kernels[0].shape[0]
+        r.put(f"{src}.in_proj_weight", np.concatenate([t_lin(k.reshape(c, c)) for k in kernels]))
+        r.put(f"{src}.in_proj_bias",
+              np.concatenate([_get(out, f"{dst}/{n}/bias").reshape(c) for n in _QKV]))
+    else:
+        w = r(f"{src}.in_proj_weight")  # [3C, C]
+        b = r(f"{src}.in_proj_bias")
+        c = w.shape[1]
+        for i, name in enumerate(_QKV):
+            kw = t_lin(w[i * c : (i + 1) * c])  # [C, C] (in, out)
+            _set(out, f"{dst}/{name}/kernel", kw.reshape(c, heads, c // heads))
+            _set(out, f"{dst}/{name}/bias", b[i * c : (i + 1) * c].reshape(heads, c // heads))
+    _move(out, f"{dst}/out/kernel", r, f"{src}.out_proj.weight",  # [C, C] (out, in)
+          lambda w: t_lin(w).reshape(heads, -1, w.shape[0]),
+          lambda k: t_lin(k.reshape(-1, k.shape[-1])))
+    _move(out, f"{dst}/out/bias", r, f"{src}.out_proj.bias")
+
+
+def _resblock(out: Params, dst: str, r: Reader, src: str) -> None:
+    _gn32(out, f"{dst}/in_norm", r, f"{src}.in_layers.0")
+    _conv(out, f"{dst}/in_conv", r, f"{src}.in_layers.2")
+    _lin(out, f"{dst}/emb_proj", r, f"{src}.emb_layers.1")
+    _gn32(out, f"{dst}/out_norm", r, f"{src}.out_layers.0")
+    _conv(out, f"{dst}/out_conv", r, f"{src}.out_layers.3")
+    if _present(out, f"{dst}/skip", r, f"{src}.skip_connection.weight"):
+        _conv(out, f"{dst}/skip", r, f"{src}.skip_connection")
+
+
+def _spatial_transformer(out: Params, dst: str, r: Reader, src: str, depth: int = 1):
+    _gn32(out, f"{dst}/norm", r, f"{src}.norm")
+    _lin(out, f"{dst}/proj_in", r, f"{src}.proj_in")
+    for d in range(depth):
+        blk_src = f"{src}.transformer_blocks.{d}"
+        blk = f"{dst}/block_{d}"
+        for attn in ("attn1", "attn2"):
+            for n in ("to_q", "to_k", "to_v"):
+                _lin(out, f"{blk}/{attn}/{n}", r, f"{blk_src}.{attn}.{n}", bias=False)
+            _lin(out, f"{blk}/{attn}/to_out", r, f"{blk_src}.{attn}.to_out.0")
+        for i in (1, 2, 3):
+            _norm(out, f"{blk}/norm{i}", r, f"{blk_src}.norm{i}")
+        _lin(out, f"{blk}/ff/geglu/proj", r, f"{blk_src}.ff.net.0.proj")
+        _lin(out, f"{blk}/ff/out", r, f"{blk_src}.ff.net.2")
+    _lin(out, f"{dst}/proj_out", r, f"{src}.proj_out")
+
+
+def _read(table, sd: TorchDict, cfg, prefix: str) -> Tuple[Params, Reader]:
+    r = Reader(sd, prefix)
+    out: Params = {}
+    table(out, r, cfg)
+    return out, r
+
+
+def _unet_encoder(out: Params, r: Reader, cfg, zero_convs: bool) -> None:
+    """The time embedding and input blocks shared by the UNet and the
+    ControlNet (whose every input block also has a zero convolution)."""
+    from ..models.unet import _encoder_plan
+
+    _lin(out, "time_embed/fc1", r, "time_embed.0")
+    _lin(out, "time_embed/fc2", r, "time_embed.2")
+    _conv(out, "in_conv", r, "input_blocks.0.0")
+    for i, (kind, _ch, attn) in enumerate(_encoder_plan(cfg)):
+        src = f"input_blocks.{i}"
+        if kind == "down":
+            _conv(out, f"in_{i}/conv", r, f"{src}.0.op")
+        elif kind != "conv":
+            _resblock(out, f"in_{i}/res", r, f"{src}.0")
+            if attn:
+                _spatial_transformer(out, f"in_{i}/attn", r, f"{src}.1",
+                                     cfg.transformer_depth)
+        if zero_convs:
+            _conv(out, f"zero_{i}", r, f"zero_convs.{i}.0")
+    _resblock(out, "middle/res1", r, "middle_block.0")
+    _spatial_transformer(out, "middle/attn", r, "middle_block.1", cfg.transformer_depth)
+    _resblock(out, "middle/res2", r, "middle_block.2")
+
+
+def _unet_table(out: Params, r: Reader, cfg) -> None:
+    from ..models.unet import _decoder_plan
+
+    _unet_encoder(out, r, cfg, zero_convs=False)
+    for i, (_ch, attn, upsample) in enumerate(_decoder_plan(cfg)):
+        src = f"output_blocks.{i}"
+        _resblock(out, f"out_{i}/res", r, f"{src}.0")
+        layer = 1
+        if attn:
+            _spatial_transformer(out, f"out_{i}/attn", r, f"{src}.{layer}",
+                                 cfg.transformer_depth)
+            layer += 1
+        if upsample:
+            _conv(out, f"out_{i}/up/conv", r, f"{src}.{layer}.conv")
+    _gn32(out, "out_norm", r, "out.0")
+    _conv(out, "out_conv", r, "out.2")
+
+
+def convert_unet(sd: TorchDict, cfg, prefix: str = "") -> Tuple[Params, Reader]:
+    """SD-2.1 ``UNetModel`` tensors under `prefix` -> the UNet's JAX tree."""
+    return _read(_unet_table, sd, cfg, prefix)
+
+
+def _controlnet_table(out: Params, r: Reader, cfg) -> None:
+    _unet_encoder(out, r, cfg, zero_convs=True)
+    _conv(out, "middle_out", r, "middle_block_out.0")
+
+
+def convert_controlnet(sd: TorchDict, cfg, prefix: str = "") -> Tuple[Params, Reader]:
+    """DiffBIR's ControlNet checkpoint -> the ControlNet's JAX tree."""
+    return _read(_controlnet_table, sd, cfg, prefix)
+
+
+def _copy_tree(tree: Mapping[str, Any]) -> Params:
+    return {k: _copy_tree(v) if isinstance(v, Mapping) else v for k, v in tree.items()}
+
+
+def controlnet_from_unet(unet_params: Params, controlnet_params: Params) -> Params:
+    """The ControlNet started from the UNet's weights: every leaf the two
+    share by name and shape is copied; the input convolution, which also reads
+    the hint, gets the UNet's kernel with its extra input channels zero.
+    The zero convolutions keep the values of `controlnet_params`."""
+    out = _copy_tree(controlnet_params)
+
+    def walk(src, dst):
+        for k, v in src.items():
+            if k not in dst:
+                continue
+            if isinstance(v, Mapping):
+                walk(v, dst[k])
+                continue
+            s, d = np.asarray(v), np.asarray(dst[k])
+            if s.shape == d.shape:
+                dst[k] = s
+            elif s.ndim == 4 and d.ndim == 4 and s.shape[:2] == d.shape[:2]:
+                pad = np.zeros(s.shape[:2] + (d.shape[2] - s.shape[2], s.shape[3]), s.dtype)
+                dst[k] = np.concatenate([s, pad], axis=2)
+
+    walk(unet_params, out)
+    return out
+
+
+def _vae_resblock(out, dst, r, src):
+    _gn32(out, f"{dst}/norm1", r, f"{src}.norm1")
+    _conv(out, f"{dst}/conv1", r, f"{src}.conv1")
+    _gn32(out, f"{dst}/norm2", r, f"{src}.norm2")
+    _conv(out, f"{dst}/conv2", r, f"{src}.conv2")
+    if _present(out, f"{dst}/nin_shortcut", r, f"{src}.nin_shortcut.weight"):
+        _conv(out, f"{dst}/nin_shortcut", r, f"{src}.nin_shortcut")
+
+
+def _vae_attn(out, dst, r, src):
+    _gn32(out, f"{dst}/norm", r, f"{src}.norm")
+    for n in ("q", "k", "v", "proj_out"):
+        _conv(out, f"{dst}/{n}", r, f"{src}.{n}")
+
+
+def _vae_table(out: Params, r: Reader, cfg) -> None:
+    enc, dec = out.setdefault("encoder", {}), out.setdefault("decoder", {})
+    levels = len(cfg.ch_mult)
+
+    _conv(enc, "conv_in", r, "encoder.conv_in")
+    for lvl in range(levels):
+        for i in range(cfg.num_res_blocks):
+            _vae_resblock(enc, f"down_{lvl}_block_{i}", r, f"encoder.down.{lvl}.block.{i}")
+        if lvl != levels - 1:
+            _conv(enc, f"down_{lvl}_downsample", r, f"encoder.down.{lvl}.downsample.conv")
+    _vae_resblock(enc, "mid_block_1", r, "encoder.mid.block_1")
+    _vae_attn(enc, "mid_attn", r, "encoder.mid.attn_1")
+    _vae_resblock(enc, "mid_block_2", r, "encoder.mid.block_2")
+    _gn32(enc, "norm_out", r, "encoder.norm_out")
+    _conv(enc, "conv_out", r, "encoder.conv_out")
+
+    _conv(dec, "conv_in", r, "decoder.conv_in")
+    _vae_resblock(dec, "mid_block_1", r, "decoder.mid.block_1")
+    _vae_attn(dec, "mid_attn", r, "decoder.mid.attn_1")
+    _vae_resblock(dec, "mid_block_2", r, "decoder.mid.block_2")
+    for lvl in range(levels):
+        for i in range(cfg.num_res_blocks + 1):
+            _vae_resblock(dec, f"up_{lvl}_block_{i}", r, f"decoder.up.{lvl}.block.{i}")
+        if lvl != 0:
+            _conv(dec, f"up_{lvl}_upsample", r, f"decoder.up.{lvl}.upsample.conv")
+    _gn32(dec, "norm_out", r, "decoder.norm_out")
+    _conv(dec, "conv_out", r, "decoder.conv_out")
+
+    _conv(out, "quant_conv", r, "quant_conv")
+    _conv(out, "post_quant_conv", r, "post_quant_conv")
+
+
+def convert_vae(sd: TorchDict, cfg, prefix: str = "") -> Tuple[Params, Reader]:
+    """SD's ``first_stage_model`` (``AutoencoderKL``) -> the VAE's JAX tree."""
+    return _read(_vae_table, sd, cfg, prefix)
+
+
+def _clip_table(out: Params, r: Reader, cfg) -> None:
+    _move(out, "token_embedding/embedding", r, "token_embedding.weight")
+    _move(out, "positional_embedding", r, "positional_embedding")
+    n_blocks = cfg.layers - (1 if cfg.layer == "penultimate" else 0)
+    for i in range(n_blocks):
+        src, dst = f"transformer.resblocks.{i}", f"block_{i}"
+        _norm(out, f"{dst}/ln_1", r, f"{src}.ln_1")
+        _norm(out, f"{dst}/ln_2", r, f"{src}.ln_2")
+        _mha(out, f"{dst}/attn", r, f"{src}.attn", cfg.heads)
+        _lin(out, f"{dst}/mlp_fc", r, f"{src}.mlp.c_fc")
+        _lin(out, f"{dst}/mlp_proj", r, f"{src}.mlp.c_proj")
+    _norm(out, "ln_final", r, "ln_final")
+
+
+def convert_clip(sd: TorchDict, cfg, prefix: str = "") -> Tuple[Params, Reader]:
+    """open_clip's text branch (``token_embedding``, ``positional_embedding``,
+    ``transformer.resblocks.N``, ``ln_final``) -> the CLIP tower's JAX tree;
+    the blocks past the one the tower stops at are left unused."""
+    return _read(_clip_table, sd, cfg, prefix)
+
+
+def _strip_module(sd: TorchDict) -> TorchDict:
+    """Drop the ``module.`` that a checkpoint saved from ``DataParallel`` puts
+    before every name."""
+    return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+
+
+# SwinIR's upsampling convolutions by scale factor
+SWINIR_UPSAMPLERS = {2: ("conv_up1",), 4: ("conv_up1", "conv_up2"),
+                     8: ("conv_up1", "conv_up2", "conv_up3")}
+
+
+def _swinir_table(out: Params, r: Reader, cfg) -> None:
+    _conv(out, "conv_first", r, "conv_first.1" if cfg.unshuffle else "conv_first")
+    _norm(out, "patch_norm", r, "patch_embed.norm")
+    for li, depth in enumerate(cfg.depths):
+        for bi in range(depth):
+            src = f"layers.{li}.residual_group.blocks.{bi}"
+            dst = f"layer_{li}/block_{bi}"
+            _norm(out, f"{dst}/norm1", r, f"{src}.norm1")
+            _norm(out, f"{dst}/norm2", r, f"{src}.norm2")
+            _lin(out, f"{dst}/attn/qkv", r, f"{src}.attn.qkv")
+            _lin(out, f"{dst}/attn/proj", r, f"{src}.attn.proj")
+            _move(out, f"{dst}/attn/rel_pos_bias_table", r,
+                  f"{src}.attn.relative_position_bias_table")
+            _lin(out, f"{dst}/mlp_fc1", r, f"{src}.mlp.fc1")
+            _lin(out, f"{dst}/mlp_fc2", r, f"{src}.mlp.fc2")
+        _conv(out, f"layer_{li}/conv", r, f"layers.{li}.conv")
+    _norm(out, "norm", r, "norm")
+    _conv(out, "conv_after_body", r, "conv_after_body")
+    _conv(out, "conv_before_upsample", r, "conv_before_upsample.0")
+    for name in SWINIR_UPSAMPLERS[cfg.sf]:
+        _conv(out, name, r, name)
+    _conv(out, "conv_hr", r, "conv_hr")
+    _conv(out, "conv_last", r, "conv_last")
+
+
+def convert_swinir(sd: TorchDict, cfg, prefix: str = "") -> Tuple[Params, Reader]:
+    """Real-ESRGAN's SwinIR (``module.`` stripped; the first convolution is
+    ``conv_first.1`` after a pixel unshuffle) -> the cleaner's JAX tree."""
+    return _read(_swinir_table, _strip_module(sd), cfg, prefix)
+
+
+def _bsrnet_table(out: Params, r: Reader, cfg) -> None:
+    _conv(out, "conv_first", r, "conv_first")
+    for i in range(cfg.nb):
+        for j in range(3):
+            for k in range(5):
+                _conv(out, f"rrdb_{i}/rdb{j + 1}/conv{k + 1}", r,
+                      f"RRDB_trunk.{i}.RDB{j + 1}.conv{k + 1}")
+    _conv(out, "trunk_conv", r, "trunk_conv")
+    _conv(out, "upconv1", r, "upconv1")
+    if cfg.sf == 4:
+        _conv(out, "upconv2", r, "upconv2")
+    _conv(out, "hr_conv", r, "HRconv")
+    _conv(out, "conv_last", r, "conv_last")
+
+
+def convert_bsrnet(sd: TorchDict, cfg, prefix: str = "") -> Tuple[Params, Reader]:
+    """BSRNet / BSRGAN ``RRDBNet`` (``conv_first``, ``RRDB_trunk.N.RDBM.convK``,
+    ``trunk_conv``, ``upconv1/2``, ``HRconv``, ``conv_last``) -> its JAX tree."""
+    return _read(_bsrnet_table, _strip_module(sd), cfg, prefix)
+
+
+def _rel_table(rel: np.ndarray) -> np.ndarray:
+    """SCUNet's relative bias [heads, 2w-1, 2w-1] -> the [(2w-1)^2, heads] table."""
+    return np.transpose(rel, (1, 2, 0)).reshape(-1, rel.shape[0])
+
+
+def _rel_table_inv(table: np.ndarray) -> np.ndarray:
+    side = int(round(np.sqrt(table.shape[0])))
+    return table.reshape(side, side, -1).transpose(2, 0, 1)
+
+
+def _scunet_table(out: Params, r: Reader, cfg) -> None:
+    def swin_block(dst, src):
+        t = f"{src}.trans_block"
+        _norm(out, f"{dst}/trans/norm1", r, f"{t}.ln1")
+        _norm(out, f"{dst}/trans/norm2", r, f"{t}.ln2")
+        _lin(out, f"{dst}/trans/attn/qkv", r, f"{t}.msa.embedding_layer")
+        _lin(out, f"{dst}/trans/attn/proj", r, f"{t}.msa.linear")
+        _move(out, f"{dst}/trans/attn/rel_pos_bias_table", r,
+              f"{t}.msa.relative_position_params", _rel_table, _rel_table_inv)
+        _lin(out, f"{dst}/trans/mlp_fc1", r, f"{t}.mlp.0")
+        _lin(out, f"{dst}/trans/mlp_fc2", r, f"{t}.mlp.2")
+        _conv(out, f"{dst}/conv1_1", r, f"{src}.conv1_1")
+        _conv(out, f"{dst}/conv1_2", r, f"{src}.conv1_2")
+        _conv(out, f"{dst}/cb1", r, f"{src}.conv_block.0", bias=False)
+        _conv(out, f"{dst}/cb2", r, f"{src}.conv_block.2", bias=False)
+
+    # the convolutions without a bias; a transposed convolution's [in, out,
+    # kh, kw] becomes [kh, kw, out, in] by the same transpose
+    n = cfg.config
+    _conv(out, "head", r, "m_head.0", bias=False)
+    for stage, blocks in (("down1", n[0]), ("down2", n[1]), ("down3", n[2])):
+        for i in range(blocks):
+            swin_block(f"{stage}_{i}", f"m_{stage}.{i}")
+        _conv(out, f"{stage}_conv", r, f"m_{stage}.{blocks}", bias=False)
+    for i in range(n[3]):
+        swin_block(f"body_{i}", f"m_body.{i}")
+    for stage, blocks in (("up3", n[4]), ("up2", n[5]), ("up1", n[6])):
+        _conv(out, f"{stage}_conv", r, f"m_{stage}.0", bias=False)
+        for i in range(blocks):
+            swin_block(f"{stage}_{i}", f"m_{stage}.{i + 1}")
+    _conv(out, "tail", r, "m_tail.0", bias=False)
+
+
+def convert_scunet(sd: TorchDict, cfg, prefix: str = "") -> Tuple[Params, Reader]:
+    """SCUNet denoiser (``m_head.0``, ``m_{down,up}N`` / ``m_body`` blocks of
+    ``ConvTransBlock``, ``m_tail.0``) -> its JAX tree. The window attention's
+    relative bias is stored [heads, 2w-1, 2w-1] and becomes the [(2w-1)^2,
+    heads] table."""
+    return _read(_scunet_table, _strip_module(sd), cfg, prefix)
+
+
+def _msda(out: Params, dst: str, r: Reader, src: str) -> None:
+    for n in ("sampling_offsets", "attention_weights", "value_proj", "output_proj"):
+        _lin(out, f"{dst}/{n}", r, f"{src}.{n}")
+
+
+# the norms, dense layers and attentions of one TESTR decoder layer
+_DEC_NORMS = ("norm_intra", "norm_inter", "norm_cross", "norm3", "norm_intra_text",
+              "norm_inter_text", "norm_cross_text", "norm3_text")
+_DEC_LINEARS = ("linear1", "linear2", "linear1_text", "linear2_text")
+_DEC_MHAS = ("attn_intra", "attn_inter", "attn_intra_text", "attn_inter_text")
+
+
+def _testr_table(out: Params, r: Reader, cfg) -> None:
+    for i in range(len(cfg.in_channels)):
+        src, dst = f"diff_feat_proj.{i}", f"diff_feat_proj_{i}"
+        _conv(out, f"{dst}/conv1", r, f"{src}.0")
+        _norm(out, f"{dst}/gn1", r, f"{src}.1")
+        _conv(out, f"{dst}/conv2", r, f"{src}.3")
+        _norm(out, f"{dst}/gn2", r, f"{src}.4")
+
+    _move(out, "ctrl_point_embed", r, "ctrl_point_embed.weight")
+    _move(out, "text_embed", r, "text_embed.weight")
+    # the heads are shared across decoder layers; the file stores one copy at 0
+    _lin(out, "ctrl_point_class", r, "ctrl_point_class.0")
+    for i in range(3):
+        _lin(out, f"ctrl_point_coord/fc{i}", r, f"ctrl_point_coord.0.layers.{i}")
+    _lin(out, "text_class", r, "text_class")
+
+    t = "transformer/"
+    _move(out, t + "level_embed", r, "transformer.level_embed")
+    _lin(out, t + "enc_output", r, "transformer.enc_output")
+    _norm(out, t + "enc_output_norm", r, "transformer.enc_output_norm")
+    _lin(out, t + "pos_trans", r, "transformer.pos_trans")
+    _norm(out, t + "pos_trans_norm", r, "transformer.pos_trans_norm")
+    _lin(out, t + "bbox_class_embed", r, "bbox_class")
+    for i in range(3):
+        _lin(out, t + f"bbox_embed/fc{i}", r, f"bbox_coord.layers.{i}")
+
+    for i in range(cfg.num_encoder_layers):
+        src, dst = f"transformer.encoder.layers.{i}", t + f"enc_{i}"
+        _msda(out, f"{dst}/self_attn", r, f"{src}.self_attn")
+        _norm(out, f"{dst}/norm1", r, f"{src}.norm1")
+        _norm(out, f"{dst}/norm2", r, f"{src}.norm2")
+        _lin(out, f"{dst}/linear1", r, f"{src}.linear1")
+        _lin(out, f"{dst}/linear2", r, f"{src}.linear2")
+
+    for i in range(cfg.num_decoder_layers):
+        src, dst = f"transformer.decoder.layers.{i}", t + f"dec_{i}"
+        _msda(out, f"{dst}/attn_cross", r, f"{src}.attn_cross")
+        _msda(out, f"{dst}/attn_cross_text", r, f"{src}.attn_cross_text")
+        for n in _DEC_MHAS:
+            _mha(out, f"{dst}/{n}", r, f"{src}.{n}", cfg.n_heads)
+        for n in _DEC_NORMS:
+            _norm(out, f"{dst}/{n}", r, f"{src}.{n}")
+        for n in _DEC_LINEARS:
+            _lin(out, f"{dst}/{n}", r, f"{src}.{n}")
+
+
+def convert_testr(sd: TorchDict, cfg, prefix: str = "testr.") -> Tuple[Params, Reader]:
+    """TESTR's detectron2 checkpoint (``model`` of the ``.pkl``, names under
+    `prefix`) -> the spotter's JAX tree. A non-strict load: the backbone's
+    tensors stay unused and a leaf the file lacks keeps its init."""
+    return _read(_testr_table, sd, cfg, prefix)
+
+
+def _to_numpy(value) -> np.ndarray:
+    if isinstance(value, torch.Tensor):
+        value = value.detach()
+        # numpy has no bfloat16: widen it (exactly); `_cast_like` then casts to
+        # the dtype of the tree the values go into
+        if value.dtype == torch.bfloat16:
+            value = value.float()
+        return value.numpy()
+    return np.asarray(value)
+
+
+def load_torch_file(path: str) -> TorchDict:
+    """A checkpoint as {name: numpy array}: a PyTorch ``.pt`` / ``.pth`` /
+    ``.ckpt`` file, or a detectron2 ``.pkl`` (a pickled dict of numpy arrays,
+    read with ``encoding="latin1"``). A dict under ``state_dict`` (Lightning)
+    is taken first, then one under ``model`` when no other key starts with
+    ``model.`` (detectron2, ``torch.save({"model": ...})``).
+
+    PyTorch files are read with ``torch.load(weights_only=False)``: Lightning
+    checkpoints pickle objects besides tensors (hyper-parameters, callback
+    state), which the safe loader refuses. Unpickling runs code the file
+    names, so read only checkpoints from a source you trust. bfloat16 tensors
+    are read as float32."""
+    if path.endswith(".pkl"):
+        import pickle
+
+        with open(path, "rb") as f:
+            sd = pickle.load(f, encoding="latin1")
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    if isinstance(sd, dict) and "model" in sd and all(
+        not k.startswith("model.") for k in sd if k != "model"
+    ):
+        sd = sd["model"]
+    return {k: _to_numpy(v) for k, v in sd.items()}
+
+
+# where each part of the SD-2.1 bundle lives in its checkpoint
+SD_BUNDLE_PREFIX = {
+    "unet": "model.diffusion_model.",
+    "vae": "first_stage_model.",
+    "clip": "cond_stage_model.model.",
+}
+
+
+def load_pretrained_sd_bundle(params: Params, sd: TorchDict, model) -> Params:
+    """The SD-2.1 checkpoint's UNet, autoencoder and CLIP text tower cast
+    into the JAX-layout tree `params` of the port's `model` (a ``TeReDiff``);
+    the other parts of `params` are kept."""
+    cldm = model.cldm
+    unet, _ = convert_unet(sd, cldm.unet.cfg, SD_BUNDLE_PREFIX["unet"])
+    vae, _ = convert_vae(sd, cldm.vae.cfg, SD_BUNDLE_PREFIX["vae"])
+    clip, _ = convert_clip(sd, cldm.clip.cfg, SD_BUNDLE_PREFIX["clip"])
+    return {**params, "unet": _cast_like(unet, params["unet"]),
+            "vae": _cast_like(vae, params["vae"]),
+            "clip": _cast_like(clip, params["clip"])}
+
+
+def _cast_like(src: Mapping[str, Any], like: Mapping[str, Any],
+               path: Tuple[str, ...] = ()) -> Params:
+    """`like`'s tree with each leaf that `src` has at the same path taken
+    from `src`, cast to the dtype of `like`'s leaf; a leaf `src` lacks keeps
+    its value in `like`, and a leaf of another shape raises, naming its path."""
+    out: Params = {}
+    for key, node in like.items():
+        here = path + (key,)
+        got = src.get(key) if isinstance(src, Mapping) else None
+        if isinstance(node, Mapping):
+            out[key] = _cast_like(got if isinstance(got, Mapping) else {}, node, here)
+        elif got is None or isinstance(got, Mapping):
+            out[key] = node
+        else:
+            value, init = np.asarray(got), np.asarray(node)
+            if value.shape != init.shape:
+                raise ValueError(f"{'/'.join(here)}: {value.shape} != {init.shape}")
+            out[key] = value.astype(init.dtype)
+    return out

@@ -61,9 +61,13 @@ def test_reader_raises_outside_its_subset(text):
 
 
 def test_unknown_spotter_override_raises():
-    cfg = torch_config.ExperimentConfig(testr_overrides={"enc_topk": 64})
-    with pytest.raises(ValueError, match="enc_topk"):
-        torch_config.build_model(cfg, device="cpu")
+    """A TESTRConfig field the port lacks (the JAX package's sequence-parallel
+    axis) raises, for either preset, before any model is built."""
+    for preset in ("default", "tiny"):
+        cfg = torch_config.ExperimentConfig(
+            model_preset=preset, testr_overrides={"enc_sp_axis": "sp"})
+        with pytest.raises(ValueError, match="enc_sp_axis"):
+            torch_config.build_model(cfg, device="cpu")
 
 
 def _tiny(seed=0):

@@ -74,6 +74,8 @@ MODULES = [
     "tair_tpu_torch.utils.tilevae",
     "tair_tpu_torch.utils.guidance",
     "tair_tpu_torch.diffbir_pipeline",
+    "tair_tpu_torch.weights.export",
+    "tair_tpu_torch.convert_weights",
 ]
 
 ENTRY_POINTS = ["tair_tpu_torch.val", "tair_tpu_torch.val_patches", "tair_tpu_torch.spotter_eval"]

@@ -266,10 +266,12 @@ def test_val_refuses_learned_metric_weights(tmp_path, metric):
 
 
 def test_val_refuses_enc_topk(tmp_path):
+    """A negative --enc-topk is refused (0 is the exact path, a positive value
+    the sparse update: tests/test_torch_sparse_encoder.py serves with both)."""
     from tair_tpu_torch.val import main
 
-    with pytest.raises(ValueError, match="testr_overrides"):
-        main(["--config", str(_config(tmp_path)), "--device", "cpu", "--enc-topk", "64"])
+    with pytest.raises(ValueError, match="enc_topk"):
+        main(["--config", str(_config(tmp_path)), "--device", "cpu", "--enc-topk", "-64"])
 
 
 def test_val_niqe_when_configured(tmp_path):
