@@ -27,7 +27,14 @@ through its kernels:
             spotter encoder, ``enc_topk`` = 2048 of the 9472 tokens, beside
             the dense one and ``enc_topk`` = 9472 (phase enc_topk, which also
             holds K3 at the sparse encoder's 2048 rows and checks its
-            launches by row count);
+            launches by row count), and the same request served w8a8
+            (``ControlLDM.quantized``: dynamic, static from
+            ``calibrate_quant`` on its first step, and selective) in turns
+            with bfloat16, after the two w8a8 kernels (Q2, the activation
+            quantize, and Q1, the int8 convolution) are held bit for bit
+            against their plain versions at every quantized site shape of a
+            step (phase quant); phase restore also times one spotter pass
+            with the proposals picked by the stable sort and by torch.topk;
   weights   the released checkpoints' path: the seeded full-width model
             exported under the reference's names (SD-2.1 bundle, ControlNet,
             SwinIR, TESTR), ``python -m tair_tpu_torch.convert_weights``, the
@@ -67,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -79,9 +87,10 @@ import torch
 
 from tair_tpu_torch.ops.launches import launch_counts, reset_launch_counts
 
-# published peaks of one H100 SXM (NVIDIA data sheet, dense)
+# published peaks of one H100 SXM (NVIDIA data sheet, dense): 989 TFLOP/s bf16 and
+# 1,979 TOP/s int8 on the tensor cores, 67 TFLOP/s float32 outside them, 3.35 TB/s
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 
 # (B, Tq, Tk, H, D, calls per denoising step, calls per restore outside the steps)
 # of every flash-attention call of one restore at 512 x 512: UNet + ControlNet
@@ -188,7 +197,7 @@ PROBE_REPS = 2        # timed repetitions per setting of the probes' own runs
 SERVE_STEPS = 4
 
 PHASES = ("kernels", "probes", "reference", "restore", "restore_flatpatch", "layers",
-          "enc_topk", "diffbir", "ckpt", "train_reference", "train", "train_entry", "val",
+          "enc_topk", "quant", "diffbir", "ckpt", "train_reference", "train", "train_entry", "val",
           "val_patches", "spotter_eval")
 # the paths on which the serving entry points run K1 and K3
 ENTRY_PHASES = ("val", "val_patches", "spotter_eval")
@@ -2057,6 +2066,7 @@ def phase_restore(model, lq, seed: int, steps: int) -> dict:
     if not (torch.equal(image_c, image_d) and torch.equal(tokens_c, tokens_d)):
         raise AssertionError("the same seed gave two different images")
 
+    emit("proposal_topk", **proposal_topk_turns(model, lq))
     emit(
         "restore", steps=steps, seconds_first_request=seconds,
         seconds_second_request=seconds_b, same_seed_check_steps=check_steps,
@@ -2404,6 +2414,408 @@ def phase_enc_topk(model, lq, seed: int, steps: int) -> dict:
             f"msda_corner_reduce_fwd_nq{ENC_TOPK}": at_topk}
 
 
+# ---- w8a8 serving (phase quant) and the proposals' top-K (phase restore) ----
+
+# the profiler's kernel names (a part of each) of the w8a8 wrappers' kernels
+QUANT_KERNEL_NAMES = {"w8a8_conv": ("int8_conv_kernel",), "w8a8_conv_reduce": ("splitk_reduce_kernel",),
+                      "w8a8_act_absmax": ("absmax_kernel",), "w8a8_act_quantize": ("quantize_kernel",)}
+QUANT_SELECTIVE_RATIO = 1.0  # quant_min_ratio of the selective setting
+# the request's settings, timed in turns with bfloat16 (the w8a8 fields of ControlLDM)
+QUANT_SETTINGS = ("bf16", "dynamic", "static", "selective")
+QUANT_ORDER = ("bf16", "dynamic", "static", "selective", "selective", "static", "dynamic", "bf16")
+
+
+class _FirstStep(Exception):
+    pass
+
+
+def first_step_inputs(model, lq, seed: int, steps: int):
+    """(x_noisy, t, cond) of the first ControlLDM.apply call of
+    `restore_request`'s request (the request stops there)."""
+    cldm = model.cldm
+    seen = []
+
+    def recording(x, t, cond, **kwargs):
+        seen.append((x.clone(), t.clone(), dict(cond)))
+        raise _FirstStep
+
+    cldm.apply = recording  # an instance attribute: the request's step calls it
+    try:
+        restore_request(model, lq, seed, steps)
+    except _FirstStep:
+        pass
+    finally:
+        del cldm.apply
+    return seen[0]
+
+
+def quant_sites(model, x, t, cond):
+    """``calibrate_quant`` on one step's inputs under the model's quant
+    fields: (the record, each quantized site's kernel geometry in order)."""
+    from tair_tpu_torch.ops import quant
+
+    sites = []
+    product = quant._kernel_product
+
+    def logged(x_nhwc, w8, wscale, bias, dtype, stride, padding):
+        sites.append((tuple(x_nhwc.shape), tuple(w8.shape), stride, padding, bias is not None))
+        return product(x_nhwc, w8, wscale, bias, dtype, stride, padding)
+
+    quant._kernel_product = logged
+    try:
+        record = model.cldm.calibrate_quant(x, t, cond)
+    finally:
+        quant._kernel_product = product
+    if len(record) != len(sites):
+        raise AssertionError(f"calibration recorded {len(record)} sites, the kernels saw {len(sites)}")
+    return record, sites
+
+
+def site_gemm(site) -> tuple:
+    """(M, N, K) of the int8 product of a site of `quant_sites`."""
+    (b, h, w, _), (o, kh, kw, cp), stride, pad, _ = site
+    ho, wo = (h + 2 * pad - kh) // stride + 1, (w + 2 * pad - kw) // stride + 1
+    return b * ho * wo, o, kh * kw * cp
+
+
+def split_sites(sites: list) -> int:
+    """The sites whose Q1 call splits K, so launches the split-K reduce too."""
+    from tair_tpu_torch.ops import quant
+
+    return sum(quant.split_k(*site_gemm(site)) > 1 for site in sites)
+
+
+def check_q2_nan(x2d: torch.Tensor) -> None:
+    """Q2 on an activation holding a NaN: the abs-max and the scale are NaN
+    on the card as in the plain version, so the NaN reaches the product."""
+    from tair_tpu_torch.ops import quant
+
+    x = x2d.clone()
+    x.view(-1)[x.numel() // 3] = float("nan")
+    got, want = quant.quantize_activation(x, None)[1], quant.quantize_activation_plain(x, None)[1]
+    if not (bool(got.isnan().all()) and bool(want.isnan().all())):
+        raise AssertionError(f"quant_act on a NaN activation: stats {got.tolist()}, "
+                             f"plain {want.tolist()}; both must be NaN")
+
+
+def check_quant_kernels(sites: list, smi: str, rng: np.random.Generator) -> list:
+    """Q2 (activation quantize, dynamic and static) and Q1 (int8 convolution
+    with its epilogue) at every distinct quantized site shape of one
+    ControlNet + UNet step, on seeded bfloat16 values, each held bit for bit
+    against its plain version (and Q2 on a NaN at the first shape). Device
+    ms of one call by CUDA-graph replay, the library yardsticks (bf16
+    ``F.conv2d`` / ``F.linear``, and the int8 route: unfold +
+    ``torch._int_mm`` + the epilogue in tensor ops) and the bound at every
+    shape; the wrappers' host ms, the plain versions' ms and Q2's static ms
+    at the head shape, the one whose sites do the most operations in a
+    step."""
+    import torch.nn.functional as F
+
+    from tair_tpu_torch.ops import quant
+
+    shapes = {}
+    for key in sites:
+        shapes[key] = shapes.get(key, 0) + 1
+    head_key = max(shapes, key=lambda s: math.prod(site_gemm(s)) * shapes[s])
+    rows = []
+    for key, n_sites in shapes.items():
+        xs, ws, stride, pad, has_bias = key
+        at_head = key == head_key
+        b, h, w, c = xs
+        o, kh, kw, cp = ws
+        dense = kh == kw == h == w == 1
+        x = torch.from_numpy(rng.standard_normal(xs, dtype=np.float32)).cuda().to(torch.bfloat16)
+        weight = torch.from_numpy(
+            rng.standard_normal((o, c, kh, kw), dtype=np.float32) / np.sqrt(c * kh * kw)
+        ).cuda().to(torch.bfloat16)
+        bias = (torch.from_numpy(rng.standard_normal(o, dtype=np.float32) * 0.1).cuda()
+                .to(torch.bfloat16) if has_bias else None)
+        x2d = x.reshape(-1, c)
+        half = 0.5 * x.float().abs().max().item()  # a static amax that clips
+        for amax in (None, half):
+            got, want = quant.quantize_activation(x2d, amax), quant.quantize_activation_plain(x2d, amax)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"quant_act {xs} static={amax}: not equal to the plain version")
+        if not rows:
+            check_q2_nan(x2d)
+        x8, stats = quant.quantize_activation(x2d, None)
+        w8, wscale = quant._prepare_weight(weight)  # the layout Q1 reads
+        x8v = x8.view(b, h, w, cp)
+
+        def q1():
+            return quant.int8_conv(x8v, w8, wscale, stats, bias, torch.bfloat16, stride, pad)
+
+        def q1_plain():
+            return quant.int8_conv_plain(x8v, w8, stats, wscale, bias, torch.bfloat16, stride, pad)
+
+        got, want = q1(), q1_plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8_conv {xs} x {ws} s{stride}: max |d| {err} from the plain version")
+
+        if dense:
+            w2d = weight.reshape(o, c)
+
+            def library():
+                return F.linear(x2d, w2d, bias)
+        else:
+            x_nchw = x.permute(0, 3, 1, 2)  # channels-last memory, as the model's
+            wcl = weight.contiguous(memory_format=torch.channels_last)
+
+            def library():
+                return F.conv2d(x_nchw, wcl, bias, stride, pad)
+
+        def int8_route():
+            if kh == kw == 1 and stride == 1:
+                a = x8v.reshape(-1, cp)
+            else:
+                xp = F.pad(x8v, (0, 0, pad, pad, pad, pad))
+                a = (xp.unfold(1, kh, stride).unfold(2, kw, stride)
+                     .permute(0, 1, 2, 4, 5, 3).reshape(-1, kh * kw * cp))
+            acc = torch._int_mm(a, w8.reshape(o, -1).t())
+            y = (acc.float() * (wscale * stats[1])).to(torch.bfloat16)
+            return y if bias is None else y + bias
+
+        try:
+            route_equal = torch.equal(int8_route().reshape(got.shape), got)
+            route_ms, route_error = graph_ms(int8_route), None
+        except RuntimeError as e:  # a yardstick only: _int_mm refuses some shapes
+            route_equal, route_ms, route_error = None, None, str(e).splitlines()[0][:160]
+        m = got.shape[0] * got.shape[1] * got.shape[2]
+        q1_bytes = x8.numel() + w8.numel() + 2 * m * o + 4 * o + (2 * o if has_bias else 0) + 8
+        q2_bytes = 2 * x.numel() + x8.numel() + 8
+        q1_bound = bound_of(2.0 * m * o * kh * kw * cp, q1_bytes, torch.int8)
+        q2_bound = bound_of(0.0, q2_bytes, torch.bfloat16)
+        rows.append(dict(
+            shape=f"{'dense' if dense else f'conv{kh}x{kw}s{stride}'} x{list(xs)} w[{o},{kh},{kw},{cp}]",
+            sites_per_step=n_sites, m=m, n=o, k=kh * kw * cp, splits=quant.split_k(m, o, kh * kw * cp),
+            max_abs_err=err, equal_to_plain=True, quant_act_equal_to_plain=True,
+            ms=graph_ms(q1), bf16_library_ms=graph_ms(library), int8_route_ms=route_ms,
+            int8_route_equal=route_equal, int8_route_error=route_error,
+            bound_ms=q1_bound["bound_ms"], bound_by=q1_bound["bound_by"],
+            act_ms=graph_ms(lambda: quant.quantize_activation(x2d, None)),
+            act_bound_ms=q2_bound["bound_ms"], act_bound_by=q2_bound["bound_by"],
+            head=at_head,
+        ))
+        if at_head:
+            rows[-1].update(
+                plain_ms=time_ms(q1_plain, warmup=1, reps=3, inner=1),
+                host_ms_per_call=host_ms(q1, n=200),
+                act_static_ms=graph_ms(lambda: quant.quantize_activation(x2d, half)),
+                act_plain_ms=time_ms(lambda: quant.quantize_activation_plain(x2d, None),
+                                     warmup=1, reps=3, inner=1),
+                act_host_ms_per_call=host_ms(lambda: quant.quantize_activation(x2d, None), n=200),
+            )
+        del x, weight, x8, x8v, w8, got, want
+    per_step = {
+        key: sum(r[key] * r["sites_per_step"] for r in rows if r[key] is not None)
+        for key in ("ms", "bound_ms", "bf16_library_ms", "int8_route_ms", "act_ms",
+                    "act_bound_ms")
+    }
+    emit("kernels", kernel="w8a8", card=smi, sites_per_step=len(sites), shapes=rows,
+         per_step=per_step,
+         note="ms and act_ms: device ms of one call by CUDA events around the replay of a CUDA "
+              "graph of 20 calls (act_ms: both Q2 launches); host_ms_per_call: "
+              "time.perf_counter over 200 calls without a synchronise; plain: CUDA events "
+              "around eager calls of the plain versions (float64 im2col product); host, plain "
+              "and act_static at the head shape only; "
+              "bf16_library_ms: F.conv2d / F.linear in bfloat16 at the shape; int8_route_ms: "
+              "pad + unfold + torch._int_mm + the epilogue in tensor ops; per_step: each "
+              "shape's time times its sites in one ControlNet + UNet step")
+    head = next(r for r in rows if r["head"])
+    common = dict(route="cuda", shape=head["shape"], library_ms=None, paths=("quant",),
+                  sites_per_step=len(sites), distinct_shapes=len(rows))
+    return [
+        dict(name="w8a8_conv", source="tair_tpu_torch/ops/csrc/int8_conv.cu",
+             replaces="tair_tpu/ops/quant.py:249 (w8a8_conv's s8 conv; :217 w8a8_dot_general; "
+                      "XLA lowers both, no Pallas kernel)",
+             max_abs_err=max(r["max_abs_err"] for r in rows), ms=head["ms"],
+             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+             bf16_library_ms=head["bf16_library_ms"], int8_route_ms=head["int8_route_ms"],
+             host_ms_per_call=head["host_ms_per_call"], ms_per_step=per_step["ms"],
+             bound_ms_per_step=per_step["bound_ms"], split_k_sites_per_step=split_sites(sites),
+             bf16_library_ms_per_step=per_step["bf16_library_ms"], **common),
+        dict(name="w8a8_act_quantize", source="tair_tpu_torch/ops/csrc/quant_act.cu",
+             replaces="tair_tpu/ops/quant.py:154 (_quant_act; XLA fuses it, no Pallas kernel)",
+             max_abs_err=0.0, ms=head["act_ms"], plain_ms=head["act_plain_ms"],
+             bound_ms=head["act_bound_ms"], bound_by=head["act_bound_by"],
+             static_ms=head["act_static_ms"], host_ms_per_call=head["act_host_ms_per_call"],
+             ms_per_step=per_step["act_ms"], bound_ms_per_step=per_step["act_bound_ms"],
+             **common),
+    ]
+
+
+def set_quant(cldm, setting: str, record, sites, sites_sel) -> tuple:
+    """Sets ControlLDM's w8a8 fields for a setting of phase quant; returns its
+    quantized sites a step and those of them whose Q1 call splits K."""
+    cldm.quantized = setting != "bf16"
+    cldm.quant_static_amax = tuple(record) if setting == "static" else None
+    cldm.quant_min_ratio = QUANT_SELECTIVE_RATIO if setting == "selective" else None
+    chosen = {"bf16": [], "selective": sites_sel}.get(setting, sites)
+    return len(chosen), split_sites(chosen)
+
+
+def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
+    mse = (a.float() - b.float()).pow(2).mean().item()
+    return float("inf") if mse == 0 else 10.0 * np.log10(1.0 / mse)
+
+
+def phase_quant(model, lq, seed: int, steps: int, smi: str) -> tuple:
+    """w8a8 serving of the full-width request (``ControlLDM.quantized``): the
+    calibration record of the request's first step (all sites, and under
+    quant_min_ratio = QUANT_SELECTIVE_RATIO), Q1 and Q2 at each of its site
+    shapes (`check_quant_kernels`), then `steps`-step fused requests in the
+    settings bf16, dynamic, static (the record as quant_static_amax) and
+    selective, in turns (QUANT_ORDER). Gates per request: finite, in range,
+    the same seed the same image, the launches the structure's plus, per
+    quantized site and step, one Q1 and one Q2 quantize, (unless static) one
+    Q2 abs-max, and one split-K reduce where Q1 splits K at the site's
+    shape; a quantized image differs from the bf16 one; host
+    synchronisations per step equal bf16's. Measures s/request, peak, one
+    profiled request per setting (device busy s, idle share, launches) and
+    the image's max |d| and PSNR against bf16, and the seconds of each part
+    of the phase. Returns (the kernel entries, the first dynamic request's
+    launches)."""
+    t_phase = time.perf_counter()
+    seconds_of, t_part = {}, time.perf_counter()
+
+    def part_done(name):
+        nonlocal t_part
+        seconds_of[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    cldm = model.cldm
+    x, t, cond = first_step_inputs(model, lq, seed, steps)
+    base = serving_launches(model, steps, steps)
+    runs = {name: [] for name in QUANT_SETTINGS}
+    try:
+        set_quant(cldm, "dynamic", (), (), ())
+        resident = torch.cuda.memory_allocated()
+        record, sites = quant_sites(model, x, t, cond)
+        # the int8 weights and scales made once for the parameters' version,
+        # resident from here on (in every request's peak below, bf16's too)
+        cache_allocated = torch.cuda.memory_allocated() - resident
+        cache_bytes = sum(
+            m._wq.value[0].numel() + 4 * m._wq.value[1].numel()
+            for m in cldm.modules() if getattr(m, "_wq", None) is not None and m._wq.value
+        )
+        set_quant(cldm, "selective", record, sites, ())
+        record_sel, sites_sel = quant_sites(model, x, t, cond)
+        part_done("calibration")
+        kernels = check_quant_kernels(sites, smi, np.random.default_rng(seed + 11))
+        part_done("kernels")
+        for name in QUANT_ORDER:
+            n, n_split = (steps * c for c in set_quant(cldm, name, record, sites, sites_sel))
+            want = dict(base)
+            if n:
+                want.update({"w8a8_conv": n, "w8a8_act_quantize": n})
+                if n_split:
+                    want["w8a8_conv_reduce"] = n_split
+                if name != "static":
+                    want["w8a8_act_absmax"] = n
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            image, tokens, seconds = restore_request(model, lq, seed, steps)
+            counts = launch_counts()
+            check_restored(image, tokens)
+            if {k: v for k, v in counts.items() if v} != want:
+                raise AssertionError(f"quant {name}: launches {counts}, structure says {want}")
+            runs[name].append(dict(image=image, tokens=tokens, seconds=seconds, counts=counts,
+                                   peak=torch.cuda.max_memory_allocated()))
+        for name, rs in runs.items():
+            if not all(torch.equal(r["image"], rs[0]["image"]) and
+                       torch.equal(r["tokens"], rs[0]["tokens"]) for r in rs):
+                raise AssertionError(f"quant {name}: the same seed gave two different images")
+            if name != "bf16" and torch.equal(rs[0]["image"], runs["bf16"][0]["image"]):
+                raise AssertionError(f"quant {name}: the image is the bf16 one")
+        part_done("requests")
+        profiles, syncs = {}, {}
+        for name in QUANT_SETTINGS:
+            set_quant(cldm, name, record, sites, sites_sel)
+            profiles[name] = profiled(lambda: restore_request(model, lq, seed, steps)[2],
+                                      watch=sum(QUANT_KERNEL_NAMES.values(), ()), cpu=False)
+        part_done("profiles")
+        for name in QUANT_SETTINGS:
+            set_quant(cldm, name, record, sites, sites_sel)
+            syncs[name] = syncs_per_step(lambda n: model.restore_fused_feedback(
+                lq, torch.Generator(device=lq.device).manual_seed(0), steps=n,
+                score_threshold=0.0))
+        part_done("host_syncs")
+        for name in QUANT_SETTINGS:
+            if syncs[name]["per_step"] != syncs["bf16"]["per_step"]:
+                raise AssertionError(f"quant {name}: {syncs[name]} host syncs, bf16 {syncs['bf16']}")
+    finally:
+        set_quant(cldm, "bf16", (), (), ())
+    bf16 = runs["bf16"][0]["image"]
+    emit(
+        "quant", steps=steps, card=smi, order=list(QUANT_ORDER),
+        sites_per_step={"dynamic": len(record), "static": len(record),
+                        "selective": len(record_sel)},
+        selective_min_ratio=QUANT_SELECTIVE_RATIO, record_head=record[:8],
+        int8_weight_cache_bytes=cache_bytes, allocated_by_first_calibration=cache_allocated,
+        seconds={name: [r["seconds"] for r in rs] for name, rs in runs.items()},
+        peak_memory_bytes={name: rs[0]["peak"] for name, rs in runs.items()},
+        launches_per_request={name: {k: v for k, v in rs[0]["counts"].items() if v}
+                              for name, rs in runs.items()},
+        profile={name: {k: p[k] for k in ("wall_seconds", "wall_seconds_under_profiler",
+                                          "device_busy_seconds", "device_idle_share",
+                                          "kernel_launches", "watched")}
+                 for name, p in profiles.items()},
+        top_kernels={name: p["top_kernels"][:12] for name, p in profiles.items()},
+        host_syncs_per_step={name: s["per_step"] for name, s in syncs.items()},
+        host_syncs=syncs,
+        against_bf16={name: dict(
+            image_max_abs_diff=(rs[0]["image"].float() - bf16.float()).abs().max().item(),
+            image_psnr_db=psnr(rs[0]["image"], bf16),
+            tokens_equal=bool(torch.equal(rs[0]["tokens"], runs["bf16"][0]["tokens"])),
+        ) for name, rs in runs.items() if name != "bf16"},
+        same_seed_same_image=True, quantized_differs_from_bf16=True,
+        split_k_sites_per_step={"dynamic": split_sites(sites), "selective": split_sites(sites_sel)},
+        seconds_of=seconds_of, phase_seconds=time.perf_counter() - t_phase,
+    )
+    return kernels, runs["dynamic"][0]["counts"]
+
+
+def proposal_topk_turns(model, lq) -> dict:
+    """One spotter pass on a request's features with the proposals picked by
+    the stable sort (``proposal_indices``, the repair) and by ``torch.topk``
+    (before it), in turns (after, before, before, after): wall ms, median of
+    5 after a warm-up, and whether the two picked the same proposals."""
+    from tair_tpu_torch.spotter import transformer as tr
+
+    feats = spotter_features(model, lq)
+    stable = tr.proposal_indices
+
+    def topk(scores, k):
+        return torch.topk(scores, k, dim=1).indices
+
+    outs = {}
+
+    def timer(pick):
+        def one() -> float:
+            tr.proposal_indices = pick
+            try:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with torch.no_grad():
+                    outs[pick] = model.spotter_apply(feats)
+                torch.cuda.synchronize()
+                return 1e3 * (time.perf_counter() - t)
+            finally:
+                tr.proposal_indices = stable
+
+        one()
+        return statistics.median(one() for _ in range(5))
+
+    after, before, turns = in_turns(stable, topk, timer=timer)
+    same = all(torch.equal(outs[stable][k], outs[topk][k])
+               for k in ("pred_logits", "pred_ctrl_points", "pred_texts"))
+    return dict(stable_sort_ms=after, torch_topk_ms=before, turns_ms=turns,
+                same_outputs=same)
+
+
 def _tensors(sd: dict) -> dict:
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
@@ -2715,19 +3127,20 @@ def phase_profile(phase: str, run) -> None:
     emit(phase, **profiled(run))
 
 
-def profiled(run, watch=(), ops=()) -> dict:
+def profiled(run, watch=(), ops=(), cpu: bool = True) -> dict:
     """Device time by kernel over one call of `run` (which returns its wall
     seconds), from torch.profiler, and the device's idle share against the
     same call's time without the profiler. `watch` names kernels (by a part of
     their name) whose device time and calls are reported whatever their rank;
     `ops` names operators (``aten::...``) whose kernels' device time and
-    calls are reported."""
+    calls are reported. cpu=False traces the device alone (no operator
+    events: `ops` reads nothing), which shortens the profiler's own
+    processing of a request several times over."""
     from torch.profiler import ProfilerActivity, profile
 
     wall = run()
-    with profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True
-    ) as prof:
+    activities = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=activities + [ProfilerActivity.CUDA], acc_events=True) as prof:
         wall_profiled = run()
     averages = prof.key_averages()
     rows = [
@@ -2807,7 +3220,7 @@ def main() -> None:
     host_syncs = None
     if "diffbir" in phases:
         path_launches["diffbir_reference"] = phase_diffbir_reference(args.seed)
-    if phases & {"restore", "restore_flatpatch", "layers", "enc_topk", "diffbir", "val"} \
+    if phases & {"restore", "restore_flatpatch", "layers", "enc_topk", "quant", "diffbir", "val"} \
             or args.profile_steps:
         model, lq = build_model(args.seed)
         if "restore" in phases:
@@ -2820,6 +3233,10 @@ def main() -> None:
             phase_layers(model, lq, args.steps)
         if "enc_topk" in phases:
             path_launches["enc_topk"] = phase_enc_topk(model, lq, args.seed, SERVE_STEPS)
+        if "quant" in phases:
+            quant_kernels, path_launches["quant"] = phase_quant(
+                model, lq, args.seed, SERVE_STEPS, smi)
+            kernels += quant_kernels
         if "diffbir" in phases:
             path_launches["diffbir"] = phase_diffbir(model, args.seed, SERVE_STEPS)
         if "val" in phases:
@@ -2859,10 +3276,11 @@ def main() -> None:
                                  "msda_corner_reduce_fwd"):
                 entry["paths"] = (*entry["paths"], *(p for p in ENTRY_PHASES if p in phases))
     for entry in kernels:
-        # the requests of phases ckpt and enc_topk run the serving path's kernels
+        # the requests of phases ckpt, enc_topk and quant run the serving path's kernels
         if entry["name"] in ("flash_attention_fwd_tc", "flash_attention_fwd_tc_wide",
                              "msda_corner_reduce_fwd"):
-            entry["paths"] = (*entry["paths"], *(p for p in ("enc_topk", "ckpt") if p in phases))
+            entry["paths"] = (*entry["paths"],
+                              *(p for p in ("enc_topk", "quant", "ckpt") if p in phases))
     if phases != set(PHASES):
         # a partial run is for development: it prints what it measured and no verdict
         print(json.dumps({"kernels": kernels, "launches": path_launches}), flush=True)

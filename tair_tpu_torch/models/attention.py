@@ -1,7 +1,8 @@
 """Spatial transformer blocks of the SD UNet.
 
 Counterpart of ``tair_tpu/models/attention.py`` (the linear-projection variant
-every configuration uses). Every attention goes through ``ops.attention.sdpa``.
+every configuration uses). Every attention goes through ``ops.attention.sdpa``;
+every dense layer is quantizable (``layers.QuantLinear``).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import sdpa
-from .layers import GroupNorm32, LayerNorm32
+from .layers import GroupNorm32, LayerNorm32, QuantLinear
 
 
 class CrossAttention(nn.Module):
@@ -26,10 +27,10 @@ class CrossAttention(nn.Module):
         self.heads = heads
         self.dim_head = dim_head
         ctx_dim = query_dim if context_dim is None else context_dim
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(ctx_dim, inner, bias=False)
-        self.to_v = nn.Linear(ctx_dim, inner, bias=False)
-        self.to_out = nn.Linear(inner, query_dim)
+        self.to_q = QuantLinear(query_dim, inner, bias=False)
+        self.to_k = QuantLinear(ctx_dim, inner, bias=False)
+        self.to_v = QuantLinear(ctx_dim, inner, bias=False)
+        self.to_out = QuantLinear(inner, query_dim)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None):
         ctx = x if context is None else context
@@ -45,7 +46,7 @@ class CrossAttention(nn.Module):
 class GEGLU(nn.Module):
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out * 2)
+        self.proj = QuantLinear(dim_in, dim_out * 2)
 
     def forward(self, x):
         x, gate = self.proj(x).chunk(2, dim=-1)
@@ -56,7 +57,7 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.geglu = GEGLU(dim, dim * mult)
-        self.out = nn.Linear(dim * mult, dim)
+        self.out = QuantLinear(dim * mult, dim)
 
     def forward(self, x):
         return self.out(self.geglu(x))
@@ -88,12 +89,12 @@ class SpatialTransformer(nn.Module):
         super().__init__()
         inner = heads * dim_head
         self.norm = GroupNorm32(channels, eps=1e-6)
-        self.proj_in = nn.Linear(channels, inner)
+        self.proj_in = QuantLinear(channels, inner)
         self.blocks = nn.ModuleList(
             BasicTransformerBlock(inner, heads, dim_head, context_dim)
             for _ in range(depth)
         )
-        self.proj_out = nn.Linear(inner, channels)
+        self.proj_out = QuantLinear(inner, channels)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape

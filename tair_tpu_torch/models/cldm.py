@@ -2,17 +2,23 @@
 
 Counterpart of ``tair_tpu/models/cldm.py``: the controlled forward applying 13
 control scales, latent scaling, the CLIP encode of token ids or of prompts (tokenized on the
-host), and ``prepare_condition``. The four
-sub-models are child modules, so ``state_dict`` keys start with ``unet.``,
-``controlnet.``, ``vae.`` and ``clip.`` like the JAX parameter tree.
+host), ``prepare_condition``, and the w8a8 serving knobs of the ControlNet +
+UNet step (``quantized``, ``quant_static_amax``, ``quant_min_ratio``,
+``calibrate_quant``; ``ops/quant.py``). The four sub-models are child
+modules, so ``state_dict`` keys start with ``unet.``, ``controlnet.``,
+``vae.`` and ``clip.`` like the JAX parameter tree; the quant knobs change no
+parameter.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple, Union
+import copy
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
+
+from ..ops import quant
 
 from .clip import CLIPTextConfig, CLIPTextTower
 from .tokenizer import tokenize
@@ -29,6 +35,9 @@ class ControlLDM(nn.Module):
         controlnet_cfg: Optional[UNetConfig] = None,
         latent_scale_factor: float = 0.18215,
         control_scales: Tuple[float, ...] = (1.0,) * 13,
+        quantized: bool = False,
+        quant_static_amax: Optional[Union[float, Sequence[float]]] = None,
+        quant_min_ratio: Optional[float] = None,
     ):
         super().__init__()
         self.unet = UNetModel(unet_cfg)
@@ -37,6 +46,25 @@ class ControlLDM(nn.Module):
         self.clip = CLIPTextTower(clip_cfg)
         self.scale_factor = latent_scale_factor
         self.control_scales = control_scales
+        # w8a8 serving of the ControlNet + UNet step (ops/quant.py): dynamic
+        # per-tensor activation scales unless quant_static_amax gives one
+        # float (every site) or one per site (from calibrate_quant);
+        # quant_min_ratio quantizes only the sites whose weight has that many
+        # times the activation's elements (None: every site)
+        self.quantized = quantized
+        self.quant_static_amax = quant_static_amax
+        self.quant_min_ratio = quant_min_ratio
+
+    def replace(self, **quant_fields) -> "ControlLDM":
+        """A copy with other quant fields (``quantized``, ``quant_static_amax``,
+        ``quant_min_ratio``) that shares every module and parameter: the JAX
+        package's ``dataclasses.replace`` of those fields."""
+        unknown = set(quant_fields) - {"quantized", "quant_static_amax", "quant_min_ratio"}
+        if unknown:
+            raise TypeError(f"ControlLDM.replace takes quant fields only, not {sorted(unknown)}")
+        out = copy.copy(self)  # the copy's module and parameter dicts are this one's
+        out.__dict__.update(quant_fields)
+        return out
 
     def vae_encode(
         self,
@@ -81,6 +109,38 @@ class ControlLDM(nn.Module):
             c_img=self.vae_encode(cond_img * 2.0 - 1.0, sample=False),
         )
 
+    def _control_and_unet(self, x_noisy, t, cond, extract_features, control_scales):
+        c_txt = cond["c_txt"]
+        if cond.get("c_img") is not None:
+            control = self.controlnet(x_noisy, cond["c_img"], t, c_txt)
+            scales = self.control_scales if control_scales is None else control_scales
+            control = tuple(c * s for c, s in zip(control, scales))
+        else:
+            control = None
+        return self.unet(
+            x_noisy, t, c_txt, control=control, extract_features=extract_features
+        )
+
+    def calibrate_quant(
+        self,
+        x_noisy: torch.Tensor,
+        t: torch.Tensor,
+        cond: Dict[str, torch.Tensor],
+        record: Optional[List[float]] = None,
+    ) -> List[float]:
+        """Static-PTQ calibration pass: runs the ControlNet + UNet forward
+        eagerly on the dynamic w8a8 path (under this model's
+        ``quant_min_ratio``) and records each site's activation abs-max in
+        the order ``quant_static_amax`` consumes them. Pass the same `record`
+        over a calibration set to max-merge; serve with
+        ``cldm.replace(quant_static_amax=tuple(record))``. One host
+        synchronisation a site."""
+        record = [] if record is None else record
+        with torch.no_grad(), quant.selective(self.quant_min_ratio), \
+                quant.quantized(True, calibrate=record):
+            self._control_and_unet(x_noisy, t, cond, False, None)
+        return record
+
     def apply(
         self,
         x_noisy: torch.Tensor,
@@ -94,15 +154,11 @@ class ControlLDM(nn.Module):
         cond: {c_txt: [B,77,D], c_img: [B,h,w,4]}; c_img optional (then the
         UNet runs uncontrolled). `control_scales` (13 floats) replace the
         module's own for this call: the JAX package's ``dataclasses.replace``
-        of ``control_scales``, which leaves the shared module as it was.
+        of ``control_scales``, which leaves the shared module as it was. The
+        ControlNet and UNet run under this model's quant fields.
         """
-        c_txt = cond["c_txt"]
-        if cond.get("c_img") is not None:
-            control = self.controlnet(x_noisy, cond["c_img"], t, c_txt)
-            scales = self.control_scales if control_scales is None else control_scales
-            control = tuple(c * s for c, s in zip(control, scales))
-        else:
-            control = None
-        return self.unet(
-            x_noisy, t, c_txt, control=control, extract_features=extract_features
-        )
+        with quant.selective(self.quant_min_ratio), \
+                quant.quantized(self.quantized, static_act_amax=self.quant_static_amax):
+            return self._control_and_unet(
+                x_noisy, t, cond, extract_features, control_scales
+            )

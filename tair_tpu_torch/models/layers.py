@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import quant
+
 
 def timestep_embedding(
     timesteps: torch.Tensor, dim: int, max_period: float = 10000.0
@@ -116,12 +118,44 @@ class LayerNorm32(nn.Module):
         )
 
 
-def conv3x3(in_ch: int, out_ch: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(in_ch, out_ch, 3, stride=stride, padding=1)
+def conv3x3(in_ch: int, out_ch: int, stride: int = 1, quantize: bool = False) -> nn.Conv2d:
+    return (QuantConv2d if quantize else nn.Conv2d)(in_ch, out_ch, 3, stride=stride, padding=1)
 
 
-def conv1x1(in_ch: int, out_ch: int) -> nn.Conv2d:
-    return nn.Conv2d(in_ch, out_ch, 1)
+def conv1x1(in_ch: int, out_ch: int, quantize: bool = False) -> nn.Conv2d:
+    return (QuantConv2d if quantize else nn.Conv2d)(in_ch, out_ch, 1)
+
+
+class QuantConv2d(nn.Conv2d):
+    """``nn.Conv2d`` (same parameters and ``state_dict`` keys) that runs the
+    w8a8 product of ``ops/quant.py`` while a ``quant.quantized()`` scope is
+    active: the UNet's and ControlNet's convolutions. Its int8 weight is
+    made once per parameter version."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._wq = quant.WeightCache()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if quant.active():
+            return quant.w8a8_conv2d(x, self.weight, self.bias, self.stride[0],
+                                     self.padding[0], cache=self._wq)
+        return super().forward(x)
+
+
+class QuantLinear(nn.Linear):
+    """``nn.Linear`` counterpart of `QuantConv2d`: the UNet's and ControlNet's
+    dense layers (not the time-embedding MLP nor ``emb_proj``, which the JAX
+    package leaves unquantized)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._wq = quant.WeightCache()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if quant.active():
+            return quant.w8a8_linear(x, self.weight, self.bias, cache=self._wq)
+        return super().forward(x)
 
 
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:

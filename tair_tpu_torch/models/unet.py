@@ -3,8 +3,11 @@
 Counterpart of ``tair_tpu/models/unet.py``. ``forward`` takes and returns NHWC
 tensors like the JAX modules; inside, feature maps are NCHW. The decoder
 feature taps are taken after output blocks ``cfg.extract_idx`` (after each
-tagged block's trailing upsample). Gradient checkpointing and the w8a8 serving
-path are not part of this slice.
+tagged block's trailing upsample). Every convolution and dense layer but the
+time-embedding MLP and ``emb_proj`` is quantizable (``layers.QuantConv2d`` /
+``QuantLinear``): inside ``ops.quant.quantized()`` it runs w8a8, and its sites
+run in the JAX package's order, which the calibration record follows.
+Gradient checkpointing is not part of the port.
 """
 
 from __future__ import annotations
@@ -53,11 +56,11 @@ class ResBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, emb_ch: int):
         super().__init__()
         self.in_norm = GroupNorm32(in_ch)
-        self.in_conv = conv3x3(in_ch, out_ch)
+        self.in_conv = conv3x3(in_ch, out_ch, quantize=True)
         self.emb_proj = nn.Linear(emb_ch, out_ch)
         self.out_norm = GroupNorm32(out_ch)
-        self.out_conv = conv3x3(out_ch, out_ch)
-        self.skip = conv1x1(in_ch, out_ch) if in_ch != out_ch else None
+        self.out_conv = conv3x3(out_ch, out_ch, quantize=True)
+        self.skip = conv1x1(in_ch, out_ch, quantize=True) if in_ch != out_ch else None
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         h = self.in_conv(F.silu(self.in_norm(x)))
@@ -70,7 +73,7 @@ class ResBlock(nn.Module):
 class Downsample(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = conv3x3(channels, channels, stride=2)
+        self.conv = conv3x3(channels, channels, stride=2, quantize=True)
 
     def forward(self, x, emb=None, context=None):
         return self.conv(x)
@@ -79,7 +82,7 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = conv3x3(channels, channels)
+        self.conv = conv3x3(channels, channels, quantize=True)
 
     def forward(self, x):
         return self.conv(nearest_upsample_2x(x))
@@ -182,7 +185,7 @@ class _EncoderTower(nn.Module):
         ch = in_channels
         for i, (kind, out_ch, attn) in enumerate(self.plan):
             if kind == "conv":
-                self.in_conv = conv3x3(ch, out_ch)
+                self.in_conv = conv3x3(ch, out_ch, quantize=True)
             elif kind == "down":
                 setattr(self, f"in_{i}", Downsample(out_ch))
             else:
@@ -192,7 +195,10 @@ class _EncoderTower(nn.Module):
         self.middle = MiddleBlock(cfg, ch)
         return chans
 
-    def _run_encoder(self, h, emb, context):
+    def _run_encoder(self, h, emb, context, after_block=None):
+        """The input blocks' outputs; `after_block(i, h)` runs right after
+        block i, before block i + 1 (ControlNet's zero convs, in the JAX
+        package's order of quantization sites)."""
         hs = []
         for i, (kind, _, _) in enumerate(self.plan):
             if kind == "conv":
@@ -200,6 +206,8 @@ class _EncoderTower(nn.Module):
             else:
                 h = getattr(self, f"in_{i}")(h, emb, context)
             hs.append(h)
+            if after_block is not None:
+                after_block(i, h)
         return hs
 
     @property
@@ -230,7 +238,7 @@ class UNetModel(_EncoderTower):
             )
             ch = out_ch
         self.out_norm = GroupNorm32(ch)
-        self.out_conv = conv3x3(ch, cfg.out_channels)
+        self.out_conv = conv3x3(ch, cfg.out_channels, quantize=True)
 
     def forward(
         self,
@@ -279,15 +287,18 @@ class ControlNet(_EncoderTower):
         self.cfg = cfg
         chans = self._build_encoder(cfg, cfg.in_channels + cfg.hint_channels)
         for i, ch in enumerate(chans):
-            setattr(self, f"zero_{i}", conv1x1(ch, ch))
-        self.middle_out = conv1x1(chans[-1], chans[-1])
+            setattr(self, f"zero_{i}", conv1x1(ch, ch, quantize=True))
+        self.middle_out = conv1x1(chans[-1], chans[-1], quantize=True)
 
     def forward(self, x, hint, t, context):
         dtype = self.dtype
         emb = self.time_embed(t).to(dtype)
         context = context.to(dtype)
         h = to_nchw(torch.cat([x, hint.to(x.dtype)], dim=-1)).to(dtype)
-        hs = self._run_encoder(h, emb, context)
-        outs = [to_nhwc(getattr(self, f"zero_{i}")(h_i)) for i, h_i in enumerate(hs)]
+        outs = []
+        hs = self._run_encoder(
+            h, emb, context,
+            after_block=lambda i, h_i: outs.append(to_nhwc(getattr(self, f"zero_{i}")(h_i))),
+        )
         outs.append(to_nhwc(self.middle_out(self.middle(hs[-1], emb, context))))
         return tuple(outs)

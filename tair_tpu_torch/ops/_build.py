@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 KERNEL_SOURCES = (
     "flash_attention", "flash_attention_bwd", "flash_attention_tc",
     "flash_attention_wide_tc", "flash_attention_dq_tc", "flash_attention_dkv_tc",
-    "msda_reduce", "patchify",
+    "msda_reduce", "patchify", "quant_act", "int8_conv",
     "probe_gather", "probe_stream", "probe_msda_lab",
 )
 NVCC_FLAGS = (

@@ -13,11 +13,11 @@ from __future__ import annotations
 
 def _counted_modules():
     from ..probes import dyngather, msda_lab, stream
-    from . import flash_attention, msda_reduce, patchify
+    from . import flash_attention, msda_reduce, patchify, quant
 
     return (
         ("flash_attention_", flash_attention), ("msda_corner_reduce_", msda_reduce),
-        ("patchify_value_", patchify), ("probe_gather_", dyngather),
+        ("patchify_value_", patchify), ("w8a8_", quant), ("probe_gather_", dyngather),
         ("probe_stream_", stream), ("probe_msda_lab_", msda_lab),
     )
 

@@ -409,7 +409,8 @@ def _assemble(cldm_args, swinir_cfg, testr_cfg, dtype, device, training=False) -
 
 def build_default_model(
     dtype: torch.dtype = torch.bfloat16, device: Device = "cuda", training: bool = False,
-    testr_overrides: Optional[dict] = None,
+    testr_overrides: Optional[dict] = None, quantized: bool = False,
+    quant_static_amax=None, quant_min_ratio: Optional[float] = None,
 ) -> TeReDiff:
     """Production geometry (SD-2.1 UNet/ControlNet/VAE, OpenCLIP-H text tower,
     SwinIR cleaner, TESTR spotter). Parameters are uninitialised storage of
@@ -418,9 +419,15 @@ def build_default_model(
     step takes: float32 parameters (pass ``dtype=torch.float32``), in train
     mode; which of them a stage trains is set by ``train.step.make_optimizer``.
     `testr_overrides`: ``TESTRConfig`` fields to change (``enc_topk``...); a
-    field the port's config lacks raises."""
+    field the port's config lacks raises. `quantized=True` serves the
+    ControlNet + UNet step w8a8 (``ops/quant.py``; an inference-only
+    approximation): `quant_static_amax` fixes the activation scales (one
+    float, or one per site from ``ControlLDM.calibrate_quant``),
+    `quant_min_ratio` quantizes only the weight-dominated sites."""
     return _assemble(
-        dict(unet_cfg=UNetConfig(), vae_cfg=VAEConfig(), clip_cfg=CLIPTextConfig()),
+        dict(unet_cfg=UNetConfig(), vae_cfg=VAEConfig(), clip_cfg=CLIPTextConfig(),
+             quantized=quantized, quant_static_amax=quant_static_amax,
+             quant_min_ratio=quant_min_ratio),
         SwinIRConfig(),
         _with_overrides(TESTRConfig(), testr_overrides),
         dtype,
@@ -438,15 +445,18 @@ def _with_overrides(cfg: TESTRConfig, overrides: Optional[dict]) -> TESTRConfig:
 
 def build_tiny_model(
     dtype: torch.dtype = torch.float32, device: Device = "cuda", training: bool = False,
-    testr_overrides: Optional[dict] = None,
+    testr_overrides: Optional[dict] = None, quantized: bool = False,
+    quant_static_amax=None, quant_min_ratio: Optional[float] = None,
 ) -> TeReDiff:
     """Small geometry for tests: same topology, tiny widths; `testr_overrides`
-    as for `build_default_model`."""
+    and the quant fields as for `build_default_model`."""
     return _assemble(
         dict(
             unet_cfg=UNetConfig(model_channels=32, num_head_channels=16, context_dim=64),
             vae_cfg=VAEConfig(ch=32, ch_mult=(1, 2, 4, 4), num_res_blocks=1),
             clip_cfg=CLIPTextConfig(width=64, heads=4, layers=3),
+            quantized=quantized, quant_static_amax=quant_static_amax,
+            quant_min_ratio=quant_min_ratio,
         ),
         SwinIRConfig(embed_dim=16, depths=(2,), num_heads=(2,), window_size=4, num_feat=8),
         _with_overrides(

@@ -118,6 +118,15 @@ def proposal_pos_embed(boxes: torch.Tensor, d_model: int = 256) -> torch.Tensor:
     return pos.reshape(*boxes.shape[:-1], 4 * num_pos_feats)
 
 
+def proposal_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """[B, k] indices of the k highest scores of each row, highest first,
+    the lower index first among equal scores (invalid proposals at -inf
+    included): ``jax.lax.top_k``'s order. A stable descending sort, not
+    ``torch.topk``, whose order of ties CUDA leaves open; the order is that of
+    the decoder's queries, so it is not re-sorted."""
+    return torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :k]
+
+
 class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
                  n_points: int, msda_q_chunk: int = 16384,
@@ -345,7 +354,7 @@ class DeformableTransformer(nn.Module):
 
         k = self.num_proposals
         scores = enc_class[..., 0].float().masked_fill(~prop_valid[None], -torch.inf)
-        topk_idx = torch.topk(scores, k, dim=1).indices  # [B, K]
+        topk_idx = proposal_indices(scores, k)  # [B, K]
         topk_coords_unact = torch.gather(
             enc_coord_unact, 1, topk_idx[..., None].expand(-1, -1, 4)
         ).detach()

@@ -17,6 +17,7 @@ MODULES = [
     "tair_tpu_torch.ops.flash_attention",
     "tair_tpu_torch.ops.msda_reduce",
     "tair_tpu_torch.ops.patchify",
+    "tair_tpu_torch.ops.quant",
     "tair_tpu_torch.ops._build",
     "tair_tpu_torch.ops.launches",
     "tair_tpu_torch.probes",
@@ -195,7 +196,7 @@ def test_kernel_wrappers_do_not_build_on_import():
     proc = _run(
         """
         import tair_tpu_torch.ops.flash_attention, tair_tpu_torch.ops.msda_reduce
-        import tair_tpu_torch.ops.patchify, tair_tpu_torch.train.step
+        import tair_tpu_torch.ops.patchify, tair_tpu_torch.ops.quant, tair_tpu_torch.train.step
         import tair_tpu_torch.probes.dyngather, tair_tpu_torch.probes.stream
         import tair_tpu_torch.probes.msda_lab
         from tair_tpu_torch.ops import _build
@@ -204,6 +205,7 @@ def test_kernel_wrappers_do_not_build_on_import():
             "flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_tc.cu",
             "flash_attention_wide_tc.cu", "flash_attention_dq_tc.cu",
             "flash_attention_dkv_tc.cu", "msda_reduce.cu", "patchify.cu",
+            "quant_act.cu", "int8_conv.cu",
             "probe_gather.cu", "probe_stream.cu", "probe_msda_lab.cu"}
         assert set(_build.KERNEL_SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
         print("ok")

@@ -13,7 +13,8 @@ which 208 are valid. Every parameter is seeded noise (``noise_params``).
 - ``enc_topk`` 0, S and above: the port's outputs bit-equal to its dense path;
 - the tie rule: among equal saliences the lower index wins, as
   ``jax.lax.top_k`` chooses (zeroed salience head: the first valid tokens;
-  more than the valid count: the first invalid ones);
+  more than the valid count: the first invalid ones); the same rule, in
+  ``jax.lax.top_k``'s descending order, for the two-stage proposals;
 - an encoder layer's unselected tokens pass through bit for bit, and the
   parameter tree does not depend on ``enc_topk``;
 - ``val`` / ``val_patches`` serve with ``--enc-topk`` on the CPU.
@@ -30,7 +31,9 @@ import torch
 
 from tair_tpu.spotter import TESTR as JaxTESTR
 from tair_tpu_torch.spotter.testr import TESTR, TESTRConfig
-from tair_tpu_torch.spotter.transformer import EncoderLayer, encoder_reference_points, proposal_grid
+from tair_tpu_torch.spotter.transformer import (
+    EncoderLayer, encoder_reference_points, proposal_grid, proposal_indices,
+)
 from tair_tpu_torch.weights.convert import convert_tree, module_param_shapes
 from test_spotter import TINY
 from test_torch_common import jax_shapes, noise_params, t2n, torch_single_thread  # noqa: F401
@@ -172,6 +175,41 @@ def test_selection_of_seeded_saliences_equals_jax(params, feats):
             transformer.enc_topk = k
             sel = transformer.select_tokens(src_flat, valid).numpy()
             np.testing.assert_array_equal(sel, _jax_choice(sal, k))
+
+
+def test_proposals_order_ties_as_jax_top_k(params, feats):
+    """The two-stage proposals with the class head zeroed: every valid token
+    scores 0, every invalid one -inf. The port's proposals (the decoder's
+    reference points) are the tokens ``jax.lax.top_k`` picks from the same
+    scores, in its order, the lower index first among ties: the first
+    ``num_proposals`` valid tokens."""
+    model = _port(params, 0)
+    captured = []
+    model.transformer.register_forward_hook(lambda mod, args, out: captured.append(out))
+    with torch.no_grad():
+        model.transformer.bbox_class_embed.weight.zero_()
+        model.transformer.bbox_class_embed.bias.zero_()
+        model(tuple(torch.from_numpy(f) for f in feats))
+    _, _, reference_points, enc_class, enc_coord_unact = captured[-1]
+    valid = proposal_grid(LEVELS)[1]
+    scores = np.where(valid[None], t2n(enc_class[..., 0]), -np.inf).astype(np.float32)
+    assert set(np.unique(scores)) == {0.0, -np.inf}
+    want = np.asarray(jax.lax.top_k(jnp.asarray(scores), TINY.num_proposals)[1])
+    np.testing.assert_array_equal(
+        want, np.broadcast_to(np.flatnonzero(valid)[: TINY.num_proposals], want.shape))
+    idx = torch.from_numpy(want.astype(np.int64))[..., None].expand(-1, -1, 4)
+    assert torch.equal(reference_points, torch.sigmoid(torch.gather(enc_coord_unact, 1, idx)))
+
+
+def test_proposal_indices_equal_jax_top_k_with_inf_ties():
+    """``proposal_indices`` against ``jax.lax.top_k`` on rows with tied
+    finite scores and more -inf scores than the k asks past them."""
+    scores = np.array([[0.5, -np.inf, 0.5, 0.0, -np.inf, 0.5, -np.inf],
+                       [-np.inf, 0.0, -np.inf, 0.0, 1.0, -np.inf, 0.0]], np.float32)
+    want = np.asarray(jax.lax.top_k(jnp.asarray(scores), 6)[1])
+    got = proposal_indices(torch.from_numpy(scores), 6).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[1], [4, 1, 3, 6, 0, 2])
 
 
 def test_unselected_tokens_pass_through_bit_for_bit():
