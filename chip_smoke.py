@@ -2417,8 +2417,7 @@ def phase_enc_topk(model, lq, seed: int, steps: int) -> dict:
 # ---- w8a8 serving (phase quant) and the proposals' top-K (phase restore) ----
 
 # the profiler's kernel names (a part of each) of the w8a8 wrappers' kernels
-QUANT_KERNEL_NAMES = {"w8a8_conv": ("int8_conv_kernel",), "w8a8_conv_reduce": ("splitk_reduce_kernel",),
-                      "w8a8_act_absmax": ("absmax_kernel",), "w8a8_act_quantize": ("quantize_kernel",)}
+QUANT_KERNEL_NAMES = {"w8a8_conv": ("int8_conv_wgmma_kernel",), "w8a8_act": ("quant_act_kernel",)}
 QUANT_SELECTIVE_RATIO = 1.0  # quant_min_ratio of the selective setting
 # the request's settings, timed in turns with bfloat16 (the w8a8 fields of ControlLDM)
 QUANT_SETTINGS = ("bf16", "dynamic", "static", "selective")
@@ -2478,13 +2477,6 @@ def site_gemm(site) -> tuple:
     return b * ho * wo, o, kh * kw * cp
 
 
-def split_sites(sites: list) -> int:
-    """The sites whose Q1 call splits K, so launches the split-K reduce too."""
-    from tair_tpu_torch.ops import quant
-
-    return sum(quant.split_k(*site_gemm(site)) > 1 for site in sites)
-
-
 def check_q2_nan(x2d: torch.Tensor) -> None:
     """Q2 on an activation holding a NaN: the abs-max and the scale are NaN
     on the card as in the plain version, so the NaN reaches the product."""
@@ -2499,16 +2491,16 @@ def check_q2_nan(x2d: torch.Tensor) -> None:
 
 
 def check_quant_kernels(sites: list, smi: str, rng: np.random.Generator) -> list:
-    """Q2 (activation quantize, dynamic and static) and Q1 (int8 convolution
-    with its epilogue) at every distinct quantized site shape of one
-    ControlNet + UNet step, on seeded bfloat16 values, each held bit for bit
-    against its plain version (and Q2 on a NaN at the first shape). Device
-    ms of one call by CUDA-graph replay, the library yardsticks (bf16
-    ``F.conv2d`` / ``F.linear``, and the int8 route: unfold +
-    ``torch._int_mm`` + the epilogue in tensor ops) and the bound at every
-    shape; the wrappers' host ms, the plain versions' ms and Q2's static ms
-    at the head shape, the one whose sites do the most operations in a
-    step."""
+    """Q2 (activation quantize, dynamic and static), Q1 (int8 convolution
+    with its epilogue) and a whole site (``w8a8_site``: one library call, Q2
+    then Q1) at every distinct quantized site shape of one ControlNet + UNet
+    step, on seeded bfloat16 values, each held bit for bit against its plain
+    version (and Q2 on a NaN at the first shape). Device ms of one call by
+    CUDA-graph replay, its share of the bound and its rate, the library
+    yardsticks (bf16 ``F.conv2d`` / ``F.linear``, and the int8 route: unfold
+    + ``torch._int_mm`` + the epilogue in tensor ops) at every shape; the
+    wrappers' host ms and the plain versions' ms at the head shape, the one
+    whose sites do the most operations in a step."""
     import torch.nn.functional as F
 
     from tair_tpu_torch.ops import quant
@@ -2531,16 +2523,24 @@ def check_quant_kernels(sites: list, smi: str, rng: np.random.Generator) -> list
         bias = (torch.from_numpy(rng.standard_normal(o, dtype=np.float32) * 0.1).cuda()
                 .to(torch.bfloat16) if has_bias else None)
         x2d = x.reshape(-1, c)
+        w8, wscale = quant._prepare_weight(weight)  # the layout Q1 reads
         half = 0.5 * x.float().abs().max().item()  # a static amax that clips
         for amax in (None, half):
             got, want = quant.quantize_activation(x2d, amax), quant.quantize_activation_plain(x2d, amax)
             torch.cuda.synchronize()
             if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
                 raise AssertionError(f"quant_act {xs} static={amax}: not equal to the plain version")
+            out, stats = quant.w8a8_site(x2d, (b, h, w), w8, wscale, bias, torch.bfloat16, stride,
+                                         pad, amax)
+            plain = quant.int8_conv_plain(want[0].view(b, h, w, cp), w8, want[1], wscale, bias,
+                                          torch.bfloat16, stride, pad)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, plain) and torch.equal(stats, want[1])):
+                raise AssertionError(f"w8a8_site {xs} x {ws} static={amax}: not equal to the "
+                                     f"plain versions")
         if not rows:
             check_q2_nan(x2d)
         x8, stats = quant.quantize_activation(x2d, None)
-        w8, wscale = quant._prepare_weight(weight)  # the layout Q1 reads
         x8v = x8.view(b, h, w, cp)
 
         def q1():
@@ -2549,11 +2549,19 @@ def check_quant_kernels(sites: list, smi: str, rng: np.random.Generator) -> list
         def q1_plain():
             return quant.int8_conv_plain(x8v, w8, stats, wscale, bias, torch.bfloat16, stride, pad)
 
+        def site():
+            return quant.w8a8_site(x2d, (b, h, w), w8, wscale, bias, torch.bfloat16, stride, pad,
+                                   None)
+
         got, want = q1(), q1_plain()
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         if not torch.equal(got, want):
             raise AssertionError(f"int8_conv {xs} x {ws} s{stride}: max |d| {err} from the plain version")
+        got2 = q1()  # the split's workspace and counters are left as they were found
+        torch.cuda.synchronize()
+        if not torch.equal(got2, want):
+            raise AssertionError(f"int8_conv {xs} x {ws} s{stride}: a second call differs")
 
         if dense:
             w2d = weight.reshape(o, c)
@@ -2584,46 +2592,60 @@ def check_quant_kernels(sites: list, smi: str, rng: np.random.Generator) -> list
         except RuntimeError as e:  # a yardstick only: _int_mm refuses some shapes
             route_equal, route_ms, route_error = None, None, str(e).splitlines()[0][:160]
         m = got.shape[0] * got.shape[1] * got.shape[2]
+        ops = 2.0 * m * o * kh * kw * cp
         q1_bytes = x8.numel() + w8.numel() + 2 * m * o + 4 * o + (2 * o if has_bias else 0) + 8
         q2_bytes = 2 * x.numel() + x8.numel() + 8
-        q1_bound = bound_of(2.0 * m * o * kh * kw * cp, q1_bytes, torch.int8)
+        q1_bound = bound_of(ops, q1_bytes, torch.int8)
         q2_bound = bound_of(0.0, q2_bytes, torch.bfloat16)
+        ms, lib_ms = graph_ms(q1), graph_ms(library)
+        act_ms = graph_ms(lambda: quant.quantize_activation(x2d, None))
         rows.append(dict(
             shape=f"{'dense' if dense else f'conv{kh}x{kw}s{stride}'} x{list(xs)} w[{o},{kh},{kw},{cp}]",
-            sites_per_step=n_sites, m=m, n=o, k=kh * kw * cp, splits=quant.split_k(m, o, kh * kw * cp),
+            sites_per_step=n_sites, m=m, n=o, k=kh * kw * cp,
+            schedule=list(quant.conv_schedule(m, o, kh * kw * cp,
+                                              quant.gathered(kh, kw, stride, pad))),
             max_abs_err=err, equal_to_plain=True, quant_act_equal_to_plain=True,
-            ms=graph_ms(q1), bf16_library_ms=graph_ms(library), int8_route_ms=route_ms,
-            int8_route_equal=route_equal, int8_route_error=route_error,
+            site_equal_to_plain=True,
+            ms=ms, share_of_bound=q1_bound["bound_ms"] / ms, tops=ops / ms / 1e9,
+            bf16_library_ms=lib_ms, bf16_library_tops=ops / lib_ms / 1e9,
+            int8_route_ms=route_ms, int8_route_equal=route_equal, int8_route_error=route_error,
             bound_ms=q1_bound["bound_ms"], bound_by=q1_bound["bound_by"],
-            act_ms=graph_ms(lambda: quant.quantize_activation(x2d, None)),
+            act_ms=act_ms, act_static_ms=graph_ms(lambda: quant.quantize_activation(x2d, half)),
             act_bound_ms=q2_bound["bound_ms"], act_bound_by=q2_bound["bound_by"],
+            act_share_of_bound=q2_bound["bound_ms"] / act_ms, site_ms=graph_ms(site),
             head=at_head,
         ))
         if at_head:
             rows[-1].update(
                 plain_ms=time_ms(q1_plain, warmup=1, reps=3, inner=1),
                 host_ms_per_call=host_ms(q1, n=200),
-                act_static_ms=graph_ms(lambda: quant.quantize_activation(x2d, half)),
+                site_host_ms_per_call=host_ms(site, n=200),
                 act_plain_ms=time_ms(lambda: quant.quantize_activation_plain(x2d, None),
                                      warmup=1, reps=3, inner=1),
                 act_host_ms_per_call=host_ms(lambda: quant.quantize_activation(x2d, None), n=200),
             )
-        del x, weight, x8, x8v, w8, got, want
+        del x, weight, x8, x8v, w8, got, got2, want
     per_step = {
         key: sum(r[key] * r["sites_per_step"] for r in rows if r[key] is not None)
         for key in ("ms", "bound_ms", "bf16_library_ms", "int8_route_ms", "act_ms",
-                    "act_bound_ms")
+                    "act_static_ms", "act_bound_ms", "site_ms")
     }
+    median_share = {key: statistics.median(r[key] for r in rows)
+                    for key in ("share_of_bound", "act_share_of_bound")}
+    slower = [r["shape"] for r in rows if r["ms"] > r["bf16_library_ms"]]
     emit("kernels", kernel="w8a8", card=smi, sites_per_step=len(sites), shapes=rows,
-         per_step=per_step,
-         note="ms and act_ms: device ms of one call by CUDA events around the replay of a CUDA "
-              "graph of 20 calls (act_ms: both Q2 launches); host_ms_per_call: "
+         per_step=per_step, median_share_of_bound=median_share,
+         shapes_slower_than_bf16_library=slower,
+         note="ms, act_ms, act_static_ms, site_ms: device ms of one call by CUDA events "
+              "around the replay of a CUDA graph of 20 calls (act_ms: Q2 dynamic, one "
+              "launch; site_ms: w8a8_site, Q2 dynamic then Q1); host_ms_per_call: "
               "time.perf_counter over 200 calls without a synchronise; plain: CUDA events "
-              "around eager calls of the plain versions (float64 im2col product); host, plain "
-              "and act_static at the head shape only; "
-              "bf16_library_ms: F.conv2d / F.linear in bfloat16 at the shape; int8_route_ms: "
-              "pad + unfold + torch._int_mm + the epilogue in tensor ops; per_step: each "
-              "shape's time times its sites in one ControlNet + UNet step")
+              "around eager calls of the plain versions (float64 im2col product); host and "
+              "plain at the head shape only; bf16_library_ms: F.conv2d / F.linear in "
+              "bfloat16 at the shape; int8_route_ms: pad + unfold + torch._int_mm + the "
+              "epilogue in tensor ops; schedule: Q1's (tile width, splits of K, steps a "
+              "split); per_step: each shape's time times its sites in one ControlNet + "
+              "UNet step")
     head = next(r for r in rows if r["head"])
     common = dict(route="cuda", shape=head["shape"], library_ms=None, paths=("quant",),
                   sites_per_step=len(sites), distinct_shapes=len(rows))
@@ -2634,27 +2656,31 @@ def check_quant_kernels(sites: list, smi: str, rng: np.random.Generator) -> list
              max_abs_err=max(r["max_abs_err"] for r in rows), ms=head["ms"],
              plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
              bf16_library_ms=head["bf16_library_ms"], int8_route_ms=head["int8_route_ms"],
-             host_ms_per_call=head["host_ms_per_call"], ms_per_step=per_step["ms"],
-             bound_ms_per_step=per_step["bound_ms"], split_k_sites_per_step=split_sites(sites),
+             host_ms_per_call=head["host_ms_per_call"],
+             site_host_ms_per_call=head["site_host_ms_per_call"], ms_per_step=per_step["ms"],
+             bound_ms_per_step=per_step["bound_ms"],
+             median_share_of_bound=median_share["share_of_bound"],
+             split_k_sites_per_step=sum(r["schedule"][1] > 1 for r in rows for _ in
+                                        range(r["sites_per_step"])),
              bf16_library_ms_per_step=per_step["bf16_library_ms"], **common),
-        dict(name="w8a8_act_quantize", source="tair_tpu_torch/ops/csrc/quant_act.cu",
+        dict(name="w8a8_act_dynamic", source="tair_tpu_torch/ops/csrc/quant_act.cu",
              replaces="tair_tpu/ops/quant.py:154 (_quant_act; XLA fuses it, no Pallas kernel)",
              max_abs_err=0.0, ms=head["act_ms"], plain_ms=head["act_plain_ms"],
              bound_ms=head["act_bound_ms"], bound_by=head["act_bound_by"],
              static_ms=head["act_static_ms"], host_ms_per_call=head["act_host_ms_per_call"],
-             ms_per_step=per_step["act_ms"], bound_ms_per_step=per_step["act_bound_ms"],
-             **common),
+             ms_per_step=per_step["act_ms"], static_ms_per_step=per_step["act_static_ms"],
+             bound_ms_per_step=per_step["act_bound_ms"],
+             median_share_of_bound=median_share["act_share_of_bound"], **common),
     ]
 
 
-def set_quant(cldm, setting: str, record, sites, sites_sel) -> tuple:
+def set_quant(cldm, setting: str, record, sites, sites_sel) -> int:
     """Sets ControlLDM's w8a8 fields for a setting of phase quant; returns its
-    quantized sites a step and those of them whose Q1 call splits K."""
+    quantized sites a step."""
     cldm.quantized = setting != "bf16"
     cldm.quant_static_amax = tuple(record) if setting == "static" else None
     cldm.quant_min_ratio = QUANT_SELECTIVE_RATIO if setting == "selective" else None
-    chosen = {"bf16": [], "selective": sites_sel}.get(setting, sites)
-    return len(chosen), split_sites(chosen)
+    return len({"bf16": [], "selective": sites_sel}.get(setting, sites))
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2670,9 +2696,9 @@ def phase_quant(model, lq, seed: int, steps: int, smi: str) -> tuple:
     settings bf16, dynamic, static (the record as quant_static_amax) and
     selective, in turns (QUANT_ORDER). Gates per request: finite, in range,
     the same seed the same image, the launches the structure's plus, per
-    quantized site and step, one Q1 and one Q2 quantize, (unless static) one
-    Q2 abs-max, and one split-K reduce where Q1 splits K at the site's
-    shape; a quantized image differs from the bf16 one; host
+    quantized site and step, two: one Q2 (dynamic, or static in the static
+    setting) and one Q1, split K or not, and no other w8a8 kernel; a
+    quantized image differs from the bf16 one; host
     synchronisations per step equal bf16's. Measures s/request, peak, one
     profiled request per setting (device busy s, idle share, launches) and
     the image's max |d| and PSNR against bf16, and the seconds of each part
@@ -2707,14 +2733,11 @@ def phase_quant(model, lq, seed: int, steps: int, smi: str) -> tuple:
         kernels = check_quant_kernels(sites, smi, np.random.default_rng(seed + 11))
         part_done("kernels")
         for name in QUANT_ORDER:
-            n, n_split = (steps * c for c in set_quant(cldm, name, record, sites, sites_sel))
+            n = steps * set_quant(cldm, name, record, sites, sites_sel)
             want = dict(base)
             if n:
-                want.update({"w8a8_conv": n, "w8a8_act_quantize": n})
-                if n_split:
-                    want["w8a8_conv_reduce"] = n_split
-                if name != "static":
-                    want["w8a8_act_absmax"] = n
+                want.update({"w8a8_conv": n,
+                             "w8a8_act_static" if name == "static" else "w8a8_act_dynamic": n})
             torch.cuda.reset_peak_memory_stats()
             reset_launch_counts()
             image, tokens, seconds = restore_request(model, lq, seed, steps)
@@ -2772,7 +2795,12 @@ def phase_quant(model, lq, seed: int, steps: int, smi: str) -> tuple:
             tokens_equal=bool(torch.equal(rs[0]["tokens"], runs["bf16"][0]["tokens"])),
         ) for name, rs in runs.items() if name != "bf16"},
         same_seed_same_image=True, quantized_differs_from_bf16=True,
-        split_k_sites_per_step={"dynamic": split_sites(sites), "selective": split_sites(sites_sel)},
+        w8a8_launches_per_site_and_step={
+            name: sum(v for k, v in rs[0]["counts"].items() if k.startswith("w8a8_"))
+            / (steps * n_sites)
+            for name, rs in runs.items()
+            for n_sites in [{"dynamic": len(record), "static": len(record),
+                             "selective": len(record_sel)}.get(name, 0)] if n_sites},
         seconds_of=seconds_of, phase_seconds=time.perf_counter() - t_phase,
     )
     return kernels, runs["dynamic"][0]["counts"]

@@ -1,10 +1,14 @@
 """Builds the package's CUDA sources with nvcc and loads them with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared library
-under ``build/kernels/`` at the root of the checkout, compiled for sm_90a at
-first use. The library's file name carries a hash of the sources, so an edited
+Each library of ``LIBRARIES`` is built from its ``csrc/<source>.cu`` files
+(plain C interfaces) into one shared library under ``build/kernels/`` at the
+root of the checkout, compiled for sm_90a at first use: one source each,
+except ``w8a8``, whose entry of a quantized site launches both of its
+kernels. The library's file name carries a hash of its sources, so an edited
 source is rebuilt and a stale library is never loaded. Nothing here runs when
-the module is imported.
+the module is imported. No library links ``libcuda``: the int8 convolution
+reaches ``cuTensorMapEncodeTiled`` through the runtime's
+``cudaGetDriverEntryPoint``.
 """
 
 from __future__ import annotations
@@ -19,12 +23,15 @@ from pathlib import Path
 from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNEL_SOURCES = (
-    "flash_attention", "flash_attention_bwd", "flash_attention_tc",
-    "flash_attention_wide_tc", "flash_attention_dq_tc", "flash_attention_dkv_tc",
-    "msda_reduce", "patchify", "quant_act", "int8_conv",
-    "probe_gather", "probe_stream", "probe_msda_lab",
-)
+LIBRARIES = {
+    **{name: (name,) for name in (
+        "flash_attention", "flash_attention_bwd", "flash_attention_tc",
+        "flash_attention_wide_tc", "flash_attention_dq_tc", "flash_attention_dkv_tc",
+        "msda_reduce", "patchify", "probe_gather", "probe_stream", "probe_msda_lab",
+    )},
+    "w8a8": ("quant_act", "int8_conv"),
+}
+KERNEL_SOURCES = tuple(src for sources in LIBRARIES.values() for src in sources)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -57,16 +64,17 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     digest = hashlib.sha1()
+    sources = {f"{src}.cu" for src in LIBRARIES[name]}
     for src in sorted(CSRC.iterdir()):
-        if src.name == f"{name}.cu" or src.suffix == ".cuh":
+        if src.name in sources or src.suffix == ".cuh":
             digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
-def build_all(names: Iterable[str] = KERNEL_SOURCES) -> List[Path]:
-    """Compile every missing library, one nvcc process per source, all started
-    together. Returns the libraries' paths."""
+def build_all(names: Iterable[str] = tuple(LIBRARIES)) -> List[Path]:
+    """Compile every missing library, one nvcc process per library, all
+    started together. Returns the libraries' paths."""
     paths = {n: _library_path(n) for n in names}
     running = []
     for name, out in paths.items():
@@ -74,7 +82,8 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> List[Path]:
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / f"{src}.cu")
+                                                      for src in LIBRARIES[name])]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -83,7 +92,7 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> List[Path]:
     for name, proc, tmp, out in running:  # wait for all, so none outlives us
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failures.append(f"nvcc failed for {name}.cu:\n{log}")
+            failures.append(f"nvcc failed for library {name}:\n{log}")
         else:
             out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # a reader never sees a half-written library
@@ -103,7 +112,7 @@ def resource_usage(path: Path) -> Dict[str, int]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
+    """The loaded shared library `name` of ``LIBRARIES``, built if needed."""
     lib = _LIBS.get(name)
     if lib is None:
         (path,) = build_all([name])

@@ -24,23 +24,28 @@ static entry. Calibration (``calibrate=[...]``) runs the dynamic path and
 max-merges each site's observed abs-max into the list, one ``.item()`` a
 site: eager only.
 
-On a CUDA tensor a quantized product is two wrappers, each launching its
-kernel (no fallback):
+On a CUDA tensor a quantized site is one call of ``w8a8_site`` into the
+``w8a8`` library, which launches the two kernels (no fallback); each also has
+a wrapper of its own:
 
   ``quantize_activation``  ``csrc/quant_act.cu`` (Q2): the per-tensor abs-max
-      and the int8 quantize, written channels-innermost with the channels
-      padded to a multiple of 16, the layout Q1 reads; the scale stays on the
-      device (no host synchronisation on the dynamic path);
+      and the int8 quantize in one launch (a cooperative grid with a
+      grid-wide barrier on the dynamic path), written channels-innermost with
+      the channels padded to a multiple of 16, the layout Q1 reads; the scale
+      stays on the device (no host synchronisation on the dynamic path);
   ``int8_conv``            ``csrc/int8_conv.cu`` (Q1): the s8 x s8 -> s32
       implicit-GEMM convolution (3 x 3 stride 1 or 2, 1 x 1; a dense layer is
-      a 1 x 1 convolution over its tokens) on ``mma.sync`` with the rescale and
-      the bias in its epilogue.
+      a 1 x 1 convolution over its tokens) on ``wgmma`` with the weight tile
+      loaded by TMA, K split inside the launch where the tiles do not fill
+      the card (a tile's splits one cluster, summed in its shared memory;
+      ``conv_schedule``), the rescale and the bias in its epilogue.
 
-The weight's int8 copy and scales are made once per parameter version by
-``WeightCache`` (tensor ops; JAX gets the same from XLA hoisting the quantize
-out of the sampler's scan). Both devices run this one composition: on CPU
-tensors each wrapper runs its plain version, whose integer product is exact
-in float64.
+The kernels' scratch (Q2's barrier words, a site's x8) stays on the device
+across calls, one set per stream. The weight's int8 copy and scales are made
+once per parameter version by ``WeightCache`` (tensor ops; JAX gets the same
+from XLA hoisting the quantize out of the sampler's scan). Both devices run
+one composition: on CPU tensors ``w8a8_site`` runs the two wrappers' plain
+versions, whose integer product is exact in float64.
 """
 
 from __future__ import annotations
@@ -57,9 +62,10 @@ from . import _build
 
 _state = threading.local()
 
-# kernel launches made by the wrappers (never by a plain version): Q2's abs-max
-# reduce and its quantize pass, Q1's product and its split-K reduce
-launches = {"act_absmax": 0, "act_quantize": 0, "conv": 0, "conv_reduce": 0}
+# kernel launches made by the wrappers (never by a plain version): Q2 on the
+# dynamic path (abs-max, grid barrier and quantize in one launch) and on the
+# static path (the quantize alone), and Q1 (split K included)
+launches = {"act_dynamic": 0, "act_static": 0, "conv": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 CHANNEL_PAD = 16  # Q1 reads 16-byte pieces of one tap: channels padded to 16
@@ -281,28 +287,20 @@ def w8a8_conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tens
     return out.permute(0, 3, 1, 2)
 
 
-def _quant_act(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor symmetric int8 of the activation x2d [rows, C] through Q2:
-    (x8 [rows, Cp], stats = (amax, scale)); static when the scope set an
-    amax, else dynamic (recorded under calibration)."""
+def _kernel_product(x_nhwc, w8, wscale, bias, dtype, stride: int, padding: int):
+    """One quantized site: the scope's static amax (or none: dynamic,
+    recorded under calibration), then `w8a8_site`: x_nhwc [B, H, W, C] ->
+    [B, Ho, Wo, O] in dtype."""
+    b, h, w, c = x_nhwc.shape
+    if w8.shape[3] != _padded(c):
+        raise ValueError(f"weight holds {w8.shape[3]} padded input channels, the input {c}")
     amax_const = _static_entry()
-    x8, stats = quantize_activation(x2d, amax_const)
+    out, stats = w8a8_site(x_nhwc.reshape(b * h * w, c), (b, h, w), w8, wscale,
+                           None if bias is None else bias.to(dtype), dtype, stride, padding,
+                           amax_const)
     if amax_const is None:
         _record(stats[0])
-    return x8, stats
-
-
-def _kernel_product(x_nhwc, w8, wscale, bias, dtype, stride: int, padding: int):
-    """Q2 then Q1 (their plain versions on CPU tensors): x_nhwc [B, H, W, C]
-    -> [B, Ho, Wo, O] in dtype."""
-    b, h, w, c = x_nhwc.shape
-    o, kh, kw, cp = w8.shape
-    if cp != _padded(c):
-        raise ValueError(f"weight holds {cp} padded input channels, the input {c}")
-    x8, stats = _quant_act(x_nhwc.reshape(b * h * w, c))
-    if bias is not None:
-        bias = bias.to(dtype)
-    return int8_conv(x8.view(b, h, w, cp), w8, wscale, stats, bias, dtype, stride, padding)
+    return out
 
 
 def _check_device(x: torch.Tensor) -> None:
@@ -310,39 +308,125 @@ def _check_device(x: torch.Tensor) -> None:
         raise RuntimeError(f"the w8a8 kernels have no version for device {x.device}")
 
 
+# ---- Q1's schedule -------------------------------------------------------------------
+
+CONV_BM, CONV_BK = 128, 128  # Q1's tile rows, and the bytes of K of one step (int8_conv.cu)
+CONV_BN = (256, 160, 32)  # Q1's tile widths, the wgmma widths it instantiates
+MIN_SPLIT_STEPS = 2  # K steps a split holds at least
+MAX_SPLITS = 8  # a tile's splits are one thread block cluster: 8 is the portable most
+# Q1's time model, in microseconds, fitted to CUDA-graph timings of the
+# step's shapes on an H100 SXM at 700 W (chip_smoke.py --phases quant): a
+# block's start and epilogue and a 128-byte K step, each at tile width bn,
+# with the activation rows gathered by cp.async (im2col) or, at a 1 x 1
+# stride-1 unpadded product, loaded by TMA; and the sum of a tile's splits
+# through the cluster's shared memory (its launch, two cluster barriers, and
+# the rows of the tile that M fills).
+Q1_BLOCK_US = {True: (3.8, 0.008), False: (2.9, 0.0088)}  # by gathered: (us, + per column)
+Q1_STEP_US = {True: (0.40, 0.0016), False: (0.12, 0.0018)}
+Q1_SPLIT_US = (1.0, 0.022)  # + per column of bn and filled row share
+# clusters of more than two blocks do not all fit on the card at once beyond
+# this many blocks (on an H100, 128 blocks in clusters of 8 ran in two waves:
+# PERF.md)
+MAX_CLUSTERED_BLOCKS = 64
+
+
+def gathered(kh: int, kw: int, stride: int, padding: int) -> bool:
+    """Whether Q1 gathers the activation's im2col rows (cp.async): every
+    product but a 1 x 1, stride-1, unpadded one, whose activation is a plain
+    [M, K] matrix loaded by TMA."""
+    return not (kh == kw == 1 and stride == 1 and padding == 0)
+
+
+def conv_schedule(m: int, n: int, k: int, gather: bool = True,
+                  sms: int = 132) -> Tuple[int, int, int]:
+    """Q1's tile width and split of K for an (M, N, K) product: (bn, splits,
+    steps a split), every split holding at least one 128-byte step. Of the
+    widths, and of the splits that keep the launch within one wave of the
+    card (at least MIN_SPLIT_STEPS steps each, at most MAX_SPLITS, and at
+    most MAX_CLUSTERED_BLOCKS blocks in clusters of more than two), the one
+    that Q1's time model says is fastest: waves x (a block's start and
+    epilogue + its steps + the splits' sum through the cluster). `gather`:
+    see `gathered`. Integer sums do not depend on their order, so any
+    schedule gives the same bits."""
+    steps = -(-k // CONV_BK)
+    rows = min(1.0, m / CONV_BM)
+    (b0, b1), (s0, s1) = Q1_BLOCK_US[gather], Q1_STEP_US[gather]
+    best = None
+    for bn in CONV_BN:
+        tiles = -(-m // CONV_BM) * -(-n // bn)
+        most = max(1, min(steps // MIN_SPLIT_STEPS, sms // tiles, MAX_SPLITS))
+        for want in range(1, most + 1):
+            per = -(-steps // want)
+            splits = -(-steps // per)
+            if splits > 2 and tiles * splits > MAX_CLUSTERED_BLOCKS:
+                continue
+            block = b0 + b1 * bn + per * (s0 + s1 * bn)
+            if splits > 1:
+                block += Q1_SPLIT_US[0] + Q1_SPLIT_US[1] * bn * rows
+            cost = -(-tiles * splits // sms) * block
+            if best is None or cost < best[0]:
+                best = (cost, bn, splits, per)
+    return best[1:]
+
+
 # ---- the kernels' wrappers -----------------------------------------------------------
 
 _ENTRIES: dict = {}
 _VOIDP, _INT, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-_QUANT_ARGTYPES = [_VOIDP, _INT, _I64, _INT, _INT, _VOIDP, _VOIDP, _INT, _VOIDP, _INT, _F32,
-                   _VOIDP]
-_CONV_ARGTYPES = [_VOIDP] * 5 + [_INT, _VOIDP, _INT, _VOIDP, _INT] + [_INT] * 11 + [_VOIDP]
-ABSMAX_BLOCKS = 264  # Q2's first pass: partial maxima, folded by every block of the second
+_QUANT_ARGTYPES = [_VOIDP, _INT, _I64, _INT, _INT] + [_VOIDP] * 3 + [_INT, _F32, _VOIDP]
+_Q1_TAIL = [_VOIDP, _VOIDP, _VOIDP, _INT, _VOIDP, _INT] + [_INT] * 14 + [_VOIDP]
+_CONV_ARGTYPES = [_VOIDP, _VOIDP] + _Q1_TAIL
+_SITE_ARGTYPES = [_VOIDP, _INT, _INT] + [_VOIDP] * 3 + [_INT, _F32] + _Q1_TAIL
+_SCRATCH: dict = {}
 
 
-def _entry(lib: str, name: str, argtypes):
+def _entry(name: str, argtypes):
     fn = _ENTRIES.get(name)
     if fn is None:
-        fn = getattr(_build.library(lib), name)
+        fn = getattr(_build.library("w8a8"), name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         _ENTRIES[name] = fn
     return fn
 
 
-def _call(fn, device: torch.device, *args) -> int:
-    dev = device.index
-    stream = torch._C._cuda_getCurrentRawStream(dev)
-    if dev == torch.cuda.current_device():
+def _call(fn, device: torch.device, stream: int, *args) -> int:
+    if device.index == torch.cuda.current_device():
         return fn(*args, stream)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(device.index):
         return fn(*args, stream)
 
 
 def _raise_for(err: int, what: str) -> None:
     if err == -1:
         raise ValueError(f"{what}: the kernel does not take these arguments")
+    if err == -2:
+        raise RuntimeError(f"{what}: the weight's TMA tensor map could not be made")
     if err != 0:
         raise RuntimeError(f"{what} launch failed with CUDA error {err}")
+
+
+def _scratch(device: torch.device) -> Tuple[int, dict]:
+    """(the current stream, the kernels' scratch on it), kept across calls:
+    Q2's grid-barrier words (zeros before and after every launch, as the
+    kernel leaves them), and a site's x8 and stats. Two streams never share
+    one."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    key = (device.index, stream)
+    s = _SCRATCH.get(key)
+    if s is None:
+        s = _SCRATCH[key] = dict(
+            barrier=torch.zeros(4, dtype=torch.int32, device=device),
+            stats=torch.empty(2, dtype=torch.float32, device=device),
+            x8=torch.empty(0, dtype=torch.int8, device=device),
+        )
+    return stream, s
+
+
+def _site_x8(s: dict, n: int) -> torch.Tensor:
+    """The stream's x8 scratch, with at least n bytes."""
+    if s["x8"].numel() < n:
+        s["x8"] = torch.empty(n, dtype=torch.int8, device=s["x8"].device)
+    return s["x8"]
 
 
 def quantize_activation_plain(x2d: torch.Tensor, amax_const: Optional[float]):
@@ -355,45 +439,31 @@ def quantize_activation_plain(x2d: torch.Tensor, amax_const: Optional[float]):
     return F.pad(x8, (0, _padded(c) - c)), torch.stack([amax, scale])
 
 
+def _q2_args(x2d: torch.Tensor, amax_const: Optional[float]) -> list:
+    if x2d.dtype not in _DTYPE_CODES:
+        raise TypeError(f"quantize_activation takes float32 or bfloat16, got {x2d.dtype}")
+    return [x2d.data_ptr(), _DTYPE_CODES[x2d.dtype]]
+
+
 def quantize_activation(x2d: torch.Tensor, amax_const: Optional[float]):
-    """Q2 on CUDA tensors (two launches dynamic, one static), its plain
-    version on CPU tensors."""
+    """Q2 on CUDA tensors (one launch), its plain version on CPU tensors."""
     if x2d.device.type != "cuda":
         _check_device(x2d)
         return quantize_activation_plain(x2d, amax_const)
-    if x2d.dtype not in _DTYPE_CODES:
-        raise TypeError(f"quantize_activation takes float32 or bfloat16, got {x2d.dtype}")
-    if not x2d.is_contiguous():
-        x2d = x2d.contiguous()
+    x2d = x2d.contiguous()
+    head = _q2_args(x2d, amax_const)
     rows, c = x2d.shape
-    cp = _padded(c)
     dev = x2d.device
-    x8 = torch.empty((rows, cp), dtype=torch.int8, device=dev)
+    stream, s = _scratch(dev)
+    x8 = torch.empty((rows, _padded(c)), dtype=torch.int8, device=dev)
     stats = torch.empty(2, dtype=torch.float32, device=dev)
     static = amax_const is not None
-    partial = None if static else torch.empty(ABSMAX_BLOCKS, dtype=torch.float32, device=dev)
-    fn = _entry("quant_act", "quant_act_s8", _QUANT_ARGTYPES)
-    err = _call(fn, dev, x2d.data_ptr(), _DTYPE_CODES[x2d.dtype], rows, c, cp, x8.data_ptr(),
-                0 if static else partial.data_ptr(), ABSMAX_BLOCKS, stats.data_ptr(),
-                int(static), float(amax_const) if static else 0.0)
+    err = _call(_entry("quant_act_s8", _QUANT_ARGTYPES), dev, stream, *head, rows, c,
+                _padded(c), x8.data_ptr(), s["barrier"].data_ptr(), stats.data_ptr(), int(static),
+                float(amax_const) if static else 0.0)
     _raise_for(err, "quant_act_s8")
-    if not static:
-        launches["act_absmax"] += 1
-    launches["act_quantize"] += 1
+    launches["act_static" if static else "act_dynamic"] += 1
     return x8, stats
-
-
-def split_k(m: int, n: int, k: int, sms: int = 132) -> int:
-    """Q1's split of K over blocks: one split when the output tiles (64 x 64)
-    fill the card; otherwise enough splits for about two blocks an SM, each
-    over at least four 64-deep steps. Integer sums do not depend on the
-    order, so any split gives the same bits."""
-    tiles = -(-m // 64) * -(-n // 64)
-    steps = -(-k // 64)
-    if tiles >= sms or steps < 8:
-        return 1
-    per = max(4, -(-steps // -(-2 * sms // tiles)))
-    return -(-steps // per)
 
 
 def int8_conv_plain(x8, w8, stats, wscale, bias, dtype, stride: int, padding: int):
@@ -411,42 +481,85 @@ def int8_conv_plain(x8, w8, stats, wscale, bias, dtype, stride: int, padding: in
     return _rescale(acc, wscale, stats[1], bias, dtype).reshape(b, ho, wo, o)
 
 
-def int8_conv(x8: torch.Tensor, w8: torch.Tensor, wscale: torch.Tensor, stats: torch.Tensor,
-              bias: Optional[torch.Tensor], dtype: torch.dtype, stride: int,
-              padding: int) -> torch.Tensor:
-    """Q1 on CUDA tensors: x8 [B, H, W, Cp] int8, w8 [O, kh, kw, Cp] int8,
-    wscale [O] float32, stats [2] float32 (the activation scale at [1]),
-    bias [O] in dtype or None -> [B, Ho, Wo, O] in dtype. Its plain version
-    on CPU tensors."""
-    if x8.device.type != "cuda":
-        _check_device(x8)
-        return int8_conv_plain(x8, w8, stats, wscale, bias, dtype, stride, padding)
-    b, h, w, cp = x8.shape
-    o, kh, kw, cpw = w8.shape
-    if cp != cpw or cp % CHANNEL_PAD or x8.dtype != torch.int8 or w8.dtype != torch.int8:
-        raise ValueError(f"int8_conv takes int8 x8 [B,H,W,Cp] and w8 [O,kh,kw,Cp] with one Cp, "
-                         f"a multiple of {CHANNEL_PAD}: {tuple(x8.shape)}, {tuple(w8.shape)}")
+def _q1_args(bhw, w8, wscale, stats, bias, dtype, stride: int, padding: int):
+    """Q1's arguments after x8 and stats, checked, and its output."""
+    b, h, w = bhw
+    o, kh, kw, cp = w8.shape
+    dev = w8.device
+    if cp % CHANNEL_PAD or w8.dtype != torch.int8:
+        raise ValueError(f"int8_conv takes an int8 w8 [O,kh,kw,Cp], Cp a multiple of "
+                         f"{CHANNEL_PAD}: {tuple(w8.shape)}")
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"int8_conv writes float32 or bfloat16, not {dtype}")
     if bias is not None and (bias.dtype != dtype or bias.shape != (o,)):
         raise ValueError("bias must be [O] in the output type")
-    tensors = [x8, w8, wscale, stats] + ([bias] if bias is not None else [])
-    if any(not t.is_contiguous() or t.device != x8.device for t in tensors):
+    tensors = [w8, wscale, stats] + ([bias] if bias is not None else [])
+    if any(not t.is_contiguous() or t.device != dev for t in tensors):
         raise ValueError("int8_conv's operands must be contiguous on one device")
     if wscale.dtype != torch.float32 or stats.dtype != torch.float32:
         raise TypeError("wscale and stats must be float32")
     ho, wo = (h + 2 * padding - kh) // stride + 1, (w + 2 * padding - kw) // stride + 1
-    out = torch.empty((b, ho, wo, o), dtype=dtype, device=x8.device)
-    m, k = b * ho * wo, kh * kw * cp
-    splits = split_k(m, o, k)
-    ws = torch.empty((splits, m, o), dtype=torch.int32, device=x8.device) if splits > 1 else None
-    fn = _entry("int8_conv", "int8_conv_s8", _CONV_ARGTYPES)
-    err = _call(fn, x8.device, x8.data_ptr(), w8.data_ptr(), wscale.data_ptr(),
-                stats.data_ptr(), 0 if bias is None else bias.data_ptr(), int(bias is not None),
-                out.data_ptr(), _DTYPE_CODES[dtype], 0 if ws is None else ws.data_ptr(), splits,
-                b, h, w, cp, o, kh, kw, stride, padding, ho, wo)
+    m = b * ho * wo
+    bn, splits, per = conv_schedule(m, o, kh * kw * cp, gathered(kh, kw, stride, padding))
+    out = torch.empty((b, ho, wo, o), dtype=dtype, device=dev)
+    args = [w8.data_ptr(), wscale.data_ptr(), 0 if bias is None else bias.data_ptr(),
+            int(bias is not None), out.data_ptr(), _DTYPE_CODES[dtype], bn, splits, per,
+            b, h, w, cp, o, kh, kw, stride, padding, ho, wo]
+    return args, out
+
+
+def int8_conv(x8: torch.Tensor, w8: torch.Tensor, wscale: torch.Tensor, stats: torch.Tensor,
+              bias: Optional[torch.Tensor], dtype: torch.dtype, stride: int,
+              padding: int) -> torch.Tensor:
+    """Q1 on CUDA tensors (one launch): x8 [B, H, W, Cp] int8, w8 [O, kh, kw,
+    Cp] int8, wscale [O] float32, stats [2] float32 (the activation scale at
+    [1]), bias [O] in dtype or None -> [B, Ho, Wo, O] in dtype. Its plain
+    version on CPU tensors."""
+    if x8.device.type != "cuda":
+        _check_device(x8)
+        return int8_conv_plain(x8, w8, stats, wscale, bias, dtype, stride, padding)
+    b, h, w, cp = x8.shape
+    if cp != w8.shape[3] or x8.dtype != torch.int8 or not x8.is_contiguous() \
+            or x8.device != w8.device:
+        raise ValueError(f"int8_conv takes a contiguous int8 x8 [B,H,W,Cp] with w8's Cp on its "
+                         f"device: {tuple(x8.shape)}, {tuple(w8.shape)}")
+    stream = torch._C._cuda_getCurrentRawStream(x8.device.index)
+    args, out = _q1_args((b, h, w), w8, wscale, stats, bias, dtype, stride, padding)
+    err = _call(_entry("int8_conv_s8", _CONV_ARGTYPES), x8.device, stream, x8.data_ptr(),
+                stats.data_ptr(), *args)
     _raise_for(err, "int8_conv_s8")
     launches["conv"] += 1
-    if splits > 1:
-        launches["conv_reduce"] += 1
     return out
+
+
+def w8a8_site(x2d: torch.Tensor, bhw, w8: torch.Tensor, wscale: torch.Tensor,
+              bias: Optional[torch.Tensor], dtype: torch.dtype, stride: int, padding: int,
+              amax_const: Optional[float]):
+    """A quantized site, Q2 then Q1: x2d [B*H*W, C] in dtype (bhw = (B, H,
+    W)), static when amax_const is given -> (out [B, Ho, Wo, O] in dtype,
+    stats [2] float32). On CUDA tensors one call into the library, which
+    launches both kernels, with x8 and stats in the stream's scratch (stats
+    hold until the stream's next site); on CPU tensors the two wrappers'
+    plain versions."""
+    b, h, w = bhw
+    if x2d.device.type != "cuda":
+        x8, stats = quantize_activation(x2d, amax_const)
+        return int8_conv(x8.view(b, h, w, w8.shape[3]), w8, wscale, stats, bias, dtype,
+                         stride, padding), stats
+    x2d = x2d.contiguous()
+    head = _q2_args(x2d, amax_const)
+    if x2d.dtype != dtype or x2d.device != w8.device or x2d.shape[0] != b * h * w:
+        raise ValueError("w8a8_site takes x2d [B*H*W, C] in the output type on w8's device")
+    dev, c, cp = x2d.device, x2d.shape[1], w8.shape[3]
+    stream, s = _scratch(dev)
+    stats = s["stats"]
+    args, out = _q1_args(bhw, w8, wscale, stats, bias, dtype, stride, padding)
+    static = amax_const is not None
+    err = _call(_entry("w8a8_site_s8", _SITE_ARGTYPES), dev, stream, *head, c,
+                _site_x8(s, b * h * w * cp).data_ptr(), s["barrier"].data_ptr(),
+                stats.data_ptr(), int(static),
+                float(amax_const) if static else 0.0, *args)
+    _raise_for(err, "w8a8_site_s8")
+    launches["act_static" if static else "act_dynamic"] += 1
+    launches["conv"] += 1
+    return out, stats

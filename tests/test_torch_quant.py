@@ -273,17 +273,21 @@ def test_activation_quantizer_equals_jax(ref, case):
     (clipped to +-127), and per-site static entries (the second 0: scale 1)."""
     inp, _, want = ref
     x = torch.from_numpy(inp["x_conv"].reshape(-1, 32))  # [rows, C], C a multiple of 16
+
+    def site_act(x2d):  # as a site quantizes: the scope's static entry, then Q2
+        return quant.quantize_activation(x2d, quant._static_entry())
+
     if case == "dynamic":
-        pairs = [(quant._quant_act(x), want["qa_dynamic"])]
+        pairs = [(site_act(x), want["qa_dynamic"])]
     elif case == "zero":
-        pairs = [(quant._quant_act(torch.zeros_like(x)), want["qa_zero"])]
+        pairs = [(site_act(torch.zeros_like(x)), want["qa_zero"])]
     elif case == "static":
         with quant.quantized(True, static_act_amax=0.5 * float(x.abs().max())):
-            pairs = [(quant._quant_act(x), want["qa_static"])]
+            pairs = [(site_act(x), want["qa_static"])]
         assert want["qa_static"][0].max() == 127
     else:
         with quant.quantized(True, static_act_amax=[0.5 * float(x.abs().max()), 0.0]):
-            pairs = list(zip((quant._quant_act(x), quant._quant_act(x)), want["qa_sites"]))
+            pairs = list(zip((site_act(x), site_act(x)), want["qa_sites"]))
     for (x8, stats), (w8, wscale) in pairs:
         assert x8.dtype == torch.int8 and x8.shape == x.shape
         np.testing.assert_array_equal(x8.numpy().reshape(w8.shape), w8)
@@ -310,11 +314,12 @@ def test_linear_equals_jax(ref):
 
 @pytest.mark.parametrize("name,k,stride,pad", CONVS)
 def test_kernel_layout_plain_versions_equal_the_product(name, k, stride, pad):
-    """What the card runs, through the kernels' plain versions: Q2 writes the
-    activation channels-last, 8 channels padded to 16; Q1 reads that and the
-    padded weight layout and applies the epilogue with the bias. Bit-equal
-    to the integer convolution of the same int8 values (float64 F.conv2d,
-    exact) rescaled as the JAX package does."""
+    """What the card runs, through the kernels' plain versions: a site
+    (``w8a8_site``, one library call on the card) is Q2, which writes the
+    activation channels-last, 8 channels padded to 16, then Q1, which reads
+    that and the padded weight layout and applies the epilogue with the
+    bias. Bit-equal to the integer convolution of the same int8 values
+    (float64 F.conv2d, exact) rescaled as the JAX package does."""
     rng = np.random.default_rng(2026)
     x = torch.from_numpy(rng.standard_normal((2, 10, 10, 8), dtype=np.float32))
     w = torch.from_numpy(rng.standard_normal((16, 8, k, k), dtype=np.float32) * 0.1)
@@ -326,18 +331,123 @@ def test_kernel_layout_plain_versions_equal_the_product(name, k, stride, pad):
     assert stats[0] == x.abs().max() and stats[1] == stats[0] / torch.tensor(127.0)
     w8, wscale = quant._quant_weight(w, (1, 2, 3))
     assert torch.equal(quant.kernel_layout(w8)[..., :c], w8.permute(0, 2, 3, 1))
+    site, site_stats = quant.w8a8_site(x.reshape(-1, c), (b, h, wd), quant.kernel_layout(w8),
+                                       wscale, bias, torch.float32, stride, pad, None)
+    assert torch.equal(site_stats, stats) and torch.equal(site.permute(0, 3, 1, 2), got)
     acc = torch.nn.functional.conv2d(x8[:, :c].reshape(b, h, wd, c).permute(0, 3, 1, 2).double(),
                                      w8.double(), None, stride, pad)
     want = (acc.float() * (wscale * stats[1])[:, None, None]).float() + bias[:, None, None]
     assert torch.equal(got, want)
 
 
+# (M, N, K) of the distinct int8 products of a 512 x 512 ControlNet + UNet step
+STEP_PRODUCTS = [
+    (4096, 320, 144), (4096, 320, 320), (4096, 320, 2880), (77, 320, 1024), (4096, 2560, 320),
+    (4096, 320, 1280), (1024, 320, 2880), (1024, 320, 320), (1024, 640, 2880), (1024, 640, 5760),
+    (1024, 640, 320), (1024, 640, 640), (77, 640, 1024), (1024, 5120, 640), (1024, 640, 2560),
+    (256, 640, 5760), (256, 640, 640), (256, 1280, 5760), (256, 1280, 11520), (256, 1280, 640),
+    (256, 1280, 1280), (77, 1280, 1024), (256, 10240, 1280), (256, 1280, 5120),
+    (64, 1280, 11520), (64, 1280, 1280), (64, 10240, 1280), (64, 1280, 5120),
+    (64, 1280, 23040), (64, 1280, 2560), (256, 1280, 23040), (256, 1280, 2560),
+    (256, 1280, 17280), (256, 1280, 1920), (1024, 1280, 11520), (1024, 640, 17280),
+    (1024, 640, 1920), (1024, 640, 11520), (1024, 640, 1280), (1024, 640, 8640), (1024, 640, 960),
+    (4096, 640, 5760), (4096, 320, 8640), (4096, 320, 960), (4096, 320, 5760), (4096, 320, 640),
+    (4096, 4, 2880),
+]
+
+
 def test_split_k_splits_the_inner_blocks_only():
-    """At 512 x 512: the 8 x 8 level's 3x3 conv (M = 64, N = 1280, K =
-    11,520) is split over blocks; the 64 x 64 level's (M = 4096, N = 320)
-    fills the card with one split."""
-    assert quant.split_k(64, 1280, 9 * 1280) > 1
-    assert quant.split_k(4096, 320, 9 * 320) == 1
+    """Q1's schedule at 512 x 512: the 8 x 8 and 16 x 16 levels' 3x3 convs
+    (M = 64 and 256, N = 1280, K = 11,520) split K inside the launch; the
+    64 x 64 level's dense layers and its feed-forward input (M = 4096) fill
+    the card with one split."""
+    assert quant.conv_schedule(64, 1280, 9 * 1280)[1] > 1
+    assert quant.conv_schedule(256, 1280, 9 * 1280)[1] > 1
+    assert quant.conv_schedule(4096, 320, 320, gather=False)[1] == 1
+    assert quant.conv_schedule(4096, 2560, 320, gather=False)[1] == 1
+    assert quant.gathered(3, 3, 1, 1) and quant.gathered(1, 1, 2, 0)
+    assert not quant.gathered(1, 1, 1, 0)
+
+
+@pytest.mark.parametrize("m,n,k", STEP_PRODUCTS + [(5, 6, 16), (300, 130, 48), (1, 4, 4096)])
+@pytest.mark.parametrize("gather", [True, False])
+def test_conv_schedule_covers_k_once(m, n, k, gather):
+    """Every split holds at least one 128-byte K step and the splits hold
+    them all; a split launch makes at most one wave of the 132 SMs, with at
+    most MAX_SPLITS splits a tile (one thread block cluster), and at most
+    MAX_CLUSTERED_BLOCKS blocks in clusters of more than two."""
+    bn, splits, per = quant.conv_schedule(m, n, k, gather)
+    steps = -(-k // quant.CONV_BK)
+    assert bn in quant.CONV_BN and per >= 1
+    assert (splits - 1) * per < steps <= splits * per
+    if splits > 1:
+        blocks = -(-m // quant.CONV_BM) * -(-n // bn) * splits
+        assert splits <= quant.MAX_SPLITS and per >= quant.MIN_SPLIT_STEPS and blocks <= 132
+        assert splits <= 2 or blocks <= quant.MAX_CLUSTERED_BLOCKS
+
+
+def emulate_q1_blocks(x8, w8, stats, wscale, bias, dtype, stride, pad, schedule):
+    """Q1's block program (int8_conv.cu) on the CPU: for each 128 x bn tile
+    and each split of its 128-byte K steps, the im2col rows gathered in
+    16-byte pieces of one tap (zero outside the image and past K) times the
+    weight rows (zero past O), summed in int64 over the split's steps; the
+    splits' sums added as the workspace adds them; the epilogue on the total.
+    Edit it with csrc/int8_conv.cu."""
+    b, h, w, cp = x8.shape
+    o, kh, kw, _ = w8.shape
+    bn, splits, per = schedule
+    ho, wo = (h + 2 * pad - kh) // stride + 1, (w + 2 * pad - kw) // stride + 1
+    m_total, k_total = b * ho * wo, kh * kw * cp
+    xpad = F.pad(x8.long(), (0, 0, pad, pad, pad, pad))  # zero outside the image
+    wk = w8.long().reshape(o, k_total)
+    acc = torch.zeros(m_total, o, dtype=torch.int64)
+    for m0 in range(0, m_total, quant.CONV_BM):
+        rows = torch.arange(m0, min(m0 + quant.CONV_BM, m_total))
+        bi, rem = rows // (ho * wo), rows % (ho * wo)
+        oy, ox = rem // wo, rem % wo
+        for n0 in range(0, o, bn):
+            cols = slice(n0, min(n0 + bn, o))
+            for z in range(splits):
+                part = torch.zeros(len(rows), cols.stop - n0, dtype=torch.int64)
+                for step in range(z * per, min((z + 1) * per, -(-k_total // quant.CONV_BK))):
+                    for piece in range(quant.CONV_BK // 16):
+                        k = step * quant.CONV_BK + piece * 16
+                        if k >= k_total:
+                            continue
+                        tap, c = divmod(k, cp)
+                        ky, kx = divmod(tap, kw)
+                        a = xpad[bi, oy * stride + ky, ox * stride + kx, c:c + 16]
+                        part += a @ wk[cols, k:k + 16].T
+                acc[rows, cols] += part
+    return quant._rescale(acc.double(), wscale, stats[1], bias, dtype).reshape(b, ho, wo, o)
+
+
+@pytest.mark.parametrize("shape", [
+    ((2, 9, 7, 32), (40, 3, 3), 2, 1),     # stride 2, ragged M, N and K
+    ((1, 6, 6, 48), (36, 3, 3), 1, 1),     # K = 432: 4 steps, taps across steps
+    ((150, 1, 1, 272), (8, 1, 1), 1, 0),   # a dense layer: two M tiles, a partial K step
+])
+@pytest.mark.parametrize("forced", [None, (32, 2), (160, 3)])
+def test_q1_block_program_equals_the_plain_product(shape, forced):
+    """The kernel's tiles, splits and im2col pieces, emulated, give the plain
+    version's output bit for bit under the schedule conv_schedule picks and
+    under forced (width, splits)."""
+    (b, h, w, c), (o, kh, kw), stride, pad = shape
+    rng = np.random.default_rng(7)
+    x8 = torch.from_numpy(rng.integers(-127, 128, (b, h, w, c), dtype=np.int8))
+    w8 = torch.from_numpy(rng.integers(-127, 128, (o, kh, kw, c), dtype=np.int8))
+    wscale = torch.from_numpy(rng.uniform(1e-3, 1e-2, o).astype(np.float32))
+    stats = torch.tensor([3.0, 3.0 / 127.0])
+    bias = torch.from_numpy(rng.standard_normal(o, dtype=np.float32))
+    ho, wo = (h + 2 * pad - kh) // stride + 1, (w + 2 * pad - kw) // stride + 1
+    schedule = quant.conv_schedule(b * ho * wo, o, kh * kw * c,
+                                   quant.gathered(kh, kw, stride, pad))
+    if forced is not None:
+        per = -(-(-(-kh * kw * c // quant.CONV_BK)) // forced[1])
+        schedule = (forced[0], -(-(-(-kh * kw * c // quant.CONV_BK)) // per), per)
+    want = quant.int8_conv_plain(x8, w8, stats, wscale, bias, torch.float32, stride, pad)
+    got = emulate_q1_blocks(x8, w8, stats, wscale, bias, torch.float32, stride, pad, schedule)
+    assert torch.equal(got, want)
 
 
 def _held(got, want, what: str) -> None:
