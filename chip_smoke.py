@@ -53,12 +53,19 @@ through its kernels:
             weights and bfloat16 compute on one 512 x 512 image (phase train);
             then the port's trainer as a user starts it, ``python -m
             tair_tpu_torch.train`` on configs/train_chip_demo.yaml (its own
-            data, degradation on the card, checkpoint, resume, validation and
-            weight export; phase train_entry);
+            data, degradation on the card, checkpoint, resume, validation with
+            NIQE and the five learned IQA metrics, and weight export; phase
+            train_entry);
+  metrics   the learned IQA metrics (LPIPS, DISTS, CLIP-IQA, MANIQA, MUSIQ) at
+            full width from seeded checkpoints in their published layouts,
+            read by ``from_torch``, on a 512 x 512 image: milliseconds per
+            image, peak memory, two calls bit-equal, the card against the CPU
+            (phase iqa; plain PyTorch, no kernel of the port);
   entry     the port's serving and evaluation entry points as a user starts
             them: ``python -m tair_tpu_torch.val`` on two 512 x 512 images in
-            both loops (host-fed CAPTION prompts, and ``--fused``; phase val,
-            which also counts the host synchronisations of a step of each),
+            both loops (host-fed CAPTION prompts, and ``--fused``; each image
+            scored by the five learned metrics; phase val, which also counts
+            the host synchronisations of a step of each),
             ``python -m tair_tpu_torch.val_patches`` on a 240 x 240 image, its
             4 patches restored as one batch of 4 at 512 x 512 and again in
             chunks of 3 (phase val_patches), and ``python -m
@@ -197,8 +204,8 @@ PROBE_REPS = 2        # timed repetitions per setting of the probes' own runs
 SERVE_STEPS = 4
 
 PHASES = ("kernels", "probes", "reference", "restore", "restore_flatpatch", "layers",
-          "enc_topk", "quant", "diffbir", "ckpt", "train_reference", "train", "train_entry", "val",
-          "val_patches", "spotter_eval")
+          "enc_topk", "quant", "diffbir", "ckpt", "train_reference", "train", "iqa", "train_entry",
+          "val", "val_patches", "spotter_eval")
 # the paths on which the serving entry points run K1 and K3
 ENTRY_PHASES = ("val", "val_patches", "spotter_eval")
 
@@ -1472,13 +1479,14 @@ def read_jsonl(path: Path) -> list:
     return [json.loads(line) for line in path.read_text().splitlines()]
 
 
-def phase_train_entry(seed: int) -> dict:
+def phase_train_entry(seed: int, iqa_weights: dict) -> dict:
     """The port's trainer as a user starts it (``python -m tair_tpu_torch.train``)
     on configs/train_chip_demo.yaml in a scratch directory: three full-width
     steps that end in a checkpoint of the whole train state, then a second run
     that resumes from it at step 3 and takes one step. Then, in this process,
     the trainer's validation (10 steps at 256 x 256, features of step 10, PSNR,
-    SSIM, OCR loss) on the weights of the last checkpoint, the float16 weight
+    SSIM, OCR loss, NIQE fitted on the batch's ground truth, and the five
+    learned metrics from `iqa_weights`) on the weights of the last checkpoint, the float16 weight
     export in the JAX layout and its reload, and the degradation of one batch
     timed on the card. Returns the launch counts of the trainer's steps and of
     the validation."""
@@ -1628,6 +1636,8 @@ def phase_train_entry(seed: int) -> dict:
 
         # the trainer's validation
         targets = {k: batch[k] for k in ("inst_mask", "boxes", "ctrl_points", "texts")}
+        for m, w in iqa_weights.items():
+            setattr(cfg.val, f"{m}_weights", w)
         reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -1646,8 +1656,9 @@ def phase_train_entry(seed: int) -> dict:
         if val_launches != want_val:
             raise AssertionError(f"train_entry validation launches {val_launches}, "
                                  f"structure says {want_val}")
-        if not all(np.isfinite(val[k]) for k in ("psnr", "ssim", f"ocr_loss_iter{VAL_TAGS[0]}")):
-            raise AssertionError(f"train_entry: validation metrics {val}")
+        want_keys = {"psnr", "ssim", f"ocr_loss_iter{VAL_TAGS[0]}", "niqe", *iqa_weights}
+        if set(val) != want_keys or not all(np.isfinite(v) for v in val.values()):
+            raise AssertionError(f"train_entry: validation metrics {val}, want {want_keys} finite")
         if not (work / "val" / "val_0.png").is_file():
             raise AssertionError("train_entry: validation wrote no image")
 
@@ -1684,6 +1695,162 @@ def phase_train_entry(seed: int) -> dict:
         return path_launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# the learned IQA metrics (phase iqa): scored on 512 x 512 images; the card's
+# score held against the CPU's on the same weights and input:
+# |card - CPU| <= IQA_TOL * max(1, |CPU|) (float32 on both sides with TF32 off,
+# sums in another order through up to 12 ViT and 8 Swin blocks)
+IQA_SIZE = 512
+IQA_TOL = 1e-4
+# parameters whose seeded values are 0.02-normal (embeddings, position tables)
+_SMALL_PARAMS = ("cls_token", "pos_embed", "positional_embedding", "spatial_embedding",
+                 "scale_embedding", "relative_position_bias_table")
+
+
+def seeded_tree(build, seed: int) -> dict:
+    """The JAX-layout tree of the module `build()` makes, with weights from a
+    seed: normal with variance 1/fan_in, embeddings and position tables
+    0.02-normal, norm scales and batch-norm variances 1, other vectors 0, and
+    DISTS' alpha and beta its own init, normal(0.1, 0.01)."""
+    from tair_tpu_torch.weights.convert import module_param_shapes, to_jax_tree
+
+    with torch.device("meta"):
+        module = build()
+    module = module.to_empty(device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("alpha", "beta"):
+                p.copy_(0.1 + 0.01 * torch.randn(p.shape, generator=gen))
+            elif p.dim() == 1:
+                p.fill_(1.0 if leaf in ("weight", "var") else 0.0)
+            else:
+                std = 0.02 if leaf in _SMALL_PARAMS else p[0].numel() ** -0.5
+                p.copy_(torch.randn(p.shape, generator=gen) * std)
+    return to_jax_tree(module.state_dict(), module_param_shapes(module))
+
+
+def write_iqa_checkpoints(root: Path, seed: int) -> dict:
+    """Each learned metric's checkpoint at full width in its published layout,
+    written under `root` by the port's exporters from seeded trees: torchvision
+    AlexNet + LPIPS lin, torchvision VGG16 + DISTS weights.pt, OpenAI CLIP RN50
+    (its 12-layer width-512 text tower), IIGROUP/MANIQA (ViT-B/8 at 224, 2 + 2
+    TAB blocks and Swin stages), MUSIQ (hidden 384, 14 layers, scales 384 and
+    224 besides the image's own). Returns each metric's val.<name>_weights
+    entry."""
+    from tair_tpu_torch.models.clip import CLIPTextConfig, CLIPTextTower
+    from tair_tpu_torch.utils import clipiqa, dists, lpips, maniqa, musiq
+    from tair_tpu_torch.weights import export as tx
+
+    def save(name, sd):
+        torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()}, root / name)
+        return str(root / name)
+
+    root.mkdir(parents=True, exist_ok=True)
+    out = {}
+    tree = seeded_tree(lpips.LPIPS, seed)
+    for i in range(5):  # LPIPS's heads weigh squared differences: non-negative, as trained
+        tree[f"lin{i}"]["kernel"] = np.abs(tree[f"lin{i}"]["kernel"])
+    alex, lin = tx.export_lpips(tree)
+    out["lpips"] = f"{save('alexnet.pth', alex)}:{save('lpips_lin.pth', lin)}"
+    vgg, weights = tx.export_dists(seeded_tree(dists.DISTS, seed + 1))
+    out["dists"] = f"{save('vgg16.pth', vgg)}:{save('dists_weights.pt', weights)}"
+    vcfg = clipiqa.ModifiedResNetConfig()
+    tcfg = CLIPTextConfig(width=512, heads=8, layers=12, layer="last", act="quick_gelu")
+    gen = torch.Generator().manual_seed(seed + 2)
+    tree = {"visual": seeded_tree(lambda: clipiqa.ModifiedResNet(vcfg), seed + 3),
+            "text": seeded_tree(lambda: CLIPTextTower(tcfg), seed + 4),
+            "text_projection": (torch.randn(tcfg.width, vcfg.embed_dim, generator=gen)
+                                * tcfg.width ** -0.5).numpy(),
+            "logit_scale": np.asarray(np.log(100.0), np.float32)}
+    out["clipiqa"] = save("RN50.pt", tx.export_clipiqa(tree, vcfg, tcfg))
+    mcfg = maniqa.MANIQAConfig()
+    out["maniqa"] = save("ckpt_koniq10k.pt", tx.export_maniqa(
+        seeded_tree(lambda: maniqa.MANIQA(mcfg), seed + 5), mcfg, "module."))
+    qcfg = musiq.MUSIQConfig()
+    out["musiq"] = save("musiq_koniq_ckpt.pth", tx.export_musiq(
+        seeded_tree(lambda: musiq.MUSIQ(qcfg), seed + 6), qcfg, published=True))
+    return out
+
+
+def phase_iqa(weights: dict, seed: int, smi: str) -> None:
+    """Each learned metric at full width, read by ``from_torch`` from the
+    checkpoints of `write_iqa_checkpoints`, scoring a 512 x 512 SyntheticSAText
+    image degraded on the card (LPIPS and DISTS against its ground truth):
+    milliseconds per image (CUDA events, median of 5 calls after a warm-up),
+    peak device memory of a call, a call's device busy time, idle share and
+    top kernels (torch.profiler), two calls bit-equal, and the card's score
+    against the CPU's with the same weights on the same input (MANIQA on one
+    224 x 224 crop with num_crops=1: its 20 crops at full width are too slow
+    for the CPU here)."""
+    import copy
+
+    from tair_tpu_torch.utils.iqa import METRICS, build_metric, score
+
+    t_phase = time.perf_counter()
+    lq, gt = synthetic_pairs(1, IQA_SIZE, seed)
+    a, b = torch.from_numpy(lq).cuda(), torch.from_numpy(gt).cuda()
+    report = {}
+    for name in METRICS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metric = build_metric(name, weights[name], "cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+
+        def run():
+            return score(metric, name, a, b)
+
+        first, second = run(), run()
+        if first.shape != (1,) or not torch.isfinite(first).all():
+            raise AssertionError(f"iqa {name}: score {first}")
+        ms = time_ms(run, warmup=1, reps=5, inner=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+
+        def wall() -> float:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        prof = profiled(wall)
+        prof["top_kernels"] = prof["top_kernels"][:3]
+
+        # the same weights and input on the CPU
+        card, x, y, size = metric, a, b, IQA_SIZE
+        if name == "maniqa":
+            size = metric.cfg.vit.img_size
+            card = copy.copy(metric)
+            card.num_crops = 1
+            x, y = a[:, :size, :size], b[:, :size, :size]
+        cpu = build_metric(name, weights[name], "cpu")
+        if name == "maniqa":
+            cpu.num_crops = 1
+        got = score(card, name, x, y).item()
+        want = score(cpu, name, x.cpu(), y.cpu()).item()
+        err = abs(got - want)
+        tol = IQA_TOL * max(1.0, abs(want))
+        if not err <= tol:
+            raise AssertionError(f"iqa {name}: card {got} against CPU {want}: |d| {err} > {tol}")
+        report[name] = dict(
+            ms_per_image_cuda_events=ms, peak_memory_bytes=peak, load_seconds=load_s,
+            device=prof,
+            score=first.item(), repeat_bit_equal=bool(torch.equal(first, second)),
+            against_cpu=dict(size=size, card=got, cpu=want, max_abs_err=err, tol=tol),
+        )
+        if not report[name]["repeat_bit_equal"]:
+            raise AssertionError(f"iqa {name}: two calls differ: {first} {second}")
+        del metric, card, cpu
+        torch.cuda.empty_cache()
+    emit("iqa", device=smi, image=f"{IQA_SIZE}x{IQA_SIZE} SyntheticSAText, degraded on the card",
+         metrics=report, phase_seconds=time.perf_counter() - t_phase)
 
 
 VAL_CONFIG = "configs/val.yaml"
@@ -1842,12 +2009,13 @@ def syncs_per_step(fn, steps=(2, 3)) -> dict:
 VAL_KEYS = {"step", "time", "image", "pred_texts", "psnr", "ssim"}
 
 
-def phase_val(structure, seed: int, host_syncs: dict) -> dict:
+def phase_val(structure, seed: int, host_syncs: dict, iqa_weights: dict) -> dict:
     """``python -m tair_tpu_torch.val`` as a user starts it, on two 512 x 512
     LQ/GT pairs (SyntheticSAText, degraded on the card) with configs/val.yaml's
-    settings (but score_threshold 0), once with the host-feedback CAPTION loop
-    (the default) and once ``--fused``, SERVE_STEPS steps each. Returns the launch counts of all four
-    requests."""
+    settings (but score_threshold 0) and the five learned metrics' checkpoints
+    (`iqa_weights`), once with the host-feedback CAPTION loop (the default)
+    and once ``--fused``, SERVE_STEPS steps each: every image's line carries
+    all five scores, finite. Returns the launch counts of all four requests."""
     import shutil
     import tempfile
 
@@ -1869,20 +2037,25 @@ def phase_val(structure, seed: int, host_syncs: dict) -> dict:
             # score_threshold 0 keeps every proposal of the randomly initialised
             # spotter, so the prompts carry words (and the CAPTION ones pass 77 tokens)
             cfg = serving_config(work / f"{mode}.yaml", lq_dir=work / "lq", gt_dir=work / "gt",
-                                 output_dir=out, score_threshold=0.0)
+                                 output_dir=out, score_threshold=0.0,
+                                 **{f"{m}_weights": f'"{w}"' for m, w in iqa_weights.items()})
             run = run_entry_point("tair_tpu_torch.val",
                                   ["--config", str(cfg), "--steps", str(SERVE_STEPS), *extra], work)
             for k, v in check_reports(f"val {mode}", run["reports"], want, 2).items():
                 launches[k] = launches.get(k, 0) + v
             check_images(f"val {mode}", out, [f"{kind}_img{i}.png" for i in range(2)
                                               for kind in ("restored", "pred_texts")], (512, 512))
-            records = check_metrics(f"val {mode}", out / "val_metrics.jsonl", VAL_KEYS, 2)
+            records = check_metrics(f"val {mode}", out / "val_metrics.jsonl",
+                                    VAL_KEYS | set(iqa_weights), 2)
+            if not all(np.isfinite(r[m]) for r in records for m in iqa_weights):
+                raise AssertionError(f"val {mode}: a learned metric is not finite: {records}")
             runs[mode] = dict(
                 process_seconds=run["seconds"],
                 seconds_per_image=[r["seconds"] for r in run["reports"]],
                 peak_memory_bytes=[r["peak_memory_bytes"] for r in run["reports"]],
                 psnr=[r["psnr"] for r in records], ssim=[r["ssim"] for r in records],
                 words=[len(r["pred_texts"]) for r in records],
+                **{m: [r[m] for r in records] for m in iqa_weights},
             )
         emit("val", steps=SERVE_STEPS, images=2, size=512, config=VAL_CONFIG,
              launches_per_image=want, host_syncs=host_syncs, **runs)
@@ -3285,8 +3458,30 @@ def main() -> None:
         path_launches["train"] = phase_train(
             args.seed, args.train_steps, model_kernels, args.profile_train
         )
+    iqa_weights = {}
+    if phases & {"iqa", "train_entry", "val"}:
+        import shutil
+
+        iqa_root = Path(__file__).resolve().parent / "build" / "iqa"
+        t0 = time.perf_counter()
+        iqa_weights = write_iqa_checkpoints(iqa_root, args.seed)
+        emit("iqa_checkpoints", seconds=time.perf_counter() - t0, weights=iqa_weights,
+             megabytes=sum(p.stat().st_size for p in iqa_root.iterdir()) / 1e6)
+    try:
+        run_iqa_and_later_phases(args, phases, smi, kernels, path_launches, host_syncs,
+                                 iqa_weights)
+    finally:
+        if iqa_weights:
+            shutil.rmtree(iqa_root, ignore_errors=True)
+
+
+def run_iqa_and_later_phases(args, phases, smi, kernels, path_launches, host_syncs,
+                             iqa_weights) -> None:
+    """Phases iqa, train_entry and the entry points, then the verdict."""
+    if "iqa" in phases:
+        phase_iqa(iqa_weights, args.seed, smi)
     if "train_entry" in phases:
-        path_launches["train_entry"] = phase_train_entry(args.seed)
+        path_launches["train_entry"] = phase_train_entry(args.seed, iqa_weights)
         for entry in kernels:
             if "train" in entry["paths"]:  # the trainer runs every kernel of the train step
                 entry["paths"] = (*entry["paths"], "train_entry")
@@ -3294,7 +3489,7 @@ def main() -> None:
         torch.cuda.empty_cache()  # the entry points run in processes of their own
         structure = serving_structure()
         if "val" in phases:
-            path_launches["val"] = phase_val(structure, args.seed, host_syncs)
+            path_launches["val"] = phase_val(structure, args.seed, host_syncs, iqa_weights)
         if "val_patches" in phases:
             path_launches["val_patches"] = phase_val_patches(structure, args.seed)
         if "spotter_eval" in phases:

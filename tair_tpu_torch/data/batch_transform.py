@@ -158,13 +158,13 @@ def degrade_batch(
         if rng is None:
             raise ValueError("degrade_batch needs either draws or a numpy rng to draw them")
         draws = sample_draws(rng, hq.shape[0], cfg)
-    with _exact_float32(hq.device.type):
+    with exact_float32(hq.device.type):
         return _degrade(hq.float(), kernel1.float(), kernel2.float(),
                         sinc_kernel.float(), cfg, draws, generator)
 
 
 @contextlib.contextmanager
-def _exact_float32(device_type: str):
+def exact_float32(device_type: str):
     """Autocast off and TF32 off for matrix products and convolutions."""
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False

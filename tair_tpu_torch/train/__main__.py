@@ -32,6 +32,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from typing import Optional
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -162,6 +163,7 @@ def main(argv=None) -> None:
         print(f"exported weights {path}", flush=True)
 
     loss_acc, t_last = [], time.time()
+    val_metric_cache: dict = {}  # NIQE parameters and metrics built, for every validation
     batches_taken = 0
     global_step = state.step
     while global_step < max_steps:
@@ -223,6 +225,7 @@ def main(argv=None) -> None:
                     k: host_batch[k] for k in ("inst_mask", "boxes", "ctrl_points", "texts")
                 } if tc.stage in ("stage2", "stage3") else None,
                 image_dir=os.path.join(tc.exp_dir, "val_images", f"step_{global_step}"),
+                metric_cache=val_metric_cache,
             )
             logger.log(global_step, val_metrics, prefix="val/")
 
@@ -270,27 +273,59 @@ def _dir_bytes(path: str) -> int:
     )
 
 
-# the JAX trainer's validation metrics beyond PSNR/SSIM, which need modules
-# (NIQE) or external weights (the others) that the port does not have yet
-_AUX_METRICS = ("lpips", "dists", "clipiqa", "maniqa", "musiq")
+def aux_val_metrics(cfg, restored, gt01, cache: Optional[dict] = None) -> dict:
+    """The validation metrics beyond PSNR/SSIM, as the JAX trainer's
+    ``_aux_val_metrics`` computes them (``train.py:262-345``), each the mean
+    over the batch of ``[B, H, W, 3]`` images in [0, 1]:
 
+    - NIQE where the images are at least 96 pixels on their short side (its
+      patch size), against ``val.niqe_params`` when set, else against a
+      pristine model fitted on the batch's ground-truth rows;
+    - LPIPS, DISTS, CLIP-IQA, MANIQA, MUSIQ where ``val.<name>_weights`` names
+      their checkpoints (``utils/iqa.build_metric``), on the images' device.
 
-def skipped_val_metrics(cfg) -> list:
-    """Names of the JAX trainer's extra validation metrics that this run
-    would compute there and cannot here: NIQE always, the learned ones where
-    the config names their weights."""
-    return ["niqe"] + [m for m in _AUX_METRICS if getattr(cfg.val, f"{m}_weights", None)]
+    `cache` keeps the NIQE parameters and the metrics built, by (name, path),
+    across calls (the trainer passes one for the run)."""
+    import numpy as np
+
+    from ..utils.iqa import METRICS, build_metric, score
+    from ..utils.niqe import NIQEParams, fit_niqe_params, niqe, rgb_to_gray255
+
+    cache = {} if cache is None else cache
+    vc = getattr(cfg, "val", None)
+    out = {}
+    if min(restored.shape[1:3]) >= 96:
+        restored_h = restored.detach().float().cpu().numpy()
+        src = getattr(vc, "niqe_params", None) if vc is not None else None
+        if ("niqe", src) not in cache:
+            cache[("niqe", src)] = NIQEParams.load(src) if src else None
+        params = cache[("niqe", src)]
+        if params is None:
+            gt_h = gt01.detach().float().cpu().numpy()
+            params = fit_niqe_params([rgb_to_gray255(g) for g in gt_h])
+        out["niqe"] = float(np.mean([niqe(r, params) for r in restored_h]))
+    if vc is None:
+        return out
+    for name in METRICS:
+        path = getattr(vc, f"{name}_weights", None)
+        if not path:
+            continue
+        if (name, path) not in cache:
+            cache[(name, path)] = build_metric(name, path, restored.device)
+        out[name] = score(cache[(name, path)], name, restored, gt01).mean().item()
+    return out
 
 
 def run_validation(
     model, cfg, gt, lq, tokens, n_images: int = 2, steps: int = 10,
-    feat_iterations=(), targets=None, image_dir=None, generator=None,
+    feat_iterations=(), targets=None, image_dir=None, generator=None, metric_cache=None,
 ):
     """In-loop validation: restore a few images with their prompt, report
-    PSNR/SSIM against the ground truth, and (stage 2/3) the OCR loss of the
-    spotter on the UNet features captured at each tagged iteration. Runs
-    under the config's compute type; the metrics the port lacks are reported
-    by name under ``skipped_metrics``."""
+    PSNR/SSIM against the ground truth, `aux_val_metrics` (NIQE, and the
+    learned metrics the config names; `metric_cache` as there), and (stage
+    2/3) the OCR loss of the spotter on the UNet features captured at each
+    tagged iteration. The restore runs under the config's compute type, the
+    metrics in float32."""
     import numpy as np
     import torch
 
@@ -328,7 +363,7 @@ def run_validation(
                     metrics[f"ocr_loss_iter{tag}"] = losses["loss_total"].item()
     finally:
         model.train(was_training)
-    metrics["skipped_metrics"] = ",".join(skipped_val_metrics(cfg))
+    metrics.update(aux_val_metrics(cfg, restored, gt01, metric_cache))
     if image_dir is not None and is_main_process():
         os.makedirs(image_dir, exist_ok=True)
         panel = torch.cat([lq_n.float(), restored, gt01], dim=2).cpu().numpy()

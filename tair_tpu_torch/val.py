@@ -7,7 +7,15 @@ TAG) or, with ``--fused``, ``restore_fused_feedback`` (the TAG prompt spliced
 on the device, refreshed every ``--spotter-every`` steps). It writes
 ``restored_{stem}.png``, the overlay ``pred_texts_{stem}.png`` and one line
 per image to ``val_metrics.jsonl`` in ``val.output_dir`` (image, pred_texts,
-NIQE when ``val.niqe_params`` is set, PSNR/SSIM against ``val.gt_dir``).
+NIQE when ``val.niqe_params`` is set, CLIP-IQA, MANIQA and MUSIQ when their
+``val.<name>_weights`` are set, and against ``val.gt_dir`` PSNR/SSIM and,
+when set, LPIPS and DISTS). The learned metrics' weights are PyTorch
+checkpoints in their published layouts (``utils/iqa.py``): ``lpips_weights``
+is ``alexnet.pth:lpips_lin.pth`` (torchvision's AlexNet, LPIPS's ``lin``
+heads), ``dists_weights`` ``vgg16.pth:weights.pt``, ``clipiqa_weights``
+OpenAI CLIP RN50, ``maniqa_weights`` IIGROUP/MANIQA's checkpoint,
+``musiq_weights`` a MUSIQ state dict. Each metric is built once and scores
+the restored image on the model's device.
 Usage:
 
     python -m tair_tpu_torch.val --config configs/val.yaml [--ckpt params.npz]
@@ -18,11 +26,10 @@ there is none. The weights are random from seed 0 unless ``--ckpt`` names an
 npz in the JAX package's layout: ``python -m tair_tpu_torch.convert_weights``
 writes one from the released PyTorch checkpoints. ``--enc-topk N`` serves
 with the sparse spotter encoder update (``TESTRConfig.enc_topk``). Image i
-draws its noise from a ``torch.Generator`` seeded with ``val.seed + i``. A config that names the
-weights of a learned IQA metric (LPIPS, DISTS, CLIP-IQA, MANIQA, MUSIQ)
-raises: the port has none of them yet. Besides the files, each image prints
-one JSON line to stderr: its seconds (host clock, after a synchronise), the
-kernel launches of its restore, and the peak device memory.
+draws its noise from a ``torch.Generator`` seeded with ``val.seed + i``.
+Besides the files, each image prints one JSON line to stderr: its seconds
+(host clock, after a synchronise), the kernel launches of its restore, and
+the peak device memory.
 """
 
 from __future__ import annotations
@@ -32,9 +39,6 @@ import json
 import os
 import sys
 import time
-
-# the JAX script's metrics that need learned weights the port has no module for yet
-UNPORTED_METRICS = ("lpips", "dists", "clipiqa", "maniqa", "musiq")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -64,16 +68,6 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="cuda (the default; raises without a card) or cpu")
     return parser
-
-
-def check_metric_weights(vc) -> None:
-    """Raise when the config asks for a metric whose weights the port cannot use."""
-    named = [m for m in UNPORTED_METRICS if getattr(vc, f"{m}_weights", None)]
-    if named:
-        raise NotImplementedError(
-            f"val names weights of {', '.join(named)}: these learned metrics are not "
-            "part of the port yet"
-        )
 
 
 def load_model(cfg, device, ckpt=None):
@@ -143,6 +137,7 @@ def main(argv=None) -> None:
     from .pipeline import _resolve_device
     from .spotter.charset import decode_text
     from .utils.image_io import list_images, load_image, save_image
+    from .utils.iqa import FULL_REFERENCE, METRICS, build_metric, score
     from .utils.logging import MetricLogger
     from .utils.metrics import psnr, ssim
     from .utils.visualizer import TextVisualizer
@@ -151,11 +146,14 @@ def main(argv=None) -> None:
     if args.enc_topk:
         cfg.testr_overrides = dict(cfg.testr_overrides or {}, enc_topk=args.enc_topk)
     vc = cfg.val
-    check_metric_weights(vc)
     device = _resolve_device(args.device)
     steps = args.steps or vc.steps
     os.makedirs(vc.output_dir, exist_ok=True)
     logger = MetricLogger(vc.output_dir, "val_metrics.jsonl")
+    # the learned metrics, built once ("backbone:head" for LPIPS and DISTS)
+    learned = {name: build_metric(name, getattr(vc, f"{name}_weights"), device)
+               for name in METRICS if getattr(vc, f"{name}_weights", None)}
+
     model = load_model(cfg, device, args.ckpt)
 
     niqe_params = None
@@ -198,11 +196,17 @@ def main(argv=None) -> None:
         metrics = {"image": name, "pred_texts": final["pred_texts"]}
         if niqe_params is not None:
             metrics["niqe"] = niqe(restored_np, niqe_params)
+        for m in ("clipiqa", "maniqa", "musiq"):  # no reference needed
+            if m in learned:
+                metrics[m] = float(score(learned[m], m, restored)[0])
         if vc.gt_dir:
             gt = load_image(os.path.join(vc.gt_dir, name), args.image_size)
             gt_b = torch.from_numpy(gt)[None]
             metrics["psnr"] = float(psnr(restored.cpu(), gt_b)[0])
             metrics["ssim"] = float(ssim(restored.cpu(), gt_b)[0])
+            for m in FULL_REFERENCE:
+                if m in learned:
+                    metrics[m] = float(score(learned[m], m, restored, gt_b)[0])
         logger.log(i, metrics)
 
     print(f"wrote results to {vc.output_dir}")

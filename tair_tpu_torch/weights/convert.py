@@ -13,7 +13,11 @@ rule per leaf rather than a table per model:
   ``block_<i>`` under a spatial transformer, a CLIP tower or an RSTB layer ->
   ``blocks.<i>``; ``layer_<i>`` of SwinIR -> ``layers.<i>``
   bare parameters (``positional_embedding``, ``rel_pos_bias_table``,
-  ``level_embed``, ``ctrl_point_embed``, ``text_embed``) keep their names.
+  ``level_embed``, ``ctrl_point_embed``, ``text_embed``) keep their names, and
+  so do those of the IQA metrics whatever their rank (inference batch norm's
+  ``mean`` and ``var``, DISTS' ``alpha`` and ``beta``, the ViTs' ``cls_token``
+  and ``pos_embed``, Swin's ``relative_position_bias_table``, MUSIQ's
+  ``spatial_embedding`` and ``scale_embedding``).
 
 The tree is plain nested dicts of numpy arrays (``jax.device_get`` of the
 params); nothing of JAX is imported here. A leaf that no rule takes raises,
@@ -52,6 +56,11 @@ _BARE = {
     "positional_embedding", "rel_pos_bias_table", "level_embed",
     "ctrl_point_embed", "text_embed",
 }
+# bare parameters of the IQA metrics (utils/{clipiqa,dists,maniqa,musiq}.py), of any rank
+_BARE_ANY_RANK = {
+    "mean", "var", "alpha", "beta", "cls_token", "pos_embed",
+    "relative_position_bias_table", "spatial_embedding", "scale_embedding",
+}
 _MHA_PROJ = {"query", "key", "value"}
 _INDEXED = re.compile(r"^(block|layer)_(\d+)$")
 
@@ -81,7 +90,7 @@ def _convert_leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarr
     *mods, leaf = path
     parent = mods[-1] if mods else ""
     base = _module_path(tuple(mods))
-    if leaf in _BARE and arr.ndim == 2:
+    if leaf in _BARE and arr.ndim == 2 or leaf in _BARE_ANY_RANK:
         return (f"{base}.{leaf}" if base else leaf), arr
     if leaf == "embedding" and arr.ndim == 2:
         return f"{base}.weight", arr
@@ -233,7 +242,7 @@ def _jax_leaf(module: torch.nn.Module, parent: Optional[torch.nn.Module], key: s
         return ("bias",), shape
     if isinstance(module, torch.nn.Embedding):
         return ("embedding",), shape
-    if key in _BARE:
+    if key in _BARE or key in _BARE_ANY_RANK:
         return (key,), shape
     inner = ("GroupNorm_0",) if isinstance(module, GroupNorm32) else ()
     if key == "weight" and value.dim() == 1:
@@ -390,6 +399,13 @@ class Reader:
             raise KeyError(full)
         self.used.add(full)
         return np.asarray(self.sd[full])
+
+    def sub(self, prefix: str) -> "Reader":
+        """A reader of the names under this one's prefix + `prefix` that keeps
+        its records (`used`, `missing`) in this one's."""
+        r = Reader(self.sd, self.prefix + prefix, self.export)
+        r.used, r.missing = self.used, self.missing
+        return r
 
     def put(self, key: str, value: np.ndarray) -> None:
         self.sd[self.prefix + key] = value
@@ -837,6 +853,207 @@ def convert_testr(sd: TorchDict, cfg, prefix: str = "testr.") -> Tuple[Params, R
     return _read(_testr_table, sd, cfg, prefix)
 
 
+# --------------------------------------------------------------------------
+# The learned IQA metrics' checkpoints
+#
+# The trees are those of the JAX package's metric modules (utils/{lpips,dists,
+# clipiqa,maniqa,musiq}.py); they reach the port's through `convert_tree`. A
+# metric's file is read whole: a tensor that no table reads raises, unless the
+# published file carries it for a part that the metric never runs (`_UNREAD`).
+# --------------------------------------------------------------------------
+
+# what the published files hold beside the metric's tensors: the classifiers of
+# torchvision's AlexNet and VGG16; the update counts of torch's batch norms and
+# OpenAI CLIP's three integers; the ViT's final norm and head under MANIQA and
+# the buffers its Swin stages derive from their shape
+_UNREAD = {
+    "torchvision": re.compile(r"^classifier\."),
+    "clip": re.compile(r"\.num_batches_tracked$|^(input_resolution|context_length|vocab_size)$"),
+    "maniqa": re.compile(r"^vit\.(norm|head)\.|\.relative_position_index$|\.attn_mask$"),
+}
+
+
+def _read_whole(table, sd: TorchDict, cfg, prefix: str = "",
+                unread: Optional[str] = None) -> Params:
+    """`table` run forwards over `sd`: its tree, after checking that every
+    tensor under `prefix` was read or is one that `_UNREAD[unread]` names."""
+    out, r = _read(table, sd, cfg, prefix)
+    skip = _UNREAD.get(unread)
+    left = sorted(k for k in r.unused() if not (skip and skip.search(k[len(prefix):])))
+    if left:
+        raise ValueError(f"{len(left)} tensors of the checkpoint are read by no table: "
+                         f"{left[:20]}{' ...' if len(left) > 20 else ''}")
+    return out
+
+
+# torchvision's ``features`` indices of the convolutions: AlexNet, and VGG16 by stage
+ALEXNET_FEATURES = (0, 3, 6, 8, 10)
+VGG16_FEATURES = ((0, 2), (5, 7), (10, 12, 14), (17, 19, 21), (24, 26, 28))
+
+
+def _alexnet_table(out: Params, r: Reader, cfg=None) -> None:
+    for si, idx in enumerate(ALEXNET_FEATURES):
+        _conv(out, f"conv{si}_0", r, f"features.{idx}")
+
+
+def _lpips_lin_table(out: Params, r: Reader, cfg=None) -> None:
+    for i in range(len(ALEXNET_FEATURES)):
+        _conv(out, f"lin{i}", r, f"lin{i}.model.1", bias=False)
+
+
+def convert_lpips(alexnet_sd: TorchDict, lin_sd: TorchDict) -> Params:
+    """torchvision's AlexNet (``features.*``) and LPIPS's ``lin{i}.model.1``
+    heads -> utils/lpips.LPIPS's tree (the JAX package reads them in
+    ``LPIPSMetric.from_torch``)."""
+    return {"alex": _read_whole(_alexnet_table, alexnet_sd, None, unread="torchvision"),
+            **_read_whole(_lpips_lin_table, lin_sd, None)}
+
+
+def _vgg16_table(out: Params, r: Reader, cfg=None) -> None:
+    for si, stage in enumerate(VGG16_FEATURES):
+        for ci, idx in enumerate(stage):
+            _conv(out, f"conv{si}_{ci}", r, f"features.{idx}")
+
+
+def _dists_table(out: Params, r: Reader, cfg=None) -> None:
+    # stored [1, C, 1, 1]
+    for name in ("alpha", "beta"):
+        _move(out, name, r, name, lambda w: w.reshape(-1), lambda w: w.reshape(1, -1, 1, 1))
+
+
+def convert_dists(vgg16_sd: TorchDict, dists_sd: TorchDict) -> Params:
+    """torchvision's VGG16 (``features.*``) and DISTS's ``weights.pt``
+    (``alpha``, ``beta``) -> utils/dists.DISTS's tree (the JAX package reads
+    them in ``DISTSMetric.from_torch``)."""
+    return {"vgg": _read_whole(_vgg16_table, vgg16_sd, None, unread="torchvision"),
+            **_read_whole(_dists_table, dists_sd, None)}
+
+
+def _bn(out: Params, dst: str, r: Reader, src: str) -> None:
+    """torch's BatchNorm2d at inference -> utils/clipiqa.BNInfer."""
+    _norm(out, dst, r, src)
+    _move(out, f"{dst}/mean", r, f"{src}.running_mean")
+    _move(out, f"{dst}/var", r, f"{src}.running_var")
+
+
+def _clip_rn50_visual_table(out: Params, r: Reader, cfg) -> None:
+    for i in (1, 2, 3):
+        _conv(out, f"conv{i}", r, f"conv{i}", bias=False)
+        _bn(out, f"bn{i}", r, f"bn{i}")
+    for stage, n_blocks in enumerate(cfg.layers):
+        for blk in range(n_blocks):
+            src, dst = f"layer{stage + 1}.{blk}", f"layer{stage + 1}_{blk}"
+            for i in (1, 2, 3):
+                _conv(out, f"{dst}/conv{i}", r, f"{src}.conv{i}", bias=False)
+                _bn(out, f"{dst}/bn{i}", r, f"{src}.bn{i}")
+            # OpenAI's downsample is Sequential("-1": AvgPool2d, "0": conv, "1": bn)
+            if _present(out, f"{dst}/down_conv", r, f"{src}.downsample.0.weight"):
+                _conv(out, f"{dst}/down_conv", r, f"{src}.downsample.0", bias=False)
+                _bn(out, f"{dst}/down_bn", r, f"{src}.downsample.1")
+    _move(out, "attnpool/positional_embedding", r, "attnpool.positional_embedding")
+    for p in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        _lin(out, f"attnpool/{p}", r, f"attnpool.{p}")
+
+
+def convert_clip_rn50_visual(sd: TorchDict, cfg) -> Params:
+    """OpenAI CLIP's ModifiedResNet image tower (the ``visual.*`` tensors of a
+    CLIP RN50 state dict) -> utils/clipiqa.ModifiedResNet's tree."""
+    return _read_whole(_clip_rn50_visual_table, sd, cfg, "visual.", unread="clip")
+
+
+def _clipiqa_table(out: Params, r: Reader, cfg) -> None:
+    visual_cfg, text_cfg = cfg
+    _clip_rn50_visual_table(out.setdefault("visual", {}), r.sub("visual."), visual_cfg)
+    _clip_table(out.setdefault("text", {}), r, text_cfg)
+    _move(out, "text_projection", r, "text_projection")
+    if _present(out, "logit_scale", r, "logit_scale"):
+        _move(out, "logit_scale", r, "logit_scale")
+
+
+def convert_clipiqa(sd: TorchDict, visual_cfg, text_cfg) -> Params:
+    """A whole OpenAI CLIP RN50 state dict -> {visual, text, text_projection,
+    logit_scale (where the file has it)}: the image tower's tree, the text
+    tower's (models/clip.CLIPTextTower, every block), and the two tensors
+    that CLIP-IQA's text embedding and logits take."""
+    return _read_whole(_clipiqa_table, sd, (visual_cfg, text_cfg), unread="clip")
+
+
+def _maniqa_table(out: Params, r: Reader, cfg) -> None:
+    _conv(out, "vit/patch_embed", r, "vit.patch_embed.proj")
+    _move(out, "vit/cls_token", r, "vit.cls_token", lambda w: w.reshape(1, 1, -1))
+    _move(out, "vit/pos_embed", r, "vit.pos_embed")
+    for i in range(cfg.vit.depth):
+        src, dst = f"vit.blocks.{i}", f"vit/block_{i}"
+        _norm(out, f"{dst}/norm1", r, f"{src}.norm1")
+        _lin(out, f"{dst}/qkv", r, f"{src}.attn.qkv")
+        _lin(out, f"{dst}/proj", r, f"{src}.attn.proj")
+        _norm(out, f"{dst}/norm2", r, f"{src}.norm2")
+        _lin(out, f"{dst}/fc1", r, f"{src}.mlp.fc1")
+        _lin(out, f"{dst}/fc2", r, f"{src}.mlp.fc2")
+
+    for n in (1, 2):
+        for i in range(cfg.num_tab):
+            for p in ("c_q", "c_k", "c_v"):
+                _lin(out, f"tablock{n}_{i}/{p}", r, f"tablock{n}.{i}.{p}")
+        _conv(out, f"conv{n}", r, f"conv{n}")
+        for i, depth in enumerate(cfg.depths):
+            for j in range(depth):
+                src, dst = f"swintransformer{n}.layers.{i}.blocks.{j}", f"swin{n}_{i}/block_{j}"
+                _norm(out, f"{dst}/norm1", r, f"{src}.norm1")
+                _lin(out, f"{dst}/attn/qkv", r, f"{src}.attn.qkv")
+                _lin(out, f"{dst}/attn/proj", r, f"{src}.attn.proj")
+                _move(out, f"{dst}/attn/relative_position_bias_table", r,
+                      f"{src}.attn.relative_position_bias_table")
+                _norm(out, f"{dst}/norm2", r, f"{src}.norm2")
+                _lin(out, f"{dst}/fc1", r, f"{src}.mlp.fc1")
+                _lin(out, f"{dst}/fc2", r, f"{src}.mlp.fc2")
+    for head in ("fc_score", "fc_weight"):
+        _lin(out, f"{head}_0", r, f"{head}.0")
+        _lin(out, f"{head}_3", r, f"{head}.3")
+
+
+def convert_maniqa(sd: TorchDict, cfg) -> Params:
+    """IIGROUP/MANIQA's checkpoint (``module.`` stripped: timm's ViT-B/8 as
+    ``vit.*``, ``tablock{1,2}``, ``conv{1,2}``, ``swintransformer{1,2}``,
+    ``fc_score``, ``fc_weight``) -> utils/maniqa.MANIQA's tree."""
+    return _read_whole(_maniqa_table, sd, cfg, unread="maniqa")
+
+
+def _musiq_table(out: Params, r: Reader, cfg) -> None:
+    pe = "patch_encoder"
+    _conv(out, f"{pe}/root", r, f"{pe}.root", bias=False)
+    _norm(out, f"{pe}/root_gn", r, f"{pe}.root_gn")
+    for gn in ("gn1", "gn2", "gn3"):
+        _norm(out, f"{pe}/block1/{gn}", r, f"{pe}.block1.{gn}")
+    for conv in ("conv1", "conv2", "conv3", "proj"):
+        if _present(out, f"{pe}/block1/{conv}", r, f"{pe}.block1.{conv}.weight"):
+            _conv(out, f"{pe}/block1/{conv}", r, f"{pe}.block1.{conv}", bias=False)
+    _norm(out, f"{pe}/out_gn", r, f"{pe}.out_gn")
+    _lin(out, f"{pe}/embedding", r, f"{pe}.embedding")
+
+    bb = "backbone"
+    _move(out, f"{bb}/spatial_embedding", r, f"{bb}.spatial_embedding")
+    _move(out, f"{bb}/scale_embedding", r, f"{bb}.scale_embedding")
+    _move(out, f"{bb}/cls_token", r, f"{bb}.cls_token", lambda w: w.reshape(1, 1, -1))
+    for i in range(cfg.layers):
+        src, dst = f"{bb}.blocks.{i}", f"{bb}/block_{i}"
+        _norm(out, f"{dst}/norm1", r, f"{src}.norm1")
+        _lin(out, f"{dst}/qkv", r, f"{src}.attn.qkv")
+        _lin(out, f"{dst}/proj", r, f"{src}.attn.proj")
+        _norm(out, f"{dst}/norm2", r, f"{src}.norm2")
+        _lin(out, f"{dst}/fc1", r, f"{src}.mlp.fc1")
+        _lin(out, f"{dst}/fc2", r, f"{src}.mlp.fc2")
+    _norm(out, f"{bb}/encoder_norm", r, f"{bb}.encoder_norm")
+    _lin(out, f"{bb}/head", r, f"{bb}.head")
+
+
+def convert_musiq(sd: TorchDict, cfg) -> Params:
+    """A MUSIQ state dict in utils/musiq's layout (``patch_encoder.*``,
+    ``backbone.*``; weights/musiq_shim.py renames a published one into it)
+    -> utils/musiq.MUSIQ's tree."""
+    return _read_whole(_musiq_table, sd, cfg)
+
+
 def _to_numpy(value) -> np.ndarray:
     if isinstance(value, torch.Tensor):
         value = value.detach()
@@ -852,8 +1069,9 @@ def load_torch_file(path: str) -> TorchDict:
     """A checkpoint as {name: numpy array}: a PyTorch ``.pt`` / ``.pth`` /
     ``.ckpt`` file, or a detectron2 ``.pkl`` (a pickled dict of numpy arrays,
     read with ``encoding="latin1"``). A dict under ``state_dict`` (Lightning)
-    is taken first, then one under ``model`` when no other key starts with
-    ``model.`` (detectron2, ``torch.save({"model": ...})``).
+    is taken first, then one under ``params``, then one under ``model`` when
+    no other key starts with ``model.`` (detectron2, ``torch.save({"model":
+    ...})``).
 
     PyTorch files are read with ``torch.load(weights_only=False)``: Lightning
     checkpoints pickle objects besides tensors (hyper-parameters, callback
@@ -869,6 +1087,8 @@ def load_torch_file(path: str) -> TorchDict:
         sd = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
+    if isinstance(sd, dict) and isinstance(sd.get("params"), dict):
+        sd = sd["params"]
     if isinstance(sd, dict) and "model" in sd and all(
         not k.startswith("model.") for k in sd if k != "model"
     ):

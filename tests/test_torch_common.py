@@ -103,6 +103,24 @@ def t2n(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().float().numpy()
 
 
+def assert_trees_equal(got, want, path=()):
+    """Two parameter trees (nested dicts of arrays) hold the same leaves, bit for bit."""
+    assert set(got) == set(want), (path, sorted(set(got) ^ set(want)))
+    for key, node in want.items():
+        if isinstance(node, dict):
+            assert_trees_equal(got[key], node, path + (key,))
+        else:
+            g, w = np.asarray(got[key]), np.asarray(node)
+            assert g.shape == w.shape, (path + (key,), g.shape, w.shape)
+            np.testing.assert_array_equal(g, w, err_msg="/".join(path + (key,)))
+
+
+def save_checkpoint(path, sd) -> str:
+    """{name: numpy array} saved as PyTorch tensors with ``torch.save``."""
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()}, path)
+    return str(path)
+
+
 def test_noise_params_leave_no_constant_leaf():
     from tair_tpu.spotter.ms_deform_attn import MSDeformAttn
 
@@ -114,3 +132,89 @@ def test_noise_params_leave_no_constant_leaf():
     params = noise_params(shapes, 0)
     for leaf in jax.tree.leaves(params):
         assert leaf.dtype == np.float32 and np.std(leaf) > 0
+
+
+def iqa_checkpoints(root, names=("lpips", "dists", "clipiqa", "maniqa", "musiq")) -> dict:
+    """{metric: its ``val.<name>_weights`` entry}: a checkpoint of each learned
+    IQA metric of `names`, written under `root` by the port's exporter from
+    seeded parameters in the published layouts, at geometries that both
+    packages' readers infer from the shapes: LPIPS and DISTS at their fixed
+    widths; CLIP-IQA's tiny RN50 (stem 8, 64 x 64 grid, text width 8, 2
+    layers); MANIQA's ViT at width 64, depth 10 on 32 x 32 (the published
+    extract blocks 6-9 and Swin settings); MUSIQ at hidden 16, 2 layers, the
+    published two resize scales."""
+    from pathlib import Path
+
+    from tair_tpu.models.clip import CLIPTextConfig as JaxTextConfig
+    from tair_tpu.models.clip import CLIPTextTower as JaxTextTower
+    from tair_tpu.utils import clipiqa as jclip
+    from tair_tpu.utils import dists as jdists
+    from tair_tpu.utils import lpips as jlpips
+    from tair_tpu.utils import maniqa as jmaniqa
+    from tair_tpu.utils import musiq as jmusiq
+    from tair_tpu_torch.models.clip import CLIPTextConfig
+    from tair_tpu_torch.utils import clipiqa, maniqa, musiq
+    from tair_tpu_torch.weights import export as tx
+
+    root = Path(root)
+    x64 = jnp.zeros((1, 64, 64, 3))
+
+    def lpips():
+        params = noise_params(jax_shapes(jlpips.LPIPS().init, x64, x64)["params"], 201)
+        alex, lin = tx.export_lpips(params)
+        return (f"{save_checkpoint(root / 'alexnet.pth', alex)}:"
+                f"{save_checkpoint(root / 'lpips_lin.pth', lin)}")
+
+    def dists():
+        params = noise_params(jax_shapes(jdists.DISTS().init, x64, x64)["params"], 202)
+        for name in ("alpha", "beta"):
+            params[name] = np.abs(params[name]) + np.float32(0.1)
+        vgg, weights = tx.export_dists(params)
+        return (f"{save_checkpoint(root / 'vgg16.pth', vgg)}:"
+                f"{save_checkpoint(root / 'dists_weights.pt', weights)}")
+
+    def clip():
+        visual = dict(layers=(1, 1, 1, 1), width=8, embed_dim=16, heads=4, image_size=64)
+        text = dict(width=8, heads=1, layers=2, layer="last", act="quick_gelu")
+        tree = {
+            "visual": noise_params(jax_shapes(jclip.ModifiedResNet(
+                jclip.ModifiedResNetConfig(**visual)).init, x64)["params"], 203),
+            "text": noise_params(jax_shapes(JaxTextTower(JaxTextConfig(**text)).init,
+                                            jnp.zeros((1, 77), jnp.int32))["params"], 204),
+            "text_projection": np.random.default_rng(205).standard_normal((8, 16),
+                                                                          dtype=np.float32),
+            "logit_scale": np.asarray(np.log(5.0), np.float32),
+        }
+        positive_variances(tree["visual"])
+        sd = tx.export_clipiqa(tree, clipiqa.ModifiedResNetConfig(**visual),
+                               CLIPTextConfig(**text))
+        return save_checkpoint(root / "RN50.pt", sd)
+
+    def maniqa_():
+        vit = dict(img_size=32, patch_size=8, dim=64, depth=10, heads=1)
+        jcfg = jmaniqa.MANIQAConfig(vit=jmaniqa.ViTConfig(**vit), embed_dim=16)
+        params = noise_params(
+            jax_shapes(jmaniqa.MANIQA(jcfg).init, jnp.zeros((1, 32, 32, 3)))["params"], 206)
+        sd = tx.export_maniqa(params, maniqa.MANIQAConfig(vit=maniqa.ViTConfig(**vit),
+                                                          embed_dim=16))
+        return save_checkpoint(root / "ckpt_koniq10k.pt", sd)
+
+    def musiq_():
+        geometry = dict(hidden=16, layers=2, heads=1, mlp=24, root_width=8, hash_grid=4)
+        params = noise_params(jax_shapes(jmusiq.MUSIQ(jmusiq.MUSIQConfig(**geometry)).init,
+                                         x64)["params"], 207)
+        return save_checkpoint(root / "musiq.pth",
+                               tx.export_musiq(params, musiq.MUSIQConfig(**geometry)))
+
+    build = {"lpips": lpips, "dists": dists, "clipiqa": clip, "maniqa": maniqa_,
+             "musiq": musiq_}
+    return {name: build[name]() for name in names}
+
+
+def positive_variances(tree) -> None:
+    """Every batch-norm variance (a leaf ``var``) of the tree made positive, in place."""
+    for key, node in tree.items():
+        if isinstance(node, dict):
+            positive_variances(node)
+        elif key == "var":
+            tree[key] = np.abs(node) + np.float32(0.5)

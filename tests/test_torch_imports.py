@@ -77,6 +77,13 @@ MODULES = [
     "tair_tpu_torch.diffbir_pipeline",
     "tair_tpu_torch.weights.export",
     "tair_tpu_torch.convert_weights",
+    "tair_tpu_torch.utils.iqa",
+    "tair_tpu_torch.utils.lpips",
+    "tair_tpu_torch.utils.dists",
+    "tair_tpu_torch.utils.clipiqa",
+    "tair_tpu_torch.utils.maniqa",
+    "tair_tpu_torch.utils.musiq",
+    "tair_tpu_torch.weights.musiq_shim",
 ]
 
 ENTRY_POINTS = ["tair_tpu_torch.val", "tair_tpu_torch.val_patches", "tair_tpu_torch.spotter_eval"]

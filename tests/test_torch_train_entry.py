@@ -1,6 +1,7 @@
 """The port's trainer as a user starts it, on the CPU at the smoke config's
 size, with a resume from its checkpoint; the sampler's feature capture against
-the JAX sampler; the trainer's validation and its PNG panels."""
+the JAX sampler; the trainer's validation (NIQE and a learned metric against
+the JAX trainer's ``_aux_val_metrics``) and its PNG panels."""
 
 import json
 import os
@@ -110,7 +111,31 @@ def test_sample_with_feature_capture_matches_jax():
                        feat_iterations=(steps + 1,))
 
 
-def test_validation_on_the_tiny_model(tmp_path):
+def _jax_aux_val_metrics():
+    import train
+
+    return train._aux_val_metrics
+
+
+def _recording_aux_val_metrics(monkeypatch):
+    """Record the (restored, gt01) arrays that run_validation scores."""
+    from tair_tpu_torch.train import __main__ as trainer
+
+    seen, real = [], trainer.aux_val_metrics
+
+    def recording(cfg, restored, gt01, cache=None):
+        seen.append((t2n(restored), t2n(gt01)))
+        return real(cfg, restored, gt01, cache)
+
+    monkeypatch.setattr(trainer, "aux_val_metrics", recording)
+    return seen
+
+
+def test_validation_on_the_tiny_model(tmp_path, monkeypatch):
+    """PSNR, SSIM, the OCR losses, and NIQE (128 x 128 images, over its
+    96-pixel floor) equal to the JAX trainer's ``_aux_val_metrics`` on the same
+    restored and ground-truth arrays (both numpy in float64 on the same
+    float32 values: within 1e-9 relative); no metric is reported skipped."""
     from PIL import Image
 
     from tair_tpu_torch.config import ExperimentConfig
@@ -120,8 +145,8 @@ def test_validation_on_the_tiny_model(tmp_path):
     model = build_tiny_model(device="cpu", training=True)
     model.init_parameters(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(1)
-    b, m = 2, 3
-    lq = torch.from_numpy(rng.random((b, 64, 64, 3), dtype=np.float32))
+    b, m, s = 2, 3, 128
+    lq = torch.from_numpy(rng.random((b, s, s, 3), dtype=np.float32))
     gt = lq * 2 - 1
     tokens = torch.zeros((b, 77), dtype=torch.long)
     tokens[:, 0], tokens[:, 1] = 49406, 49407
@@ -132,15 +157,77 @@ def test_validation_on_the_tiny_model(tmp_path):
         texts=torch.from_numpy(rng.integers(0, 97, (b, m, 25))),
     )
     cfg = ExperimentConfig(dtype="float32")
+    seen = _recording_aux_val_metrics(monkeypatch)
     metrics = run_validation(model, cfg, gt, lq, tokens, n_images=1, steps=2,
                              feat_iterations=(1, 2, 5), targets=targets,
                              image_dir=str(tmp_path / "val"))
-    assert set(metrics) == {"psnr", "ssim", "ocr_loss_iter1", "ocr_loss_iter2", "skipped_metrics"}
-    assert all(np.isfinite(v) for k, v in metrics.items() if k != "skipped_metrics")
-    assert metrics["skipped_metrics"] == "niqe" and model.training
+    assert set(metrics) == {"psnr", "ssim", "niqe", "ocr_loss_iter1", "ocr_loss_iter2"}
+    assert all(np.isfinite(v) for v in metrics.values()) and model.training
+    (restored, gt01), = seen
+    want = _jax_aux_val_metrics()(cfg, jnp.asarray(restored), jnp.asarray(gt01))
+    assert set(want) == {"niqe"}
+    assert metrics["niqe"] == pytest.approx(want["niqe"], rel=1e-9)
     panel = np.asarray(Image.open(tmp_path / "val" / "val_0.png"))
-    assert panel.shape == (64, 192, 3)
-    np.testing.assert_array_equal(panel[:, :64], (t2n(lq[0]) * 255).astype(np.uint8))
+    assert panel.shape == (s, 3 * s, 3)
+    np.testing.assert_array_equal(panel[:, :s], (t2n(lq[0]) * 255).astype(np.uint8))
+
+
+def test_validation_reports_a_configured_learned_metric(tmp_path, monkeypatch):
+    """``val.musiq_weights`` set: the trainer's validation reports MUSIQ, the
+    mean over the batch, equal to the JAX trainer's ``_aux_val_metrics`` on the
+    same arrays within 1e-5 + 1e-4 |score| (float32 on both sides), and builds
+    the metric once for every validation that shares its cache."""
+    from tair_tpu_torch.config import ExperimentConfig
+    from tair_tpu_torch.pipeline import build_tiny_model
+    from tair_tpu_torch.train.__main__ import run_validation
+    from tair_tpu_torch.utils.musiq import MUSIQMetric
+    from test_torch_common import iqa_checkpoints
+
+    model = build_tiny_model(device="cpu", training=True)
+    model.init_parameters(torch.Generator().manual_seed(0))
+    lq = torch.from_numpy(np.random.default_rng(2).random((2, 64, 64, 3), dtype=np.float32))
+    tokens = torch.zeros((2, 77), dtype=torch.long)
+    tokens[:, 0], tokens[:, 1] = 49406, 49407
+    cfg = ExperimentConfig(dtype="float32")
+    cfg.val.musiq_weights = iqa_checkpoints(tmp_path, names=("musiq",))["musiq"]
+    seen = _recording_aux_val_metrics(monkeypatch)
+    cache = {}
+    runs = [run_validation(model, cfg, lq * 2 - 1, lq, tokens, n_images=2, steps=1,
+                           metric_cache=cache) for _ in range(2)]
+    assert [set(r) for r in runs] == [{"psnr", "ssim", "musiq"}] * 2  # 64 pixels: no NIQE
+    assert list(cache) == [("musiq", cfg.val.musiq_weights)]
+    assert isinstance(cache[("musiq", cfg.val.musiq_weights)], MUSIQMetric)
+    restored, gt01 = seen[0]
+    assert restored.shape == (2, 64, 64, 3)
+    want = _jax_aux_val_metrics()(cfg, jnp.asarray(restored), jnp.asarray(gt01))["musiq"]
+    assert abs(runs[0]["musiq"] - want) <= 1e-5 + 1e-4 * abs(want)
+
+
+@pytest.mark.parametrize("niqe_file", [False, True], ids=["fitted_on_gt", "niqe_params"])
+def test_aux_val_metrics_niqe_equals_jax(tmp_path, niqe_file):
+    """NIQE on 128 x 128 arrays (as tests/test_val_metrics.py calls the JAX
+    function): against a model fitted on the batch's ground-truth rows, or
+    the one ``val.niqe_params`` names; within 1e-9 relative."""
+    import types
+
+    from tair_tpu_torch.train.__main__ import aux_val_metrics
+    from tair_tpu_torch.utils.niqe import fit_niqe_params
+
+    rng = np.random.RandomState(3)
+    gt = rng.rand(2, 128, 128, 3).astype(np.float32)
+    restored = np.clip(gt + 0.25 * rng.randn(2, 128, 128, 3), 0, 1).astype(np.float32)
+    path = None
+    if niqe_file:
+        path = str(tmp_path / "niqe.npz")
+        fit_niqe_params([rng.rand(128, 128) * 255 for _ in range(2)], patch=32).save(path)
+    cfg = types.SimpleNamespace(val=types.SimpleNamespace(
+        niqe_params=path, lpips_weights=None, dists_weights=None, clipiqa_weights=None,
+        maniqa_weights=None, musiq_weights=None))
+    got = aux_val_metrics(cfg, torch.from_numpy(restored), torch.from_numpy(gt))
+    want = _jax_aux_val_metrics()(cfg, jnp.asarray(restored), jnp.asarray(gt))
+    assert set(got) == set(want) == {"niqe"}
+    assert got["niqe"] == pytest.approx(want["niqe"], rel=1e-9)
+    assert aux_val_metrics(cfg, torch.from_numpy(restored[:, :95]), torch.from_numpy(gt)) == {}
 
 
 def test_launch_counts_name_every_wrapper_and_reset():

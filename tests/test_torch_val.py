@@ -9,9 +9,10 @@
 - ``restore_fused_feedback`` at batch 2 (the patch batches of
   ``val_patches``): the same tolerances.
 - ``python -m tair_tpu_torch.val`` in process on the CPU, both modes: the
-  files and metric keys of the JAX script (``val.py:185-220``), a weight export
-  written by the JAX package's ``save_params`` loaded by ``--ckpt``, and the
-  configs the port refuses.
+  files and metric keys of the JAX script (``val.py:185-220``), each learned
+  IQA metric scored from an exported checkpoint equal to the JAX metric on the
+  same restored image, a weight export written by the JAX package's
+  ``save_params`` loaded by ``--ckpt``, and the configs the port refuses.
 
 x_T and the step noises of the parity tests are drawn from the JAX keys and
 handed to the port.
@@ -26,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import t2n, tiny_pair, torch_single_thread  # noqa: F401
+from test_torch_common import iqa_checkpoints, t2n, tiny_pair, torch_single_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 STEPS = 3
@@ -256,13 +257,66 @@ def test_val_loads_a_jax_weight_export(tmp_path, pair):
         load_model(load_config(str(_config(tmp_path))), torch.device("cpu"), str(tmp_path))
 
 
+@pytest.fixture(scope="module")
+def iqa_weights(tmp_path_factory):
+    return iqa_checkpoints(tmp_path_factory.mktemp("iqa"))
+
+
+def jax_metric(name: str, entry: str):
+    """The JAX package's metric `name` read from its val.<name>_weights entry,
+    as val.py:104-126 reads it."""
+    from tair_tpu.utils import clipiqa, dists, lpips, maniqa, musiq
+
+    cls = {"lpips": lpips.LPIPSMetric, "dists": dists.DISTSMetric,
+           "clipiqa": clipiqa.CLIPIQAMetric, "maniqa": maniqa.MANIQAMetric,
+           "musiq": musiq.MUSIQMetric}[name]
+    return cls.from_torch(*entry.split(":"))
+
+
 @pytest.mark.parametrize("metric", ["lpips", "dists", "clipiqa", "maniqa", "musiq"])
-def test_val_refuses_learned_metric_weights(tmp_path, metric):
+def test_val_scores_learned_metric(tmp_path, iqa_weights, metric, monkeypatch):
+    """val.<metric>_weights (an exported checkpoint in the published layout;
+    two joined by ':' for LPIPS and DISTS) adds the metric to each image's
+    line under the JAX name: the port's score of the restored image (against
+    the ground truth for LPIPS and DISTS), equal to the JAX metric's on the
+    same arrays within 1e-5 + 1e-4 |score| (float32 on both sides; the seeded
+    MANIQA, 10 ViT blocks and 8 Swin blocks deep, scores about 120, and the
+    JAX package's own MANIQA parity test holds at rtol 1e-4)."""
+    from tair_tpu_torch.utils import iqa
     from tair_tpu_torch.val import main
 
-    cfg = _config(tmp_path, **{f"{metric}_weights": "weights.pth"})
-    with pytest.raises(NotImplementedError, match=metric):
+    seen, real = [], iqa.score
+
+    def recording(m, name, restored, reference=None):
+        seen.append((t2n(restored), None if reference is None else t2n(reference)))
+        return real(m, name, restored, reference)
+
+    monkeypatch.setattr(iqa, "score", recording)
+    cfg = _config(tmp_path, **{f"{metric}_weights": iqa_weights[metric]})
+    main(["--config", str(cfg), "--device", "cpu", "--steps", "1", "--image-size", "64", "--fused"])
+    records = [json.loads(line) for line in
+               (tmp_path / "out" / "val_metrics.jsonl").read_text().splitlines()]
+    assert len(records) == len(seen) == 2
+    assert all(set(r) == VAL_KEYS | {metric} for r in records)
+    want_metric = jax_metric(metric, iqa_weights[metric])
+    for r, (restored, reference) in zip(records, seen):
+        assert restored.shape == (1, 64, 64, 3)
+        args = (restored,) if reference is None else (restored, reference)
+        want = float(want_metric(*(jnp.asarray(a) for a in args))[0])
+        assert np.isfinite(r[metric]) and abs(r[metric] - want) <= 1e-5 + 1e-4 * abs(want), \
+            (r[metric], want)
+
+
+def test_val_learned_metric_weights_must_exist(tmp_path):
+    """A weights file that is not there raises as JAX's torch.load does, before
+    any image is restored."""
+    from tair_tpu_torch.val import main
+
+    cfg = _config(tmp_path, clipiqa_weights=str(tmp_path / "missing.pt"))
+    with pytest.raises(FileNotFoundError, match="missing.pt"):
         main(["--config", str(cfg), "--device", "cpu"])
+    assert not (tmp_path / "out" / "val_metrics.jsonl").exists() or \
+        not (tmp_path / "out" / "val_metrics.jsonl").read_text()
 
 
 def test_val_refuses_enc_topk(tmp_path):
