@@ -47,10 +47,19 @@ through its kernels:
             every sampler family; SCUNet as the cleaner and BSRNet alone; and
             the tiny model's tiled request in float32 against the CPU (phases
             diffbir, diffbir_reference);
+  matcher   the exact matcher, kernel J1 (``jv_assign``, the
+            Jonker-Volgenant solve of ``spotter/matcher.py``), held element
+            for element against its plain version on seeded float and tied
+            costs in both orientations and on the costs of a real spotter
+            pass, timed by CUDA-graph replay beside the host path (a copy to
+            the host, the native ``lapjv_batch``, a copy back) and scipy's
+            solve (phase matcher);
   training  stage 3 (``all_modules``) through ``train.step.make_train_step``:
             one step of the tiny model on the card against the CPU (phase
             train_reference), then full-width steps with float32 master
-            weights and bfloat16 compute on one 512 x 512 image (phase train);
+            weights and bfloat16 compute on one 512 x 512 image, and its host
+            synchronisations and seconds a step with J1 and with the host
+            matcher (phase train);
             then the port's trainer as a user starts it, ``python -m
             tair_tpu_torch.train`` on configs/train_chip_demo.yaml (its own
             data, degradation on the card, checkpoint, resume, validation with
@@ -204,7 +213,7 @@ PROBE_REPS = 2        # timed repetitions per setting of the probes' own runs
 SERVE_STEPS = 4
 
 PHASES = ("kernels", "probes", "reference", "restore", "restore_flatpatch", "layers",
-          "enc_topk", "quant", "diffbir", "ckpt", "train_reference", "train", "iqa", "train_entry",
+          "enc_topk", "quant", "matcher", "diffbir", "ckpt", "train_reference", "train", "iqa", "train_entry",
           "val", "val_patches", "spotter_eval")
 # the paths on which the serving entry points run K1 and K3
 ENTRY_PHASES = ("val", "val_patches", "spotter_eval")
@@ -1185,10 +1194,18 @@ def check_bf16_flash(want: dict, steps: int, backward: bool) -> None:
         raise AssertionError(f"the model's bfloat16 flash launches {flash}, expected {expect}")
 
 
+def matchings_per_criterion(model) -> int:
+    """Exact matchings (J1 launches, one per batch) of one call of the TESTR
+    criterion: the last decoder layer's output, the auxiliary outputs of the
+    other decoder layers and the encoder proposals."""
+    return model.testr.cfg.num_decoder_layers + 1
+
+
 def predicted_train_launches(model, compute_dtype: torch.dtype) -> dict:
     """Kernel launches of one stage-3 training step, from the model's
     structure: `flash_launches` of one pass with the backward; every deformable
-    attention of the spotter runs the reduce forward and backward once."""
+    attention of the spotter runs the reduce forward and backward once; the
+    criterion's matchings run J1 once each."""
     from tair_tpu_torch.spotter.ms_deform_attn import MSDeformAttn
 
     msda = sum(isinstance(m, MSDeformAttn) for m in model.testr.modules())
@@ -1196,6 +1213,7 @@ def predicted_train_launches(model, compute_dtype: torch.dtype) -> dict:
         **dict.fromkeys(launch_counts(), 0),  # no other kernel runs in a training step
         **flash_launches(model, compute_dtype, 1, backward=True),
         "msda_corner_reduce_fwd": msda, "msda_corner_reduce_bwd": msda,
+        "jv_assign": matchings_per_criterion(model),
     }
 
 
@@ -1217,13 +1235,15 @@ def train_batch(rng: np.random.Generator, batch: int, size: int, max_inst: int, 
     )
 
 
-def make_trainer(model, compute_dtype, marks=None):
-    """(state, step) of stage 3. `marks`, a `StageMarks`, is told when the
-    criterion has returned."""
+def make_trainer(model, compute_dtype, marks=None, matcher="hungarian", state=None):
+    """(state, step) of stage 3, the criterion matching with `matcher`.
+    `marks`, a `StageMarks`, is told when the criterion has returned. A
+    `state` given is shared, not made anew."""
     from tair_tpu_torch.diffusion.diffusion import Diffusion
+    from tair_tpu_torch.spotter.losses import CriterionConfig
     from tair_tpu_torch.train.step import create_train_state, make_train_step
 
-    spotter_loss = model.spotter_loss_fn()
+    spotter_loss = model.spotter_loss_fn(CriterionConfig(matcher=matcher))
 
     def marked_loss(feats, batch):
         out = spotter_loss(feats, batch)
@@ -1231,7 +1251,8 @@ def make_trainer(model, compute_dtype, marks=None):
             marks.mark("criterion_and_matcher")
         return out
 
-    state = create_train_state(model, "stage3", TRAIN_LR)
+    if state is None:
+        state = create_train_state(model, "stage3", TRAIN_LR)
     step = make_train_step(
         model, Diffusion(model.schedule), spotter_loss_fn=marked_loss,
         ocr_loss_weight=TRAIN_OCR_WEIGHT, compute_dtype=compute_dtype,
@@ -1466,9 +1487,51 @@ def phase_train(seed: int, steps: int, kernels: list, profile: bool) -> dict:
     emit("train_layers", step_seconds_with_marks=layered_seconds, seconds=marks.seconds,
          note="one more step, synchronised at every mark; gradient_watch is this "
               "script's own check of the gradients before the update")
+    emit("train_matcher", card=torch.cuda.get_device_name(0),
+         **matcher_step_turns(model, state, batch, gen, want["jv_assign"]))
     if profile:
         phase_profile("train_profile", lambda: one_step()[0])
     return timed[-1][2]
+
+
+def matcher_step_turns(model, state, batch, gen, matchings: int) -> dict:
+    """One training step with the exact matcher on the card ("hungarian": J1)
+    and on the host ("hungarian_host": a copy to the host, the native solver,
+    a copy back), on the same state: the host synchronisations of a step
+    (torch's sync debug mode; those of this script's own gradient check
+    apart), and the step's seconds in turns (card, host, host, card)."""
+    steps = {m: make_trainer(model, torch.bfloat16, matcher=m, state=state)[1]
+             for m in ("hungarian", "hungarian_host")}
+
+    def run(m) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        steps[m](state, batch, generator=gen)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    run("hungarian_host")  # builds the native library outside the counts and the turns
+    order = ("hungarian", "hungarian_host", "hungarian_host", "hungarian")
+    turns = [run(m) for m in order]
+    syncs = {}
+    for m in steps:
+        _, sites = host_syncs(lambda _, m=m: steps[m](state, batch, generator=gen), 1)
+        syncs[m] = dict(sites=sites, count=sum(
+            n for site, n in sites.items() if not site.startswith("chip_smoke.py:")))
+    fewer = syncs["hungarian_host"]["count"] - syncs["hungarian"]["count"]
+    if fewer < matchings:
+        raise AssertionError(f"train: J1 saves {fewer} host syncs a step, not one per matching "
+                             f"({matchings}): {syncs}")
+    return dict(
+        matchings_per_step=matchings,
+        host_syncs_per_step={m: v["count"] for m, v in syncs.items()},
+        host_sync_sites=syncs, fewer_host_syncs_with_j1=fewer,
+        step_seconds_turns=[[m, t] for m, t in zip(order, turns)],
+        median_step_seconds={"hungarian": (turns[0] + turns[3]) / 2,
+                             "hungarian_host": (turns[1] + turns[2]) / 2},
+        note="host syncs: CUDA's synchronisation warnings in one step, those raised in this "
+             "script (its gradient check's .item()) apart; the same state takes every step",
+    )
 
 
 TRAIN_ENTRY_CONFIG = "configs/train_chip_demo.yaml"
@@ -1652,7 +1715,8 @@ def phase_train_entry(seed: int, iqa_weights: dict) -> dict:
         msda = sum(isinstance(m, MSDeformAttn) for m in model.testr.modules())
         want_val = {**dict.fromkeys(val_launches, 0),
                     **flash_launches(model, torch.bfloat16, VAL_STEPS, backward=False),
-                    "msda_corner_reduce_fwd": msda * len(VAL_TAGS)}
+                    "msda_corner_reduce_fwd": msda * len(VAL_TAGS),
+                    "jv_assign": matchings_per_criterion(model) * len(VAL_TAGS)}  # its OCR loss
         if val_launches != want_val:
             raise AssertionError(f"train_entry validation launches {val_launches}, "
                                  f"structure says {want_val}")
@@ -2440,6 +2504,158 @@ def spotter_features(model, lq):
         x = torch.randn((1, side, side, 4), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(0))
         return model.cldm.apply(x, torch.full((1,), 500, dtype=torch.int32, device=dev), cond)[1]
+
+
+# the matcher's cases (phase matcher): name, B, Q, M, n_valid, costs. The train
+# phase's decoder matching (one image, 8 target slots, 5 real); the stage-3
+# config's 32 slots at batch 4, with none and all of them real; more slots than
+# queries (solved query-major); integer costs in {0..3}, whose optima tie; a
+# matrix too large to stage in shared memory (read from L2); and the encoder's
+# box matching at 1024 x 1024 (37,888 tokens), whose vectors do not fit shared
+# memory either (a workspace in device memory). Then the costs of a real spotter
+# pass (phase matcher adds them): the decoder's control-point matching
+# [1, 100, 8] and the encoder's box matching over all 9472 tokens [1, 9472, 8].
+MATCHER_CASES = [
+    ("train_batch", 1, 100, 8, (5,), "float"),
+    ("stage3_b4", 4, 100, 32, (0, 32, 17, 5), "float"),
+    ("more_slots_than_queries", 2, 100, 128, (128, 60), "float"),
+    ("tied_stage3_b4", 4, 100, 32, (0, 32, 17, 5), "tied"),
+    ("tied_b2_12x5", 2, 12, 5, (5, 3), "tied"),
+    ("unstaged_300x256", 1, 300, 256, (200,), "float"),
+    ("workspace_37888x8", 1, 37888, 8, (5,), "float"),
+]
+
+
+def host_path_parts(cost: torch.Tensor, n_valid: torch.Tensor, n: int = 20) -> dict:
+    """Milliseconds of one matching on the host path ("hungarian_host"), by
+    the host clock around synchronised work, medians of n: the whole call, and
+    its copy to the host, ``lapjv_batch`` and the copy back; scipy's solve of
+    the same matrices, as a yardstick only."""
+    from scipy.optimize import linear_sum_assignment
+
+    from tair_tpu_torch import native_ext
+    from tair_tpu_torch.spotter import matcher as tm
+
+    def clock(fn) -> float:
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+        return statistics.median(times)
+
+    c, nv = cost.cpu().numpy(), n_valid.cpu().numpy()
+    out = native_ext.lapjv_batch(c, nv)
+
+    def scipy_solve():
+        for i in range(c.shape[0]):
+            if nv[i]:
+                linear_sum_assignment(c[i, :, : nv[i]])
+
+    return dict(
+        host_path_ms=clock(lambda: tm.hungarian_assignment(cost, n_valid)),
+        copy_to_host_ms=clock(lambda: (cost.cpu(), n_valid.cpu())),
+        lapjv_batch_ms=clock(lambda: native_ext.lapjv_batch(c, nv)),
+        copy_back_ms=clock(lambda: torch.from_numpy(out).to(cost.device)),
+        scipy_ms=clock(scipy_solve),
+    )
+
+
+def matched_cost(cost: torch.Tensor, assignment: torch.Tensor) -> float:
+    """Sum of the matched entries, in float64 on the host."""
+    c, a = cost.double().cpu(), assignment.cpu()
+    return sum(c[b, a[b, t], t].item() for b in range(a.shape[0]) for t in range(a.shape[1])
+               if a[b, t] >= 0)
+
+
+def phase_matcher(model, lq, seed: int, smi: str) -> dict:
+    """Kernel J1 (the exact matcher, ``jv_assign``) against its plain version
+    on the card, element for element, at every case of MATCHER_CASES and on
+    the costs of a real spotter pass (the serving model's taps, seeded
+    targets of the train phase's batch); J1's device time by CUDA-graph
+    replay; the host path's time beside it; the bound from the bytes J1 must
+    move and the float32 adds this data needs."""
+    from tair_tpu_torch.spotter import matcher as tm
+
+    dev = lq.device
+    rng = np.random.default_rng(seed)
+    cases = []
+    for name, b, q, m, counts, kind in MATCHER_CASES:
+        cost = (rng.standard_normal((b, q, m)) * 10 if kind == "float"
+                else rng.integers(0, 4, (b, q, m)))
+        cases.append((name, kind, torch.from_numpy(cost.astype(np.float32)).to(dev),
+                      torch.tensor(counts, dtype=torch.long, device=dev)))
+    batch = train_batch(rng, batch=1, size=512, max_inst=8, n_inst=5)
+    targets = {k: torch.from_numpy(batch[k]).to(dev)
+               for k in ("inst_mask", "boxes", "ctrl_points", "texts")}
+    with torch.no_grad():
+        out = model.spotter_apply(spotter_features(model, lq))
+    cases.append(("spotter_decoder_points", "spotter", *tm.ctrl_point_cost(out, targets)))
+    cases.append(("spotter_encoder_boxes", "spotter", *tm.box_cost(out["enc_outputs"], targets)))
+    del out
+
+    rows = []
+    for name, kind, cost, n_valid in cases:
+        got = tm._launch_jv(cost, n_valid)
+        torch.cuda.synchronize()
+        stats = {}
+        t = time.perf_counter()
+        want = tm.jv_assignment_reference(cost, n_valid, stats)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t)
+        if got.dtype != torch.long or not torch.equal(got, want):
+            raise AssertionError(
+                f"matcher {name}: J1's assignment differs from the plain version's at "
+                f"{int((got != want).sum())} of {want.numel()} targets")
+        host = host_path_parts(cost, n_valid)
+        host_out = tm.hungarian_assignment(cost, n_valid)
+        j1_total, host_total = matched_cost(cost, got), matched_cost(cost, host_out)
+        if not abs(j1_total - host_total) <= 1e-5 * max(1.0, abs(host_total)):
+            raise AssertionError(f"matcher {name}: J1's optimum {j1_total}, the host's "
+                                 f"{host_total}")
+        nbytes = cost.numel() * 4 + n_valid.numel() * 8 + got.numel() * 8
+        flops = 3 * stats["relaxed"] + 2 * stats["dual"]
+        ms = graph_ms(lambda: tm._launch_jv(cost, n_valid))
+        b, q, m = cost.shape
+        rows.append(dict(
+            case=name, costs=kind, batch=b, queries=q, target_slots=m,
+            n_valid=n_valid.tolist(), equal_to_plain=True, max_abs_err=0.0,
+            same_assignment_as_host=torch.equal(got, host_out), optimum=j1_total,
+            search_steps=stats["steps"], relaxed_columns=stats["relaxed"],
+            ms=ms, host_ms_per_call=host_ms(lambda: tm._launch_jv(cost, n_valid), n=200),
+            plain_ms=plain_ms, bytes=nbytes, float32_adds=flops,
+            **bound_of(flops, nbytes, torch.float32), library_ms=None, **host,
+        ))
+        rows[-1]["share_of_bound"] = rows[-1]["bound_ms"] / ms
+    by = {r["case"]: r for r in rows}
+    head, enc = by["spotter_decoder_points"], by["spotter_encoder_boxes"]
+    layers = model.testr.cfg.num_decoder_layers
+    per_step = {key: layers * head[key] + enc[key] for key in ("ms", "host_path_ms", "bound_ms")}
+    emit("matcher", card=smi, cases=rows, per_train_step=per_step,
+         matchings_per_train_step=layers + 1,
+         note="ms: device time of one J1 launch by CUDA events around the replay of a CUDA "
+              "graph of 20 launches; host_ms_per_call: time.perf_counter over 200 wrapper calls "
+              "without a synchronise; plain_ms: one call of jv_assignment_reference on the card "
+              "(host clock, synchronised); host_path_ms and its parts, scipy_ms: host clock "
+              "around synchronised calls, medians of 20; bound_ms: the larger of the bytes J1 "
+              "must move (cost read once, n_valid, the output) at 3.35 TB/s and the float32 "
+              "adds this data needs (3 a relaxed column, 2 a dual update) at 67 TFLOP/s. J1 is "
+              "latency-bound, not bound by either: its time is a chain of search_steps "
+              "dependent block-wide argmins. per_train_step: the decoder case times the "
+              f"{layers} decoder matchings plus the encoder case")
+    return dict(
+        name="jv_assign", route="cuda", source="tair_tpu_torch/ops/csrc/jv_assign.cu",
+        replaces="tair_tpu/spotter/matcher.py:86 (_jv_single :86-177 and jv_assignment "
+                 ":180-211: lax loops, no Pallas kernel)",
+        shape="B=1 Q=100 M=8 float32, the decoder matching of the train step",
+        max_abs_err=0.0, ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=None, paths=("train_reference", "train"),
+        ms_per_train_step=per_step["ms"], host_path_ms=head["host_path_ms"],
+        host_path_ms_per_train_step=per_step["host_path_ms"], scipy_ms=head["scipy_ms"],
+        encoder_ms=enc["ms"], host_ms_per_call=head["host_ms_per_call"],
+    )
 
 
 # the spotter encoder's work in the profiler: kernels by a part of their name
@@ -3421,8 +3637,8 @@ def main() -> None:
     host_syncs = None
     if "diffbir" in phases:
         path_launches["diffbir_reference"] = phase_diffbir_reference(args.seed)
-    if phases & {"restore", "restore_flatpatch", "layers", "enc_topk", "quant", "diffbir", "val"} \
-            or args.profile_steps:
+    if phases & {"restore", "restore_flatpatch", "layers", "enc_topk", "quant", "matcher",
+                 "diffbir", "val"} or args.profile_steps:
         model, lq = build_model(args.seed)
         if "restore" in phases:
             path_launches["restore"] = phase_restore(model, lq, args.seed, args.steps)
@@ -3438,6 +3654,8 @@ def main() -> None:
             quant_kernels, path_launches["quant"] = phase_quant(
                 model, lq, args.seed, SERVE_STEPS, smi)
             kernels += quant_kernels
+        if "matcher" in phases:
+            kernels.append(phase_matcher(model, lq, args.seed, smi))
         if "diffbir" in phases:
             path_launches["diffbir"] = phase_diffbir(model, args.seed, SERVE_STEPS)
         if "val" in phases:

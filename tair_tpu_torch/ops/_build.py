@@ -28,6 +28,7 @@ LIBRARIES = {
         "flash_attention", "flash_attention_bwd", "flash_attention_tc",
         "flash_attention_wide_tc", "flash_attention_dq_tc", "flash_attention_dkv_tc",
         "msda_reduce", "patchify", "probe_gather", "probe_stream", "probe_msda_lab",
+        "jv_assign",
     )},
     "w8a8": ("quant_act", "int8_conv"),
 }

@@ -37,8 +37,9 @@ class CriterionConfig:
     focal_alpha: float = 0.25
     focal_gamma: float = 2.0
     aux_loss: bool = True
-    # "hungarian" / "jv" / "hungarian_host": the exact solve (on the host);
-    # "greedy": the approximation that stays on the device
+    # "hungarian" / "jv": the exact solve on the device (kernel J1 on CUDA);
+    # "hungarian_host": the exact solve on the host; "greedy": the
+    # approximation that stays on the device
     matcher: str = "hungarian"
 
 

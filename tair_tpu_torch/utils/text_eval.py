@@ -8,8 +8,9 @@ than the area-precision threshold excluded; one-to-one matching in index
 order with strict IoU > threshold; end-to-end correctness by exact upper-case
 match (word spotting) or ``transcription_match``; detection-only counts with
 "###"-only don't-cares; the zero-GT edge rule; global aggregation by summed
-counts; and lexicon-constrained correction (``LexiconMatcher``). COCO-style
-``average_precision`` is not ported yet.
+counts; lexicon-constrained correction (``LexiconMatcher``); and COCO-style
+``average_precision`` over polygon IoU, accumulated by the native C++ helper
+(``native_ext.coco_ap``) or by its Python oracle ``_ap_accumulate_py``.
 
 Polygon IoU is measured on masks rasterised on a 768² canvas. The JAX module
 fills them with ``cv2.fillPoly``; here ``fill_poly`` is a numpy scanline fill
@@ -395,6 +396,89 @@ def evaluate_dataset(
         **tot,
     }
 
+
+
+def _pairwise_ious(
+    all_gts: Sequence[Sequence[SpottingInstance]],
+    all_preds: Sequence[Sequence[SpottingInstance]],
+):
+    """Per-image [n_pred, n_gt] polygon-IoU matrices and pred scores."""
+    ious, scores = [], []
+    for gts, preds in zip(all_gts, all_preds):
+        m = np.zeros((len(preds), len(gts)), np.float32)
+        for i, pr in enumerate(preds):
+            for j, gt in enumerate(gts):
+                m[i, j] = polygon_iou(pr.polygon, gt.polygon)
+        ious.append(m)
+        scores.append(np.asarray([p.score for p in preds], np.float32))
+    return ious, scores
+
+
+def _ap_accumulate_py(ious, scores, thresholds):
+    """Pure-Python AP accumulation, the oracle of native/cocoeval.cpp: per
+    image, preds in stable score-descending order each take the still-free gt
+    of highest IoU >= threshold (ties to the last index); 101-point
+    interpolated precision over the global stable score-descending ranking."""
+    total_gt = sum(m.shape[1] for m in ious)
+    aps = []
+    for thr in thresholds:
+        if total_gt == 0:
+            aps.append(0.0)
+            continue
+        scored = []  # (score, is_tp)
+        for m, sc in zip(ious, scores):
+            order = np.argsort(-sc, kind="stable")
+            taken = [False] * m.shape[1]
+            for i in order:
+                best, best_iou = -1, thr
+                for j in range(m.shape[1]):
+                    if taken[j]:
+                        continue
+                    if m[i, j] >= best_iou:
+                        best, best_iou = j, m[i, j]
+                if best >= 0:
+                    taken[best] = True
+                    scored.append((float(sc[i]), 1))
+                else:
+                    scored.append((float(sc[i]), 0))
+        scored.sort(key=lambda x: -x[0])
+        tp = np.cumsum([s[1] for s in scored]) if scored else np.zeros(0)
+        fp = np.cumsum([1 - s[1] for s in scored]) if scored else np.zeros(0)
+        recall = tp / total_gt
+        precision = tp / np.maximum(tp + fp, 1e-9)
+        # 101-point interpolation
+        ap = 0.0
+        for r in np.linspace(0, 1, 101):
+            p = precision[recall >= r].max() if (recall >= r).any() else 0.0
+            ap += p / 101
+        aps.append(float(ap))
+    return np.asarray(aps, np.float64)
+
+
+def average_precision(
+    all_gts: Sequence[Sequence[SpottingInstance]],
+    all_preds: Sequence[Sequence[SpottingInstance]],
+    iou_thresholds: Sequence[float] = (0.5,),
+    use_native: bool = True,
+) -> Dict[str, float]:
+    """COCO-style average precision over polygon IoU: ``ap<thr*100>`` for
+    each threshold and ``ap``, their mean. Polygon IoUs are computed once in
+    Python (as detectron2's COCOeval does); the per-threshold score-ranked
+    greedy matching and the accumulation run in the native C++ helper
+    (``native_ext.coco_ap``, which raises when it cannot be built), or with
+    ``use_native=False`` in ``_ap_accumulate_py``, of identical semantics."""
+    ious, scores = _pairwise_ious(all_gts, all_preds)
+    if use_native:
+        from ..native_ext import coco_ap
+
+        aps = coco_ap(ious, scores, list(iou_thresholds))
+    else:
+        aps = _ap_accumulate_py(ious, scores, iou_thresholds)
+    results = {
+        f"ap{int(thr * 100)}": float(a) for thr, a in zip(iou_thresholds, aps)
+    }
+    results["ap"] = float(np.mean(aps)) if len(aps) else 0.0
+    return results
 
 def weighted_edit_distance(
     word1: str, word2: str, scores: np.ndarray, char_to_col: Dict[str, int]

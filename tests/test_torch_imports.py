@@ -84,6 +84,9 @@ MODULES = [
     "tair_tpu_torch.utils.maniqa",
     "tair_tpu_torch.utils.musiq",
     "tair_tpu_torch.weights.musiq_shim",
+    "tair_tpu_torch.native_ext",
+    "tair_tpu_torch.data.augmentation",
+    "tair_tpu_torch.data.cocotext",
 ]
 
 ENTRY_POINTS = ["tair_tpu_torch.val", "tair_tpu_torch.val_patches", "tair_tpu_torch.spotter_eval"]
@@ -145,6 +148,7 @@ def test_sources_import_neither_regex_yaml_nor_pil_outside_the_image_loader():
                 assert line != s, f"{path}: a top-level import of {s.split()[1]}"
                 offenders.append(f"{path.relative_to(ROOT)}: {s}")
     assert sorted(offenders) == [
+        "tair_tpu_torch/data/augmentation.py: from PIL import Image",
         "tair_tpu_torch/data/satext.py: from PIL import Image",
         "tair_tpu_torch/utils/image_io.py: from PIL import Image",
         "tair_tpu_torch/utils/visualizer.py: from PIL import Image",
@@ -205,14 +209,15 @@ def test_kernel_wrappers_do_not_build_on_import():
         import tair_tpu_torch.ops.flash_attention, tair_tpu_torch.ops.msda_reduce
         import tair_tpu_torch.ops.patchify, tair_tpu_torch.ops.quant, tair_tpu_torch.train.step
         import tair_tpu_torch.probes.dyngather, tair_tpu_torch.probes.stream
-        import tair_tpu_torch.probes.msda_lab
+        import tair_tpu_torch.probes.msda_lab, tair_tpu_torch.spotter.matcher
+        from tair_tpu_torch import native_ext
         from tair_tpu_torch.ops import _build
-        assert not _build._LIBS
+        assert not _build._LIBS and native_ext._LIB is None
         assert {p.name for p in _build.CSRC.glob("*.cu")} == {
             "flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_tc.cu",
             "flash_attention_wide_tc.cu", "flash_attention_dq_tc.cu",
             "flash_attention_dkv_tc.cu", "msda_reduce.cu", "patchify.cu",
-            "quant_act.cu", "int8_conv.cu",
+            "quant_act.cu", "int8_conv.cu", "jv_assign.cu",
             "probe_gather.cu", "probe_stream.cu", "probe_msda_lab.cu"}
         assert set(_build.KERNEL_SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
         print("ok")

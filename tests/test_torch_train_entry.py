@@ -241,6 +241,6 @@ def test_launch_counts_name_every_wrapper_and_reset():
     counts = launch_counts()
     assert (counts["flash_attention_dq_tc"], counts["msda_corner_reduce_bwd"],
             counts["probe_stream_bulk"]) == (2, 1, 3)
-    assert {k.split("_")[0] for k in counts} == {"flash", "msda", "patchify", "w8a8", "probe"}
+    assert {k.split("_")[0] for k in counts} == {"flash", "msda", "patchify", "w8a8", "jv", "probe"}
     reset_launch_counts()
     assert set(launch_counts().values()) == {0}
