@@ -70,6 +70,18 @@ through its kernels:
             read by ``from_torch``, on a 512 x 512 image: milliseconds per
             image, peak memory, two calls bit-equal, the card against the CPU
             (phase iqa; plain PyTorch, no kernel of the port);
+  face      RetinaFace-ResNet50 at full width from a seeded checkpoint in
+            facexlib's layout on a 512 x 512 image (the network, ``detect``
+            with decode and NMS on the host, the card against the CPU), then
+            ``FaceRestoreHelper`` aligning and pasting back its detections'
+            faces at 512 and upscale 2, then ``codeformer_degrade_batch`` on
+            a batch of 4 ``CodeformerDataset`` items read from PNGs, with its
+            host synchronisations (phase face; plain PyTorch);
+  tagging   RAM++ at full width (Swin-L at 384, 4585 classes) from a seeded
+            checkpoint in ``ram_plus_swin_large_14m.pth``'s layout with a tag
+            list and thresholds, read by ``RAMTagger.from_torch``: ms per
+            image, the logits against the CPU's, and ``RAMCaptioner``'s
+            caption twice (phase ram; plain PyTorch);
   entry     the port's serving and evaluation entry points as a user starts
             them: ``python -m tair_tpu_torch.val`` on two 512 x 512 images in
             both loops (host-fed CAPTION prompts, and ``--fused``; each image
@@ -214,7 +226,7 @@ SERVE_STEPS = 4
 
 PHASES = ("kernels", "probes", "reference", "restore", "restore_flatpatch", "layers",
           "enc_topk", "quant", "matcher", "diffbir", "ckpt", "train_reference", "train", "iqa", "train_entry",
-          "val", "val_patches", "spotter_eval")
+          "val", "val_patches", "spotter_eval", "face", "ram")
 # the paths on which the serving entry points run K1 and K3
 ENTRY_PHASES = ("val", "val_patches", "spotter_eval")
 
@@ -1761,6 +1773,50 @@ def phase_train_entry(seed: int, iqa_weights: dict) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def save_state_dict(path: Path, sd: dict) -> float:
+    """`sd` ({name: numpy array}) written with ``torch.save``; its seconds."""
+    t0 = time.perf_counter()
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()}, path)
+    return time.perf_counter() - t0
+
+
+def wall_ms(fn, reps: int = 5) -> float:
+    """Median wall milliseconds of fn() after one warm-up, the device drained
+    before and after each call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def peak_bytes(fn) -> int:
+    """Peak device memory allocated during one call of fn."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def device_profile(fn) -> dict:
+    """`profiled` of one call of fn: device busy time, idle share, launches."""
+    def wall() -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    prof = profiled(wall)
+    prof["top_kernels"] = prof["top_kernels"][:3]
+    return prof
+
+
 # the learned IQA metrics (phase iqa): scored on 512 x 512 images; the card's
 # score held against the CPU's on the same weights and input:
 # |card - CPU| <= IQA_TOL * max(1, |CPU|) (float32 on both sides with TF32 off,
@@ -1775,8 +1831,8 @@ _SMALL_PARAMS = ("cls_token", "pos_embed", "positional_embedding", "spatial_embe
 def seeded_tree(build, seed: int) -> dict:
     """The JAX-layout tree of the module `build()` makes, with weights from a
     seed: normal with variance 1/fan_in, embeddings and position tables
-    0.02-normal, norm scales and batch-norm variances 1, other vectors 0, and
-    DISTS' alpha and beta its own init, normal(0.1, 0.01)."""
+    0.02-normal, norm scales and batch-norm variances 1, other vectors and
+    scalars 0, and DISTS' alpha and beta its own init, normal(0.1, 0.01)."""
     from tair_tpu_torch.weights.convert import module_param_shapes, to_jax_tree
 
     with torch.device("meta"):
@@ -1788,7 +1844,7 @@ def seeded_tree(build, seed: int) -> dict:
             leaf = name.rsplit(".", 1)[-1]
             if leaf in ("alpha", "beta"):
                 p.copy_(0.1 + 0.01 * torch.randn(p.shape, generator=gen))
-            elif p.dim() == 1:
+            elif p.dim() <= 1:
                 p.fill_(1.0 if leaf in ("weight", "var") else 0.0)
             else:
                 std = 0.02 if leaf in _SMALL_PARAMS else p[0].numel() ** -0.5
@@ -1809,7 +1865,7 @@ def write_iqa_checkpoints(root: Path, seed: int) -> dict:
     from tair_tpu_torch.weights import export as tx
 
     def save(name, sd):
-        torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()}, root / name)
+        save_state_dict(root / name, sd)
         return str(root / name)
 
     root.mkdir(parents=True, exist_ok=True)
@@ -1871,21 +1927,8 @@ def phase_iqa(weights: dict, seed: int, smi: str) -> None:
         if first.shape != (1,) or not torch.isfinite(first).all():
             raise AssertionError(f"iqa {name}: score {first}")
         ms = time_ms(run, warmup=1, reps=5, inner=1)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        run()
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
-
-        def wall() -> float:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            return time.perf_counter() - t
-
-        prof = profiled(wall)
-        prof["top_kernels"] = prof["top_kernels"][:3]
+        peak = peak_bytes(run)
+        prof = device_profile(run)
 
         # the same weights and input on the CPU
         card, x, y, size = metric, a, b, IQA_SIZE
@@ -1915,6 +1958,228 @@ def phase_iqa(weights: dict, seed: int, smi: str) -> None:
         torch.cuda.empty_cache()
     emit("iqa", device=smi, image=f"{IQA_SIZE}x{IQA_SIZE} SyntheticSAText, degraded on the card",
          metrics=report, phase_seconds=time.perf_counter() - t_phase)
+
+
+# phase face: the image, the aligned face, the candidates left to the host's NMS
+FACE_SIZE = 512
+FACE_CANDIDATES = 64
+FACE_DEGRADE_BATCH = 4
+# the network's three outputs, card against CPU: |d| <= FACE_TOL * the largest
+# |output| of the CPU's box and landmark heads (float32 with TF32 off, sums in
+# another order through some 80 convolutions); the helper's images, card
+# against CPU, within HELPER_TOL (the same float32 coordinate arithmetic on
+# both, the paste-back's upscale a matrix product)
+FACE_TOL = 1e-4
+HELPER_TOL = 1e-5
+# the degrade's lq, card against CPU, as test_torch_degradation.py holds lq
+# through JPEG: the rounding surrogate is discontinuous, so a coefficient that
+# float32 summation order moves across a rounding boundary steps by one
+# quantisation step; at least DEGRADE_SHARE of the elements within DEGRADE_TOL,
+# every element within DEGRADE_BOUND
+DEGRADE_TOL, DEGRADE_SHARE, DEGRADE_BOUND = 1e-4, 0.99, 0.25
+# phase ram: the logits, card against CPU, |d| <= RAM_TOL * the largest |CPU logit|
+RAM_TOL = 1e-4
+
+
+def phase_face(root: Path, seed: int, smi: str) -> None:
+    """The face path at full width. RetinaFace-ResNet50 (out_channels 256) from
+    a seeded checkpoint in facexlib's layout (the heads' kernels at 1/100 of
+    `seeded_tree`'s, so that scores spread and decoded boxes stay near the
+    image), read by ``from_torch``, on one
+    512 x 512 SyntheticSAText image: the network's device ms (CUDA events,
+    median of 5 after a warm-up), launches and idle share (torch.profiler),
+    peak memory, ``detect`` as a whole with the confidence threshold at the
+    score quantile that leaves FACE_CANDIDATES candidates to the host's NMS
+    (random weights find no real faces), two calls bit-equal, the card against
+    the CPU on the same weights and image. Then ``FaceRestoreHelper(512,
+    upscale 2)`` on up to 4 of the detections' landmarks: align and paste-back
+    timed, against the CPU. Then ``codeformer_degrade_batch`` on a batch of
+    FACE_DEGRADE_BATCH ``CodeformerDataset`` items read from PNGs: ms a batch,
+    its host synchronisations, against the CPU with the same noise field."""
+    from tair_tpu_torch.data.codeformer import (
+        CodeformerDataset, codeformer_degrade_batch, collate_codeformer,
+    )
+    from tair_tpu_torch.utils.face import FACE_TEMPLATE_512, FaceRestoreHelper
+    from tair_tpu_torch.utils.png import write_png
+    from tair_tpu_torch.utils.retinaface import RetinaFace, RetinaFaceDetector
+    from tair_tpu_torch.weights import export as tx
+
+    t_phase = time.perf_counter()
+    root.mkdir(parents=True, exist_ok=True)
+    ckpt = root / "detection_Resnet50_Final.pth"
+    tree = seeded_tree(RetinaFace, seed + 10)
+    for name, node in tree.items():  # head outputs of order 1: boxes exp() their deltas
+        if name.startswith(("class_head", "bbox_head", "ldm_head")):
+            node["kernel"] = node["kernel"] * np.float32(0.01)
+    write_s = save_state_dict(ckpt, tx.export_retinaface(tree, "module."))
+    t0 = time.perf_counter()
+    det = RetinaFaceDetector.from_torch(str(ckpt), device="cuda")
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    cpu = RetinaFaceDetector.from_torch(str(ckpt), device="cpu")
+    _, gt = synthetic_pairs(FACE_DEGRADE_BATCH, FACE_SIZE, seed)
+    img = gt[0]
+    x = torch.from_numpy(img).cuda()
+
+    def net():
+        return det.forward(x)
+
+    first, second = net(), net()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("face: two forwards differ")
+    if not all(torch.isfinite(t).all() for t in first):
+        raise AssertionError("face: the network's outputs are not finite")
+    conf = np.sort(first[0][0, :, 1].cpu().numpy())[::-1]
+    threshold = float((conf[FACE_CANDIDATES - 1] + conf[FACE_CANDIDATES]) / 2)
+    network = dict(ms_cuda_events=time_ms(net, warmup=1, reps=5, inner=1),
+                   peak_memory_bytes=peak_bytes(net), device=device_profile(net),
+                   priors=int(conf.size))
+    want = cpu.forward(img)
+    scale = max(float(w.abs().max()) for w in want[1:])
+    errs = [float((g.cpu() - w).abs().max()) for g, w in zip(first, want)]
+    if not max(errs) <= FACE_TOL * scale:
+        raise AssertionError(f"face: card against CPU {errs} > {FACE_TOL} * {scale}")
+    network["against_cpu"] = dict(max_abs_err=dict(zip(("scores", "boxes", "landmarks"), errs)),
+                                  output_scale=scale, tol=FACE_TOL * scale)
+
+    rows = det.detect(img, threshold)
+    rows_cpu = cpu.detect(img, threshold)
+    if not np.array_equal(rows, det.detect(img, threshold)):
+        raise AssertionError("face: two detect calls differ")
+    if len(rows) != len(rows_cpu) or not np.isfinite(rows).all():
+        raise AssertionError(f"face: {len(rows)} rows on the card, {len(rows_cpu)} on the CPU")
+    candidates = int((conf > threshold).sum())
+    detect = dict(ms_wall=wall_ms(lambda: det.detect(img, threshold)),
+                  ms_wall_cpu=wall_ms(lambda: cpu.detect(img, threshold), reps=3),
+                  conf_threshold=threshold, candidates=candidates, rows=len(rows),
+                  rows_max_abs_err_against_cpu=float(np.abs(rows - rows_cpu).max())
+                  if len(rows) else None)
+
+    landmarks = [r[5:15].reshape(5, 2) for r in rows[:4]]
+    seeded = len(landmarks) < 2
+    if seeded:  # shrunk copies of the template, placed in the image by a seed
+        rng = np.random.default_rng(seed)
+        landmarks = [FACE_TEMPLATE_512 * 0.4 + rng.uniform(0, 300, 2) for _ in range(2)]
+    helpers = {}
+    for name, device in (("card", "cuda"), ("cpu", "cpu")):
+        h = FaceRestoreHelper(face_size=FACE_SIZE, upscale_factor=2, device=device)
+        for lm in landmarks:
+            h.add_landmarks(lm)
+        faces = h.align_warp_faces(img)
+        for f in faces:
+            h.add_restored_face(f)
+        helpers[name] = (h, faces, h.paste_faces_to_input_image(img))
+    (h, faces, pasted), (_, faces_cpu, pasted_cpu) = helpers["card"], helpers["cpu"]
+    helper_errs = [float((a.cpu() - b).abs().max()) for a, b in zip(faces, faces_cpu)]
+    helper_errs.append(float((pasted.cpu() - pasted_cpu).abs().max()))
+    if not max(helper_errs) <= HELPER_TOL:
+        raise AssertionError(f"face: helper card against CPU {helper_errs} > {HELPER_TOL}")
+    if pasted.shape != (2 * FACE_SIZE, 2 * FACE_SIZE, 3):
+        raise AssertionError(f"face: pasted image {tuple(pasted.shape)}")
+    helper = dict(faces=len(landmarks), seeded_landmarks=seeded,
+                  align_ms_cuda_events=time_ms(lambda: h.align_warp_faces(img), warmup=1,
+                                               reps=5, inner=1),
+                  paste_ms_cuda_events=time_ms(lambda: h.paste_faces_to_input_image(img),
+                                               warmup=1, reps=5, inner=1),
+                  max_abs_err_against_cpu=max(helper_errs), tol=HELPER_TOL)
+
+    records = []
+    for i, im in enumerate(gt):
+        write_png(str(root / f"face_{i}.png"), (im * 255.0).round().astype(np.uint8))
+        records.append(dict(image_path=str(root / f"face_{i}.png"), img_name=f"face_{i}"))
+    ds = CodeformerDataset(records, out_size=FACE_SIZE, seed=seed)
+    batch = collate_codeformer([ds[i] for i in range(len(records))])
+    hq, kernel = (torch.from_numpy(batch[k]).cuda() for k in ("hq", "kernel"))
+    params = (batch["scale"], batch["noise_sigma"], batch["jpeg_quality"])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def degrade():
+        return codeformer_degrade_batch(hq, kernel, *params, generator=gen)
+
+    degrade()  # the first call copies diff_jpeg's constants to the card
+    syncs, sync_sites = host_syncs(lambda _: degrade(), None)
+    normal = torch.randn(hq.shape, generator=torch.Generator().manual_seed(seed))
+    gt_card, lq_card = codeformer_degrade_batch(hq, kernel, *params, normal=normal.cuda())
+    gt_cpu, lq_cpu = codeformer_degrade_batch(hq.cpu(), kernel.cpu(), *params, normal=normal)
+    err = (lq_card.cpu() - lq_cpu).abs()
+    share = float((err <= DEGRADE_TOL).float().mean())
+    if not (torch.equal(gt_card.cpu(), gt_cpu) and share >= DEGRADE_SHARE
+            and float(err.max()) <= DEGRADE_BOUND):
+        raise AssertionError(f"face: degrade card against CPU: {share} within {DEGRADE_TOL}, "
+                             f"max {float(err.max())}")
+    degrade_report = dict(
+        batch=len(records), ms_per_batch_cuda_events=time_ms(degrade, warmup=1, reps=5, inner=1),
+        host_syncs=syncs, host_sync_sites=sync_sites, peak_memory_bytes=peak_bytes(degrade),
+        device=device_profile(degrade),
+        against_cpu=dict(share_within_tol=share, max_abs_err=float(err.max()), tol=DEGRADE_TOL),
+        scales=[float(v) for v in batch["scale"]])
+    emit("face", device=smi, image=f"{FACE_SIZE}x{FACE_SIZE} SyntheticSAText",
+         checkpoint=dict(write_seconds=write_s, read_seconds=read_s,
+                         megabytes=ckpt.stat().st_size / 1e6),
+         network=network, detect=detect, helper=helper, degrade=degrade_report,
+         phase_seconds=time.perf_counter() - t_phase)
+
+
+def phase_ram(root: Path, seed: int, smi: str) -> None:
+    """RAM++ at full width (``RAMConfig()``: Swin-L at 384 with depths
+    (2, 2, 18, 2), 4585 classes x 51 descriptions, hidden 768, 2 tag layers)
+    from a seeded checkpoint in ``ram_plus_swin_large_14m.pth``'s layout with a
+    tag list and per-class thresholds beside it, read by
+    ``RAMTagger.from_torch``: ms per image (CUDA events), peak memory,
+    launches and idle share, the checkpoint's write and read seconds, the
+    logits against the CPU's on the same weights and input, and
+    ``RAMCaptioner`` on a 512 x 512 image giving the same string twice."""
+    from tair_tpu_torch.models.ram import RAMConfig, RAMPlus, RAMTagger, preprocess
+    from tair_tpu_torch.utils.caption import RAMCaptioner
+    from tair_tpu_torch.weights import export as tx
+
+    t_phase = time.perf_counter()
+    root.mkdir(parents=True, exist_ok=True)
+    cfg = RAMConfig()
+    tree = seeded_tree(lambda: RAMPlus(cfg), seed + 20)
+    tree["reweight_scale"] = np.asarray(np.log(1.0 / 0.07), np.float32)
+    ckpt = root / "ram_plus_swin_large_14m.pth"
+    write_s = save_state_dict(ckpt, tx.export_ram_plus(tree, cfg))
+    rng = np.random.default_rng(seed)
+    (root / "ram_tag_list.txt").write_text("".join(f"tag_{i}\n" for i in range(cfg.num_class)))
+    (root / "ram_tag_list_threshold.txt").write_text(
+        "".join(f"{v}\n" for v in rng.uniform(0.6, 0.8, cfg.num_class)))
+    t0 = time.perf_counter()
+    tagger = RAMTagger.from_torch(str(ckpt), cfg, str(root / "ram_tag_list.txt"),
+                                  str(root / "ram_tag_list_threshold.txt"), device="cuda")
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    _, gt = synthetic_pairs(1, IQA_SIZE, seed)
+    image = gt[0]
+    x = preprocess(torch.from_numpy(image).cuda(), cfg.swin.img_size)
+
+    def run():
+        return tagger.logits(x)
+
+    first, second = run(), run()
+    if first.shape != (1, cfg.num_class) or not torch.isfinite(first).all():
+        raise AssertionError(f"ram: logits {tuple(first.shape)}")
+    if not torch.equal(first, second):
+        raise AssertionError("ram: two calls differ")
+    report = dict(ms_per_image_cuda_events=time_ms(run, warmup=1, reps=5, inner=1),
+                  peak_memory_bytes=peak_bytes(run), profile=device_profile(run))
+    cpu = RAMTagger(tree, cfg, device="cpu")
+    want = cpu.logits(x.cpu())
+    del tree
+    err, scale = float((first.cpu() - want).abs().max()), float(want.abs().max())
+    if not err <= RAM_TOL * scale:
+        raise AssertionError(f"ram: logits card against CPU |d| {err} > {RAM_TOL} * {scale}")
+    captioner = RAMCaptioner(tagger=tagger)
+    caption = captioner(image)
+    if captioner(image) != caption:
+        raise AssertionError("ram: two captions differ")
+    emit("ram", device=smi, image=f"{IQA_SIZE}x{IQA_SIZE} SyntheticSAText -> "
+         f"{cfg.swin.img_size}x{cfg.swin.img_size}", **report,
+         checkpoint=dict(write_seconds=write_s, read_seconds=read_s,
+                         megabytes=ckpt.stat().st_size / 1e6),
+         against_cpu=dict(max_abs_err=err, logit_scale=scale, tol=RAM_TOL * scale),
+         tags=len(caption.split(", ")) if caption else 0, caption_head=caption[:80],
+         phase_seconds=time.perf_counter() - t_phase)
 
 
 VAL_CONFIG = "configs/val.yaml"
@@ -3695,9 +3960,19 @@ def main() -> None:
 
 def run_iqa_and_later_phases(args, phases, smi, kernels, path_launches, host_syncs,
                              iqa_weights) -> None:
-    """Phases iqa, train_entry and the entry points, then the verdict."""
+    """Phases iqa, face, ram, train_entry and the entry points, then the verdict."""
+    import shutil
+
     if "iqa" in phases:
         phase_iqa(iqa_weights, args.seed, smi)
+    for name, phase in (("face", phase_face), ("ram", phase_ram)):
+        if name in phases:  # checkpoints and images under build/, removed after
+            work = Path(__file__).resolve().parent / "build" / name
+            try:
+                phase(work, args.seed, smi)
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
+            torch.cuda.empty_cache()
     if "train_entry" in phases:
         path_launches["train_entry"] = phase_train_entry(args.seed, iqa_weights)
         for entry in kernels:

@@ -9,6 +9,8 @@ not multiples of 16 are edge-padded and cropped back.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -54,6 +56,13 @@ def _dct_matrix() -> np.ndarray:
 _DCT = _dct_matrix()
 
 
+@lru_cache(maxsize=None)
+def _constant(name: str, device: torch.device) -> torch.Tensor:
+    """One of the module's constant arrays on `device`, copied there once: a
+    copy from the host on every call would wait for the device each time."""
+    return torch.from_numpy(_CONSTANTS[name]).to(device)
+
+
 def quality_to_factor(quality: torch.Tensor) -> torch.Tensor:
     """Standard JPEG quality -> quantisation scale."""
     q = torch.where(quality < 50, 5000.0 / quality, 200.0 - quality * 2.0)
@@ -80,12 +89,12 @@ def _unblockify(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 
 def _dct2d(blocks: torch.Tensor) -> torch.Tensor:
-    d = torch.from_numpy(_DCT).to(blocks.device)
+    d = _constant("dct", blocks.device)
     return torch.einsum("ux,bnxy,vy->bnuv", d, blocks, d)
 
 
 def _idct2d(coeffs: torch.Tensor) -> torch.Tensor:
-    d = torch.from_numpy(_DCT).to(coeffs.device)
+    d = _constant("dct", coeffs.device)
     return torch.einsum("xu,bnuv,yv->bnxy", d, coeffs, d)
 
 
@@ -98,15 +107,23 @@ _YCC_TO_RGB = np.array(
 )
 
 
+_CONSTANTS = {
+    "dct": _DCT, "y_table": Y_TABLE, "c_table": C_TABLE,
+    "rgb_to_ycc": _RGB_TO_YCC, "ycc_to_rgb": _YCC_TO_RGB,
+    "ycc_shift": np.array([0.0, 128.0, 128.0], np.float32),
+    "rgb_shift": np.array([0.0, -128.0, -128.0], np.float32),
+}
+
+
 def rgb_to_ycbcr(x255: torch.Tensor) -> torch.Tensor:
-    m = torch.from_numpy(_RGB_TO_YCC).to(x255.device)
-    shift = torch.tensor([0.0, 128.0, 128.0], device=x255.device)
+    m = _constant("rgb_to_ycc", x255.device)
+    shift = _constant("ycc_shift", x255.device)
     return torch.einsum("bhwc,oc->bhwo", x255, m) + shift
 
 
 def ycbcr_to_rgb(x: torch.Tensor) -> torch.Tensor:
-    m = torch.from_numpy(_YCC_TO_RGB).to(x.device)
-    shift = torch.tensor([0.0, -128.0, -128.0], device=x.device)
+    m = _constant("ycc_to_rgb", x.device)
+    shift = _constant("rgb_shift", x.device)
     return torch.einsum("bhwc,oc->bhwo", x + shift, m)
 
 
@@ -138,15 +155,15 @@ def diff_jpeg(image: torch.Tensor, quality: torch.Tensor) -> torch.Tensor:
     def compress(chan, table):
         blocks = _blockify(chan) - 128.0
         coeff = _dct2d(blocks)
-        qt = torch.from_numpy(table).to(chan.device)[None, None] * factor[:, None, None, None]
+        qt = _constant(table, chan.device)[None, None] * factor[:, None, None, None]
         return _diff_round(coeff / qt), qt
 
     def decompress(coeff, qt, hh, ww):
         return _unblockify(_idct2d(coeff * qt) + 128.0, hh, ww)
 
-    y_q, y_t = compress(y, Y_TABLE)
-    cb_q, c_t = compress(cb, C_TABLE)
-    cr_q, _ = compress(cr, C_TABLE)
+    y_q, y_t = compress(y, "y_table")
+    cb_q, c_t = compress(cb, "c_table")
+    cr_q, _ = compress(cr, "c_table")
 
     y = decompress(y_q, y_t, h, w)
     cb = _upsample_2x(decompress(cb_q, c_t, h // 2, w // 2))

@@ -26,6 +26,7 @@ they are not in the repo.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import lru_cache
 from typing import Any, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -126,6 +127,16 @@ def _shift_mask(hh: int, ww: int, ws: int, sh: int) -> np.ndarray:
     return np.where(wins[:, None, :] - wins[:, :, None] != 0, -100.0, 0.0).astype(np.float32)
 
 
+@lru_cache(maxsize=None)
+def _on_device(table: str, device: torch.device, *args) -> torch.Tensor:
+    """`_rel_pos_index(*args)` (flattened) or `_shift_mask(*args)` on `device`,
+    made once: a copy from the host in every block would wait for the device
+    each time."""
+    if table == "index":
+        return torch.from_numpy(_rel_pos_index(*args).reshape(-1)).to(device)
+    return torch.from_numpy(_shift_mask(*args)).to(device)
+
+
 class WindowAttention(nn.Module):
     def __init__(self, dim: int, window: int, heads: int):
         super().__init__()
@@ -138,7 +149,7 @@ class WindowAttention(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         nwb, t, d = x.shape  # [nW * B, ws * ws, D]
         qkv = self.qkv(x).reshape(nwb, t, 3, self.heads, d // self.heads)
-        index = torch.from_numpy(_rel_pos_index(self.window).reshape(-1)).to(x.device)
+        index = _on_device("index", x.device, self.window)
         bias = self.relative_position_bias_table[index].reshape(t, t, self.heads).permute(2, 0, 1)
         bias = bias[None]
         if mask is not None:  # [nW, t, t]; the windows of an image are consecutive
@@ -166,7 +177,7 @@ class SwinBlock(nn.Module):
         mask = None
         if sh > 0:
             x = torch.roll(x, (-sh, -sh), dims=(1, 2))
-            mask = torch.from_numpy(_shift_mask(hh, ww, ws, sh)).to(x.device)
+            mask = _on_device("mask", x.device, hh, ww, ws, sh)
         x = _window_reverse(self.attn(_window_partition(x, ws), mask), ws, hh, ww)
         if sh > 0:
             x = torch.roll(x, (sh, sh), dims=(1, 2))

@@ -17,7 +17,8 @@ rule per leaf rather than a table per model:
   so do those of the IQA metrics whatever their rank (inference batch norm's
   ``mean`` and ``var``, DISTS' ``alpha`` and ``beta``, the ViTs' ``cls_token``
   and ``pos_embed``, Swin's ``relative_position_bias_table``, MUSIQ's
-  ``spatial_embedding`` and ``scale_embedding``).
+  ``spatial_embedding`` and ``scale_embedding``; RAM++'s ``label_embed``,
+  ``reweight_scale``, ``fc_w`` and ``fc_b``).
 
 The tree is plain nested dicts of numpy arrays (``jax.device_get`` of the
 params); nothing of JAX is imported here. A leaf that no rule takes raises,
@@ -60,6 +61,9 @@ _BARE = {
 _BARE_ANY_RANK = {
     "mean", "var", "alpha", "beta", "cls_token", "pos_embed",
     "relative_position_bias_table", "spatial_embedding", "scale_embedding",
+    # RAM++ (models/ram.py): the description table, its softmax scale and the
+    # per-class output weights
+    "label_embed", "reweight_scale", "fc_w", "fc_b",
 }
 _MHA_PROJ = {"query", "key", "value"}
 _INDEXED = re.compile(r"^(block|layer)_(\d+)$")
@@ -865,11 +869,14 @@ def convert_testr(sd: TorchDict, cfg, prefix: str = "testr.") -> Tuple[Params, R
 # what the published files hold beside the metric's tensors: the classifiers of
 # torchvision's AlexNet and VGG16; the update counts of torch's batch norms and
 # OpenAI CLIP's three integers; the ViT's final norm and head under MANIQA and
-# the buffers its Swin stages derive from their shape
+# the buffers its Swin stages derive from their shape; RetinaFace's batch norms'
+# update counts; the Swin buffers of RAM++'s encoder
 _UNREAD = {
     "torchvision": re.compile(r"^classifier\."),
     "clip": re.compile(r"\.num_batches_tracked$|^(input_resolution|context_length|vocab_size)$"),
     "maniqa": re.compile(r"^vit\.(norm|head)\.|\.relative_position_index$|\.attn_mask$"),
+    "retinaface": re.compile(r"\.num_batches_tracked$"),
+    "ram_plus": re.compile(r"\.relative_position_index$|\.attn_mask$"),
 }
 
 
@@ -1052,6 +1059,107 @@ def convert_musiq(sd: TorchDict, cfg) -> Params:
     ``backbone.*``; weights/musiq_shim.py renames a published one into it)
     -> utils/musiq.MUSIQ's tree."""
     return _read_whole(_musiq_table, sd, cfg)
+
+
+# --------------------------------------------------------------------------
+# The face detector and the tagger (utils/retinaface.py, models/ram.py): the
+# JAX package's ``convert_retinaface`` and ``convert_ram_plus`` as tables.
+# --------------------------------------------------------------------------
+
+# torchvision's ResNet-50 blocks per stage, the RetinaFace body
+RESNET50_LAYERS = (3, 4, 6, 3)
+
+
+def _retinaface_table(out: Params, r: Reader, cfg=None) -> None:
+    def conv_bn(dst, src):  # torch Sequential(conv, bn, leaky relu): `.0`, `.1`
+        _conv(out, f"{dst}/conv", r, f"{src}.0", bias=False)
+        _bn(out, f"{dst}/bn", r, f"{src}.1")
+
+    _conv(out, "body/conv1", r, "body.conv1", bias=False)
+    _bn(out, "body/bn1", r, "body.bn1")
+    for stage, n_blocks in enumerate(RESNET50_LAYERS):
+        for blk in range(n_blocks):
+            src, dst = f"body.layer{stage + 1}.{blk}", f"body/layer{stage + 1}_{blk}"
+            for i in (1, 2, 3):
+                _conv(out, f"{dst}/conv{i}", r, f"{src}.conv{i}", bias=False)
+                _bn(out, f"{dst}/bn{i}", r, f"{src}.bn{i}")
+            if _present(out, f"{dst}/down_conv", r, f"{src}.downsample.0.weight"):
+                _conv(out, f"{dst}/down_conv", r, f"{src}.downsample.0", bias=False)
+                _bn(out, f"{dst}/down_bn", r, f"{src}.downsample.1")
+    for i in (1, 2, 3):
+        conv_bn(f"fpn_output{i}", f"fpn.output{i}")
+    for i in (1, 2):
+        conv_bn(f"fpn_merge{i}", f"fpn.merge{i}")
+    for i in (1, 2, 3):
+        conv_bn(f"ssh{i}/conv3x3", f"ssh{i}.conv3X3")
+        conv_bn(f"ssh{i}/conv5x5_1", f"ssh{i}.conv5X5_1")
+        conv_bn(f"ssh{i}/conv5x5_2", f"ssh{i}.conv5X5_2")
+        conv_bn(f"ssh{i}/conv7x7_2", f"ssh{i}.conv7X7_2")
+        conv_bn(f"ssh{i}/conv7x7_3", f"ssh{i}.conv7x7_3")  # lower case in the file
+    for i in range(3):
+        for head, dst in (("ClassHead", "class_head"), ("BboxHead", "bbox_head"),
+                          ("LandmarkHead", "ldm_head")):
+            _conv(out, f"{dst}{i}", r, f"{head}.{i}.conv1x1")
+
+
+def convert_retinaface(sd: TorchDict) -> Params:
+    """facexlib's / biubug6's RetinaFace-ResNet50 (``detection_Resnet50_Final.pth``,
+    ``module.`` stripped: ``body.*``, ``fpn.output{1,2,3}``, ``fpn.merge{1,2}``,
+    ``ssh{1,2,3}.*``, ``{Class,Bbox,Landmark}Head.{0,1,2}.conv1x1``) ->
+    utils/retinaface.RetinaFace's tree."""
+    return _read_whole(_retinaface_table, sd, None, unread="retinaface")
+
+
+def _ram_plus_table(out: Params, r: Reader, cfg) -> None:
+    ve = "visual_encoder"
+    _conv(out, f"{ve}/patch_embed", r, f"{ve}.patch_embed.proj")
+    _norm(out, f"{ve}/patch_norm", r, f"{ve}.patch_embed.norm")
+    for i, depth in enumerate(cfg.swin.depths):
+        for j in range(depth):
+            src, dst = f"{ve}.layers.{i}.blocks.{j}", f"{ve}/stage_{i}/block_{j}"
+            _norm(out, f"{dst}/norm1", r, f"{src}.norm1")
+            _lin(out, f"{dst}/attn/qkv", r, f"{src}.attn.qkv")
+            _lin(out, f"{dst}/attn/proj", r, f"{src}.attn.proj")
+            _move(out, f"{dst}/attn/relative_position_bias_table", r,
+                  f"{src}.attn.relative_position_bias_table")
+            _norm(out, f"{dst}/norm2", r, f"{src}.norm2")
+            _lin(out, f"{dst}/fc1", r, f"{src}.mlp.fc1")
+            _lin(out, f"{dst}/fc2", r, f"{src}.mlp.fc2")
+        if i < len(cfg.swin.depths) - 1:
+            ds = f"{ve}.layers.{i}.downsample"
+            _norm(out, f"{ve}/stage_{i}/downsample/norm", r, f"{ds}.norm")
+            _lin(out, f"{ve}/stage_{i}/downsample/reduction", r, f"{ds}.reduction", bias=False)
+    _norm(out, f"{ve}/norm", r, f"{ve}.norm")
+
+    _move(out, "label_embed", r, "label_embed")
+    # stored as torch.ones(1) * log(1 / 0.07)
+    _move(out, "reweight_scale", r, "reweight_scale", lambda w: w.reshape(()),
+          lambda w: w.reshape(1))
+    _lin(out, "image_proj", r, "image_proj")
+    _lin(out, "wordvec_proj", r, "wordvec_proj")
+    for i in range(cfg.layers):
+        src, dst = f"tagging_head.encoder.layer.{i}", f"tag_layer_{i}"
+        for tsrc, tdst in (("attention", "self"), ("crossattention", "cross")):
+            for p in ("query", "key", "value"):
+                _lin(out, f"{dst}/{tdst}_{p}", r, f"{src}.{tsrc}.self.{p}")
+            _lin(out, f"{dst}/{tdst}_out", r, f"{src}.{tsrc}.output.dense")
+            _norm(out, f"{dst}/{tdst}_ln", r, f"{src}.{tsrc}.output.LayerNorm")
+        _lin(out, f"{dst}/ffn_in", r, f"{src}.intermediate.dense")
+        _lin(out, f"{dst}/ffn_out", r, f"{src}.output.dense")
+        _norm(out, f"{dst}/ffn_ln", r, f"{src}.output.LayerNorm")
+    # GroupWiseLinear's W [1, C, hidden] and b [1, C]
+    n, hidden = cfg.num_class, cfg.hidden
+    _move(out, "fc_w", r, "fc.W", lambda w: w.reshape(n, hidden), lambda w: w.reshape(1, n, hidden))
+    _move(out, "fc_b", r, "fc.b", lambda w: w.reshape(n), lambda w: w.reshape(1, n))
+
+
+def convert_ram_plus(sd: TorchDict, cfg) -> Params:
+    """RAM++'s checkpoint (``ram_plus_swin_large_14m.pth``, ``module.`` or not:
+    the Swin ``visual_encoder``, ``label_embed``, ``reweight_scale``,
+    ``image_proj``, ``wordvec_proj``, the ``tagging_head``'s BERT layers and
+    ``fc.W`` / ``fc.b``) -> models/ram.RAMPlus's tree, in the layout that the
+    JAX package reconstructs (its ``models/ram.py`` says how far that goes)."""
+    return _read_whole(_ram_plus_table, _strip_module(sd), cfg, unread="ram_plus")
 
 
 def _to_numpy(value) -> np.ndarray:

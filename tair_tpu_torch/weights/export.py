@@ -96,6 +96,18 @@ def export_maniqa(tree: Tree, cfg, prefix: str = "") -> StateDict:
     return _export(_c._maniqa_table, tree, cfg, prefix)
 
 
+def export_retinaface(tree: Tree, prefix: str = "") -> StateDict:
+    """Inverse of `convert_retinaface`: facexlib's names, under `prefix`
+    (``module.`` as in a checkpoint saved from ``DataParallel``)."""
+    return _export(_c._retinaface_table, tree, None, prefix)
+
+
+def export_ram_plus(tree: Tree, cfg, prefix: str = "") -> StateDict:
+    """Inverse of `convert_ram_plus`: ``ram_plus_swin_large_14m.pth``'s names
+    (``reweight_scale`` as [1], ``fc.W`` as [1, C, hidden], ``fc.b`` as [1, C])."""
+    return _export(_c._ram_plus_table, tree, cfg, prefix)
+
+
 # utils/musiq's layout -> a BiT/timm-flavoured published naming (wrapped in
 # ``module.``), which only weights/musiq_shim.py maps back: name prefixes, then
 # the blocks' leaf names
