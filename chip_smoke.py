@@ -48,18 +48,22 @@ through its kernels:
             the tiny model's tiled request in float32 against the CPU (phases
             diffbir, diffbir_reference);
   matcher   the exact matcher, kernel J1 (``jv_assign``, the
-            Jonker-Volgenant solve of ``spotter/matcher.py``), held element
-            for element against its plain version on seeded float and tied
-            costs in both orientations and on the costs of a real spotter
-            pass, timed by CUDA-graph replay beside the host path (a copy to
+            Jonker-Volgenant solve of ``spotter/matcher.py``: a warp for each
+            narrow matrix, a block for each wide one, many matrices a launch),
+            held element for element against its plain version on seeded
+            float and tied costs in both orientations, at shapes that land on
+            each path and each place of the matrix, on the costs of a real
+            spotter pass and on the seven matchings of one ``set_criterion``
+            call in one launch; timed by CUDA-graph replay, the one launch in
+            turns with a launch a matching, beside the host path (a copy to
             the host, the native ``lapjv_batch``, a copy back) and scipy's
             solve (phase matcher);
   training  stage 3 (``all_modules``) through ``train.step.make_train_step``:
             one step of the tiny model on the card against the CPU (phase
             train_reference), then full-width steps with float32 master
-            weights and bfloat16 compute on one 512 x 512 image, and its host
-            synchronisations and seconds a step with J1 and with the host
-            matcher (phase train);
+            weights and bfloat16 compute on one 512 x 512 image (one J1
+            launch a step), and its host synchronisations and seconds a step
+            with J1 and with the host matcher (phase train);
             then the port's trainer as a user starts it, ``python -m
             tair_tpu_torch.train`` on configs/train_chip_demo.yaml (its own
             data, degradation on the card, checkpoint, resume, validation with
@@ -1207,17 +1211,25 @@ def check_bf16_flash(want: dict, steps: int, backward: bool) -> None:
 
 
 def matchings_per_criterion(model) -> int:
-    """Exact matchings (J1 launches, one per batch) of one call of the TESTR
-    criterion: the last decoder layer's output, the auxiliary outputs of the
-    other decoder layers and the encoder proposals."""
+    """Exact matchings of one call of the TESTR criterion: the last decoder
+    layer's output, the auxiliary outputs of the other decoder layers and the
+    encoder proposals. J1 solves them all in one launch."""
     return model.testr.cfg.num_decoder_layers + 1
 
 
-def predicted_train_launches(model, compute_dtype: torch.dtype) -> dict:
-    """Kernel launches of one stage-3 training step, from the model's
-    structure: `flash_launches` of one pass with the backward; every deformable
-    attention of the spotter runs the reduce forward and backward once; the
-    criterion's matchings run J1 once each."""
+def j1_launches(model, batch: int) -> int:
+    """J1 launches of one criterion call on `batch` images: its matchings'
+    matrices in one launch, a launch more for each MATRICES_PER_LAUNCH more."""
+    from tair_tpu_torch.spotter.matcher import MATRICES_PER_LAUNCH
+
+    return -(-matchings_per_criterion(model) * batch // MATRICES_PER_LAUNCH)
+
+
+def predicted_train_launches(model, compute_dtype: torch.dtype, batch: int) -> dict:
+    """Kernel launches of one stage-3 training step on `batch` images, from
+    the model's structure: `flash_launches` of one pass with the backward;
+    every deformable attention of the spotter runs the reduce forward and
+    backward once; the criterion's matchings are `j1_launches`."""
     from tair_tpu_torch.spotter.ms_deform_attn import MSDeformAttn
 
     msda = sum(isinstance(m, MSDeformAttn) for m in model.testr.modules())
@@ -1225,7 +1237,7 @@ def predicted_train_launches(model, compute_dtype: torch.dtype) -> dict:
         **dict.fromkeys(launch_counts(), 0),  # no other kernel runs in a training step
         **flash_launches(model, compute_dtype, 1, backward=True),
         "msda_corner_reduce_fwd": msda, "msda_corner_reduce_bwd": msda,
-        "jv_assign": matchings_per_criterion(model),
+        "jv_assign": j1_launches(model, batch),
     }
 
 
@@ -1395,7 +1407,7 @@ def phase_train_reference(seed: int) -> dict:
             f"train_reference parameters after the step: {worst_solid} where the gradient "
             f"is solid (tol {0.1 * TRAIN_LR}), {worst_any} anywhere (tol {2.1 * TRAIN_LR})"
         )
-    want_launches = predicted_train_launches(dut, torch.float32)
+    want_launches = predicted_train_launches(dut, torch.float32, batch=2)
     if card["launches"] != want_launches or any(cpu["launches"].values()):
         raise AssertionError(
             f"train_reference launches: card {card['launches']}, structure says "
@@ -1442,7 +1454,7 @@ def phase_train(seed: int, steps: int, kernels: list, profile: bool) -> dict:
         for k, v in train_batch(rng, batch=1, size=512, max_inst=8, n_inst=5).items()
     }
     gen = torch.Generator(device=dev).manual_seed(seed)
-    want = predicted_train_launches(model, torch.bfloat16)
+    want = predicted_train_launches(model, torch.bfloat16, batch=1)
     check_bf16_flash(want, 1, backward=True)
     before = checksums()
 
@@ -1500,7 +1512,7 @@ def phase_train(seed: int, steps: int, kernels: list, profile: bool) -> dict:
          note="one more step, synchronised at every mark; gradient_watch is this "
               "script's own check of the gradients before the update")
     emit("train_matcher", card=torch.cuda.get_device_name(0),
-         **matcher_step_turns(model, state, batch, gen, want["jv_assign"]))
+         **matcher_step_turns(model, state, batch, gen, matchings_per_criterion(model)))
     if profile:
         phase_profile("train_profile", lambda: one_step()[0])
     return timed[-1][2]
@@ -1531,6 +1543,9 @@ def matcher_step_turns(model, state, batch, gen, matchings: int) -> dict:
         syncs[m] = dict(sites=sites, count=sum(
             n for site, n in sites.items() if not site.startswith("chip_smoke.py:")))
     fewer = syncs["hungarian_host"]["count"] - syncs["hungarian"]["count"]
+    if syncs["hungarian"]["count"] > 1:
+        raise AssertionError(f"train: {syncs['hungarian']['count']} host syncs a step with J1, "
+                             f"more than one: {syncs['hungarian']['sites']}")
     if fewer < matchings:
         raise AssertionError(f"train: J1 saves {fewer} host syncs a step, not one per matching "
                              f"({matchings}): {syncs}")
@@ -1639,7 +1654,7 @@ def phase_train_entry(seed: int, iqa_weights: dict) -> dict:
         torch.cuda.synchronize()
         load_model_s = time.perf_counter() - t0
 
-        want = predicted_train_launches(model, torch.bfloat16)
+        want = predicted_train_launches(model, torch.bfloat16, cfg.train.batch_size)
         check_bf16_flash(want, 1, backward=True)
         want_step = {k: n for k, n in want.items() if n}
         for r in steps:
@@ -1728,7 +1743,8 @@ def phase_train_entry(seed: int, iqa_weights: dict) -> dict:
         want_val = {**dict.fromkeys(val_launches, 0),
                     **flash_launches(model, torch.bfloat16, VAL_STEPS, backward=False),
                     "msda_corner_reduce_fwd": msda * len(VAL_TAGS),
-                    "jv_assign": matchings_per_criterion(model) * len(VAL_TAGS)}  # its OCR loss
+                    # its OCR loss: one criterion call a tag, on one image
+                    "jv_assign": len(VAL_TAGS) * j1_launches(model, 1)}
         if val_launches != want_val:
             raise AssertionError(f"train_entry validation launches {val_launches}, "
                                  f"structure says {want_val}")
@@ -1901,7 +1917,8 @@ def phase_iqa(weights: dict, seed: int, smi: str) -> None:
     image degraded on the card (LPIPS and DISTS against its ground truth):
     milliseconds per image (CUDA events, median of 5 calls after a warm-up),
     peak device memory of a call, a call's device busy time, idle share and
-    top kernels (torch.profiler), two calls bit-equal, and the card's score
+    top kernels (torch.profiler), its host synchronisations (torch's sync
+    debug mode), two calls bit-equal, and the card's score
     against the CPU's with the same weights on the same input (MANIQA on one
     224 x 224 crop with num_crops=1: its 20 crops at full width are too slow
     for the CPU here)."""
@@ -1929,6 +1946,7 @@ def phase_iqa(weights: dict, seed: int, smi: str) -> None:
         ms = time_ms(run, warmup=1, reps=5, inner=1)
         peak = peak_bytes(run)
         prof = device_profile(run)
+        syncs, sync_sites = host_syncs(lambda _: run(), 1)
 
         # the same weights and input on the CPU
         card, x, y, size = metric, a, b, IQA_SIZE
@@ -1948,7 +1966,7 @@ def phase_iqa(weights: dict, seed: int, smi: str) -> None:
             raise AssertionError(f"iqa {name}: card {got} against CPU {want}: |d| {err} > {tol}")
         report[name] = dict(
             ms_per_image_cuda_events=ms, peak_memory_bytes=peak, load_seconds=load_s,
-            device=prof,
+            device=prof, host_syncs_per_call=syncs, host_sync_sites=sync_sites,
             score=first.item(), repeat_bit_equal=bool(torch.equal(first, second)),
             against_cpu=dict(size=size, card=got, cpu=want, max_abs_err=err, tol=tol),
         )
@@ -2771,24 +2789,40 @@ def spotter_features(model, lq):
         return model.cldm.apply(x, torch.full((1,), 500, dtype=torch.int32, device=dev), cond)[1]
 
 
-# the matcher's cases (phase matcher): name, B, Q, M, n_valid, costs. The train
-# phase's decoder matching (one image, 8 target slots, 5 real); the stage-3
-# config's 32 slots at batch 4, with none and all of them real; more slots than
-# queries (solved query-major); integer costs in {0..3}, whose optima tie; a
-# matrix too large to stage in shared memory (read from L2); and the encoder's
-# box matching at 1024 x 1024 (37,888 tokens), whose vectors do not fit shared
-# memory either (a workspace in device memory). Then the costs of a real spotter
-# pass (phase matcher adds them): the decoder's control-point matching
-# [1, 100, 8] and the encoder's box matching over all 9472 tokens [1, 9472, 8].
+# the matcher's cases (phase matcher): name, B, Q, M, n_valid, costs. J1 gives
+# a warp to a matrix of at most 256 solved columns (max(Q, M)) that fits in a
+# block's shared memory, and a block to any other. The train phase's decoder
+# matching (one image, 8 target slots, 5 real); the stage-3 config's 32 slots
+# at batch 4, with none and all of them real; more slots than queries (solved
+# query-major); integer costs in {0..3}, whose optima tie (all on the warp
+# path); 300 x 256, and the encoder's box matching at 1024 x 1024 (37,888
+# tokens), whose vectors do not fit shared memory either (the block path, A
+# staged in the workspace). Then the costs of a real spotter pass (phase
+# matcher adds them): the decoder's control-point matching [1, 100, 8] (warp)
+# and the encoder's box matching over all 9472 tokens [1, 9472, 8] (block).
+# The draws of these cases and of the spotter pass's targets come first, so
+# they are the same as those of the earlier J1 this phase was first run on.
 MATCHER_CASES = [
     ("train_batch", 1, 100, 8, (5,), "float"),
     ("stage3_b4", 4, 100, 32, (0, 32, 17, 5), "float"),
     ("more_slots_than_queries", 2, 100, 128, (128, 60), "float"),
     ("tied_stage3_b4", 4, 100, 32, (0, 32, 17, 5), "tied"),
     ("tied_b2_12x5", 2, 12, 5, (5, 3), "tied"),
-    ("unstaged_300x256", 1, 300, 256, (200,), "float"),
+    ("wide_300x256", 1, 300, 256, (200,), "float"),
     ("workspace_37888x8", 1, 37888, 8, (5,), "float"),
 ]
+# and, drawn after them, the cases that pin each place of a matrix: four
+# [250, 60] costs on the warp path, three warps a block (their slices too
+# large for four); a block matrix staged in shared memory; 256 x 256 (too large
+# for a warp's shared memory: the block path) and a query-major 64 x 1024,
+# staged in the workspace
+MATCHER_PLACE_CASES = [
+    ("warp_b4_250x60", 4, 250, 60, (60, 45, 30, 0), "float"),
+    ("block_shared_1000x16", 2, 1000, 16, (16, 9), "float"),
+    ("square_256x256", 1, 256, 256, (256,), "float"),
+    ("wide_query_major_64x1024", 1, 64, 1024, (1000,), "float"),
+]
+WARP_MAX_COLUMNS = 256  # jv_assign.cu's kWarpMaxCols (and A under ~220 KB of shared memory)
 
 
 def host_path_parts(cost: torch.Tensor, n_valid: torch.Tensor, n: int = 20) -> dict:
@@ -2835,91 +2869,186 @@ def matched_cost(cost: torch.Tensor, assignment: torch.Tensor) -> float:
                if a[b, t] >= 0)
 
 
+def criterion_problems(out: dict, targets: dict) -> list:
+    """The (cost, n_valid) matchings of one ``set_criterion`` call, as the
+    criterion hands them to the matcher (recorded from its one call)."""
+    from tair_tpu_torch.spotter import losses
+
+    calls = []
+    solve = losses.assign_many
+
+    def record(impl, problems):
+        calls.append(list(problems))
+        return solve(impl, calls[-1])
+
+    losses.assign_many = record
+    try:
+        with torch.no_grad():
+            losses.set_criterion(out, targets, losses.CriterionConfig())
+    finally:
+        losses.assign_many = solve
+    if len(calls) != 1:
+        raise AssertionError(f"set_criterion called the matcher {len(calls)} times, not once")
+    return calls[0]
+
+
 def phase_matcher(model, lq, seed: int, smi: str) -> dict:
     """Kernel J1 (the exact matcher, ``jv_assign``) against its plain version
-    on the card, element for element, at every case of MATCHER_CASES and on
-    the costs of a real spotter pass (the serving model's taps, seeded
-    targets of the train phase's batch); J1's device time by CUDA-graph
-    replay; the host path's time beside it; the bound from the bytes J1 must
-    move and the float32 adds this data needs."""
+    on the card, element for element, at every case of MATCHER_CASES and
+    MATCHER_PLACE_CASES, on the costs of a real spotter pass (the serving
+    model's taps, seeded targets of the train phase's batch), and on the seven
+    matchings of one ``set_criterion`` call in one launch and in a launch
+    each. Device time by CUDA-graph replay (the one launch in turns with the
+    seven), ns per dependent step, host ms per call; the host path's time
+    beside it; the bound from the bytes J1 must move and the float32 adds this
+    data needs."""
     from tair_tpu_torch.spotter import matcher as tm
 
     dev = lq.device
     rng = np.random.default_rng(seed)
-    cases = []
-    for name, b, q, m, counts, kind in MATCHER_CASES:
-        cost = (rng.standard_normal((b, q, m)) * 10 if kind == "float"
-                else rng.integers(0, 4, (b, q, m)))
-        cases.append((name, kind, torch.from_numpy(cost.astype(np.float32)).to(dev),
-                      torch.tensor(counts, dtype=torch.long, device=dev)))
+
+    def drawn(rows):
+        out = []
+        for name, b, q, m, counts, kind in rows:
+            cost = (rng.standard_normal((b, q, m)) * 10 if kind == "float"
+                    else rng.integers(0, 4, (b, q, m)))
+            out.append((name, kind, torch.from_numpy(cost.astype(np.float32)).to(dev),
+                        torch.tensor(counts, dtype=torch.long, device=dev)))
+        return out
+
+    cases = drawn(MATCHER_CASES)
     batch = train_batch(rng, batch=1, size=512, max_inst=8, n_inst=5)
+    cases += drawn(MATCHER_PLACE_CASES)
     targets = {k: torch.from_numpy(batch[k]).to(dev)
                for k in ("inst_mask", "boxes", "ctrl_points", "texts")}
     with torch.no_grad():
         out = model.spotter_apply(spotter_features(model, lq))
-    cases.append(("spotter_decoder_points", "spotter", *tm.ctrl_point_cost(out, targets)))
-    cases.append(("spotter_encoder_boxes", "spotter", *tm.box_cost(out["enc_outputs"], targets)))
+    step_problems = criterion_problems(out, targets)
+    cases.append(("spotter_decoder_points", "spotter", *step_problems[0]))
+    cases.append(("spotter_encoder_boxes", "spotter", *step_problems[-1]))
     del out
+
+    def reference(cost, n_valid):
+        """The plain version matrix by matrix: (assignment, the search steps
+        of its longest chain, the work of all its matrices {steps, relaxed,
+        dual}, ms)."""
+        parts, steps, total = [], 0, {"steps": 0, "relaxed": 0, "dual": 0}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for k in range(cost.shape[0]):
+            stats = {}
+            parts.append(tm.jv_assignment_reference(cost[k:k + 1], n_valid[k:k + 1], stats))
+            steps = max(steps, stats.get("steps", 0))
+            for key in total:
+                total[key] += stats.get(key, 0)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        return torch.cat(parts), steps, total, ms
+
+    def solve(cost, n_valid):
+        return tm._launch_jv([(cost, n_valid)])[0]
 
     rows = []
     for name, kind, cost, n_valid in cases:
-        got = tm._launch_jv(cost, n_valid)
+        want, chain, work, plain_ms = reference(cost, n_valid)
+        got = solve(cost, n_valid)
         torch.cuda.synchronize()
-        stats = {}
-        t = time.perf_counter()
-        want = tm.jv_assignment_reference(cost, n_valid, stats)
-        torch.cuda.synchronize()
-        plain_ms = 1e3 * (time.perf_counter() - t)
         if got.dtype != torch.long or not torch.equal(got, want):
             raise AssertionError(
                 f"matcher {name}: J1's assignment differs from the plain version's at "
                 f"{int((got != want).sum())} of {want.numel()} targets")
         host = host_path_parts(cost, n_valid)
         host_out = tm.hungarian_assignment(cost, n_valid)
-        j1_total, host_total = matched_cost(cost, got), matched_cost(cost, host_out)
+        j1_total, host_total = matched_cost(cost, want), matched_cost(cost, host_out)
         if not abs(j1_total - host_total) <= 1e-5 * max(1.0, abs(host_total)):
             raise AssertionError(f"matcher {name}: J1's optimum {j1_total}, the host's "
                                  f"{host_total}")
-        nbytes = cost.numel() * 4 + n_valid.numel() * 8 + got.numel() * 8
-        flops = 3 * stats["relaxed"] + 2 * stats["dual"]
-        ms = graph_ms(lambda: tm._launch_jv(cost, n_valid))
+        nbytes = cost.numel() * 4 + n_valid.numel() * 8 + want.numel() * 8
+        flops = 3 * work["relaxed"] + 2 * work["dual"]
+        ms = graph_ms(lambda: solve(cost, n_valid))
         b, q, m = cost.shape
         rows.append(dict(
-            case=name, costs=kind, batch=b, queries=q, target_slots=m,
-            n_valid=n_valid.tolist(), equal_to_plain=True, max_abs_err=0.0,
-            same_assignment_as_host=torch.equal(got, host_out), optimum=j1_total,
-            search_steps=stats["steps"], relaxed_columns=stats["relaxed"],
-            ms=ms, host_ms_per_call=host_ms(lambda: tm._launch_jv(cost, n_valid), n=200),
+            case=name, costs=kind, batch=b, queries=q, target_slots=m, n_valid=n_valid.tolist(),
+            path="warp" if max(q, m) <= WARP_MAX_COLUMNS and q * m * 4 < 200_000 else "block",
+            equal_to_plain=True, max_abs_err=0.0,
+            same_assignment_as_host=torch.equal(want, host_out), optimum=j1_total,
+            search_steps=work["steps"], longest_chain=chain, relaxed_columns=work["relaxed"],
+            ms=ms, ns_per_dependent_step=1e6 * ms / max(chain, 1),
+            host_ms_per_call=host_ms(lambda: solve(cost, n_valid), n=200),
             plain_ms=plain_ms, bytes=nbytes, float32_adds=flops,
             **bound_of(flops, nbytes, torch.float32), library_ms=None, **host,
         ))
         rows[-1]["share_of_bound"] = rows[-1]["bound_ms"] / ms
+    if {r["path"] for r in rows} != {"warp", "block"}:
+        raise AssertionError("matcher: the cases do not reach both of J1's paths")
+
+    # the matchings of one criterion call: one launch against a launch each
+    wants, chain, nbytes, flops, plain_ms = [], 0, 0, 0, 0.0
+    for cost, n_valid in step_problems:
+        want, steps, work, ms = reference(cost, n_valid)
+        wants.append(want)
+        chain, plain_ms = max(chain, steps), plain_ms + ms
+        nbytes += cost.numel() * 4 + n_valid.numel() * 8 + want.numel() * 8
+        flops += 3 * work["relaxed"] + 2 * work["dual"]
+    tm.reset_launches()
+    got = tm._launch_jv(step_problems)
+    torch.cuda.synchronize()
+    if tm.launches["assign"] != 1:
+        raise AssertionError(f"matcher: a criterion's {len(step_problems)} matchings took "
+                             f"{tm.launches['assign']} launches, not one")
+    for k, (g, w) in enumerate(zip(got, wants)):
+        if not torch.equal(g, w):
+            raise AssertionError(f"matcher, the batched call: matching {k} differs from the "
+                                 f"plain version at {int((g != w).sum())} targets")
+
+    def batched():
+        tm._launch_jv(step_problems)
+
+    def one_by_one():
+        for problem in step_problems:
+            tm._launch_jv([problem])
+
+    each_ms, step_ms, step_turns = in_turns(one_by_one, batched, graph_ms)
+    step = dict(
+        matchings=len(step_problems), shapes=[list(c.shape) for c, _ in step_problems],
+        launches=1, equal_to_plain=True, ms=step_ms,
+        launch_a_matching_ms=each_ms, turns_each_one_one_each=step_turns,
+        longest_chain=chain, ns_per_dependent_step=1e6 * step_ms / max(chain, 1),
+        host_ms_per_call=host_ms(batched, n=200),
+        launch_a_matching_host_ms_per_call=host_ms(one_by_one, n=200),
+        plain_ms=plain_ms, bytes=nbytes, float32_adds=flops,
+        **bound_of(flops, nbytes, torch.float32),
+    )
     by = {r["case"]: r for r in rows}
-    head, enc = by["spotter_decoder_points"], by["spotter_encoder_boxes"]
-    layers = model.testr.cfg.num_decoder_layers
-    per_step = {key: layers * head[key] + enc[key] for key in ("ms", "host_path_ms", "bound_ms")}
-    emit("matcher", card=smi, cases=rows, per_train_step=per_step,
-         matchings_per_train_step=layers + 1,
-         note="ms: device time of one J1 launch by CUDA events around the replay of a CUDA "
-              "graph of 20 launches; host_ms_per_call: time.perf_counter over 200 wrapper calls "
-              "without a synchronise; plain_ms: one call of jv_assignment_reference on the card "
-              "(host clock, synchronised); host_path_ms and its parts, scipy_ms: host clock "
-              "around synchronised calls, medians of 20; bound_ms: the larger of the bytes J1 "
-              "must move (cost read once, n_valid, the output) at 3.35 TB/s and the float32 "
-              "adds this data needs (3 a relaxed column, 2 a dual update) at 67 TFLOP/s. J1 is "
-              "latency-bound, not bound by either: its time is a chain of search_steps "
-              "dependent block-wide argmins. per_train_step: the decoder case times the "
-              f"{layers} decoder matchings plus the encoder case")
+    head = by["spotter_decoder_points"]
+    emit("matcher", card=smi, cases=rows, criterion_call=step,
+         note="ms: device time of one J1 call by CUDA events around the replay of a CUDA "
+              "graph of 20 calls; path: where J1 solves the case's matrices (a warp up to "
+              f"{WARP_MAX_COLUMNS} solved columns when A fits in shared memory, else a block); "
+              "ns_per_dependent_step: ms over the longest chain of search steps of one "
+              "matrix (the matrices of a call run side by side); host_ms_per_call: "
+              "time.perf_counter over 200 wrapper calls without a synchronise; plain_ms: "
+              "jv_assignment_reference matrix by matrix on the card (host clock, "
+              "synchronised); host_path_ms and its parts, scipy_ms: host clock around "
+              "synchronised calls, medians of 20; bound_ms: the larger of the bytes J1 must "
+              "move (cost read once, n_valid, the output) at 3.35 TB/s and the float32 adds "
+              "this data needs (3 a relaxed column, 2 a dual update) at 67 TFLOP/s. J1 is "
+              "latency-bound, not bound by either: its time is a chain of dependent argmins. "
+              "criterion_call: the matchings of one set_criterion call in one launch, in "
+              "turns with the same kernel at a launch a matching (each, one, one, each)")
     return dict(
         name="jv_assign", route="cuda", source="tair_tpu_torch/ops/csrc/jv_assign.cu",
         replaces="tair_tpu/spotter/matcher.py:86 (_jv_single :86-177 and jv_assignment "
                  ":180-211: lax loops, no Pallas kernel)",
-        shape="B=1 Q=100 M=8 float32, the decoder matching of the train step",
-        max_abs_err=0.0, ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=None, paths=("train_reference", "train"),
-        ms_per_train_step=per_step["ms"], host_path_ms=head["host_path_ms"],
-        host_path_ms_per_train_step=per_step["host_path_ms"], scipy_ms=head["scipy_ms"],
-        encoder_ms=enc["ms"], host_ms_per_call=head["host_ms_per_call"],
+        shape=f"the {len(step_problems)} matchings of one set_criterion call in one launch "
+              "(6 x [1, 100, 8] decoder, [1, 9472, 8] encoder), float32",
+        max_abs_err=0.0, ms=step["ms"], plain_ms=step["plain_ms"], bound_ms=step["bound_ms"],
+        bound_by=step["bound_by"], library_ms=None, paths=("train_reference", "train"),
+        ms_per_train_step=step["ms"], launch_a_matching_ms_per_train_step=each_ms,
+        host_path_ms_per_train_step=(len(step_problems) - 1) * head["host_path_ms"]
+        + by["spotter_encoder_boxes"]["host_path_ms"],
+        decoder_ms=head["ms"], encoder_ms=by["spotter_encoder_boxes"]["ms"],
+        host_ms_per_call=step["host_ms_per_call"], scipy_ms=head["scipy_ms"],
     )
 
 

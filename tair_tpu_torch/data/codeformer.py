@@ -28,6 +28,7 @@ import torch
 from .degradation import add_gaussian_noise, filter2d
 from .diffjpeg import diff_jpeg
 from .kernels import random_mixed_kernel
+from ..utils.device_constants import to_device
 from .resize import weight_matrix
 
 
@@ -150,17 +151,6 @@ def collate_codeformer(items: List[Dict]) -> Dict[str, np.ndarray]:
     return out
 
 
-def _to_device(a, device: torch.device) -> torch.Tensor:
-    """A host array (or a tensor, kept where it is) as float32 on `device`,
-    copied without a host synchronisation."""
-    if torch.is_tensor(a):
-        return a.to(device=device, dtype=torch.float32)
-    t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
-    if device.type == "cuda":
-        t = t.pin_memory()
-    return t.to(device, non_blocking=True)
-
-
 def down_up_matrices(scale, size: int) -> Tuple[np.ndarray, np.ndarray]:
     """Per item, the ``[B, size, size]`` weights of the downsample and of the
     upsample back (one axis; the canvas is square), in JAX's float32 chain."""
@@ -199,9 +189,9 @@ def codeformer_degrade_batch(
     b, s, w, _ = hq.shape
     if s != w:
         raise ValueError(f"codeformer_degrade_batch takes a square canvas, got {s} x {w}")
-    down, up = (_to_device(m, dev) for m in down_up_matrices(scale, s))
-    sigma = _to_device(noise_sigma, dev)
-    quality = _to_device(jpeg_quality, dev)
+    down, up = (to_device(m, dev, torch.float32) for m in down_up_matrices(scale, s))
+    sigma = to_device(noise_sigma, dev, torch.float32)
+    quality = to_device(jpeg_quality, dev, torch.float32)
     with exact_float32(dev.type):
         hq = hq.float()
         lq = filter2d(hq, kernel.to(device=dev, dtype=torch.float32))

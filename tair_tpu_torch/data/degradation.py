@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.device_constants import cached
 from .resize import scale_and_translate
 
 
@@ -69,9 +70,9 @@ def usm_sharpen(
     img: torch.Tensor, radius: int = 51, weight: float = 0.5, threshold: float = 10.0
 ) -> torch.Tensor:
     """Unsharp mask with a soft threshold mask (RealESRGAN's USMSharp)."""
-    g1 = _gaussian_kernel_1d(radius)
-    kernel = torch.from_numpy(np.outer(g1, g1)).to(img.device)[None]
-    kernel = kernel.expand(img.shape[0], -1, -1)
+    kernel = cached(("usm_kernel", radius), img.device,
+                    lambda: np.outer(_gaussian_kernel_1d(radius), _gaussian_kernel_1d(radius)))
+    kernel = kernel[None].expand(img.shape[0], -1, -1)
     blur = filter2d(img, kernel)
     residual = img - blur
     mask = (residual.abs() * 255.0 > threshold).to(img.dtype)

@@ -9,10 +9,11 @@ not multiples of 16 are edge-padded and cropped back.
 
 from __future__ import annotations
 
-from functools import lru_cache
 
 import numpy as np
 import torch
+
+from ..utils.device_constants import cached
 
 Y_TABLE = np.array(
     [
@@ -56,11 +57,9 @@ def _dct_matrix() -> np.ndarray:
 _DCT = _dct_matrix()
 
 
-@lru_cache(maxsize=None)
 def _constant(name: str, device: torch.device) -> torch.Tensor:
-    """One of the module's constant arrays on `device`, copied there once: a
-    copy from the host on every call would wait for the device each time."""
-    return torch.from_numpy(_CONSTANTS[name]).to(device)
+    """One of the module's constant arrays on `device`, copied there once."""
+    return cached(("diffjpeg", name), device, lambda: _CONSTANTS[name])
 
 
 def quality_to_factor(quality: torch.Tensor) -> torch.Tensor:

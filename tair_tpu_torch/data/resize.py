@@ -15,7 +15,10 @@ rules, none of which ``F.interpolate`` shares:
 
 Each axis's weight matrix [in, out] is built on the host in numpy float32, in
 the order of JAX's ``compute_weight_mat``, and applied on the tensor's device
-as two matrix products.
+as two matrix products. The matrices go to the device from pinned memory,
+without waiting for it. They are not kept there: callers resize images of
+many sizes (MUSIQ's scales, the x4 upscale of validation patches, a face's
+crop), and ``scale_and_translate``'s scale may be drawn per call.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from ..utils.device_constants import to_device
 
 METHODS = ("linear", "cubic")
 
@@ -70,12 +75,11 @@ def weight_matrix(
 
 
 def _apply(img: torch.Tensor, wh, ww) -> torch.Tensor:
-    """img [B, H, W, C]; wh [H, H'] or None, ww [W, W'] or None."""
+    """img [B, H, W, C]; wh [H, H'] or None, ww [W, W'] or None, on img's
+    device in its dtype."""
     if wh is not None:
-        wh = torch.from_numpy(wh).to(device=img.device, dtype=img.dtype)
         img = torch.einsum("bhwc,hk->bkwc", img, wh)
     if ww is not None:
-        ww = torch.from_numpy(ww).to(device=img.device, dtype=img.dtype)
         img = torch.einsum("bhwc,wk->bhkc", img, ww)
     return img
 
@@ -91,7 +95,8 @@ def resize(img: torch.Tensor, out_hw: Tuple[int, int], method: str, antialias: b
         # JAX takes the scale as a Python float: 1 / scale is formed in double
         # and rounded to float32 where it meets the float32 sample grid
         inv = np.float32(1.0 / (n_out / n_in))
-        mats.append(weight_matrix(n_in, n_out, inv, np.float32(0.0), method, antialias))
+        mats.append(to_device(weight_matrix(n_in, n_out, inv, np.float32(0.0), method, antialias),
+                              img.device, img.dtype))
     return _apply(img, *mats)
 
 
@@ -105,8 +110,9 @@ def scale_and_translate(
     _, h, w, _ = img.shape
     scale = np.float32(scale)
     inv = np.float32(1.0) / scale
-    return _apply(
-        img,
-        weight_matrix(h, out_hw[0], inv, np.float32(translation), method, antialias),
-        weight_matrix(w, out_hw[1], inv, np.float32(translation), method, antialias),
+    wh, ww = (
+        to_device(weight_matrix(n, n_out, inv, np.float32(translation), method, antialias),
+                  img.device, img.dtype)
+        for n, n_out in ((h, out_hw[0]), (w, out_hw[1]))
     )
+    return _apply(img, wh, ww)

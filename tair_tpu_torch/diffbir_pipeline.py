@@ -29,6 +29,7 @@ from .models.prompt_splice import empty_tokens
 from .pipeline import TeReDiff
 from .tiling import make_tiled_fn
 from .utils.guidance import MSEGuidance
+from .utils.device_constants import cached
 from .utils.metrics import wavelet_reconstruction
 from .utils.tilevae import tiled_vae_decode, tiled_vae_encode
 
@@ -136,7 +137,7 @@ class DiffBIRPipeline:
         uncond = None
         if cfg_scale != 1.0:
             # classifier-free guidance: the empty prompt, the same image condition
-            empty = torch.from_numpy(empty_tokens(b)).to(prompt_tokens.device)
+            empty = cached(("empty_tokens", b), prompt_tokens.device, lambda: empty_tokens(b))
             uncond = dict(c_txt=cldm.clip_encode_tokens(empty), c_img=c_img)
         if x_T is None:
             x_T = torch.randn((b, x.shape[1] // 8, x.shape[2] // 8, 4), dtype=torch.float32,

@@ -15,6 +15,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils.device_constants import cached
 from .schedules import DiffusionSchedule
 
 
@@ -47,7 +48,9 @@ class Diffusion:
         buf = self._buffers.get((name, device))
         if buf is None:
             values = np.asarray(getattr(self.schedule, name), dtype=np.float32)
-            buf = self._buffers[(name, device)] = torch.from_numpy(values).to(device)
+            # shared by every Diffusion of the same schedule: one copy a device
+            buf = self._buffers[(name, device)] = cached(
+                ("diffusion", name, values.tobytes()), device, lambda: values)
         return buf
 
     def _coef(self, name: str, t: torch.Tensor, ndim: int) -> torch.Tensor:

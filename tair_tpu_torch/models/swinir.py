@@ -17,7 +17,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.device_constants import cached
 from .layers import LayerNorm32, conv3x3, nearest_upsample_2x, to_nchw, to_nhwc
+
+_MEAN = (0.4488, 0.4371, 0.4040)  # the RGB mean subtracted from the input
 
 
 @dataclass(frozen=True)
@@ -46,7 +49,9 @@ def _rel_pos_index(window: int) -> np.ndarray:
 
 
 def _shift_attn_mask(h: int, w: int, window: int, shift: int) -> np.ndarray:
-    """Static additive mask [nW, N, N] for shifted-window attention."""
+    """Static additive mask [nW, N, N] for shifted-window attention (on the
+    device, made once per geometry: a copy from the host in every block would
+    wait for the device each time)."""
     img = np.zeros((h, w), np.int32)
     cnt = 0
     for hs in (slice(0, -window), slice(-window, -shift), slice(-shift, None)):
@@ -120,9 +125,8 @@ class SwinBlock(nn.Module):
         mask = None
         if self.shift > 0:
             y = torch.roll(y, (-self.shift, -self.shift), dims=(1, 2))
-            mask = torch.from_numpy(
-                _shift_attn_mask(h, w, self.window, self.shift)
-            ).to(x.device)
+            mask = cached(("swinir_shift_mask", h, w, self.window, self.shift), x.device,
+                          lambda: _shift_attn_mask(h, w, self.window, self.shift))
         wins = self.attn(window_partition(y, self.window), mask)
         y = window_merge(wins, self.window, h, w)
         if self.shift > 0:
@@ -185,7 +189,7 @@ class SwinIR(nn.Module):
         cfg = self.cfg
         dtype = self.dtype
         if cfg.in_chans == 3:
-            mean = torch.tensor([0.4488, 0.4371, 0.4040], dtype=x.dtype, device=x.device)
+            mean = cached(("swinir_mean",), x.device, lambda: np.array(_MEAN), x.dtype)
         else:
             mean = torch.zeros((), dtype=x.dtype, device=x.device)
         x = (x - mean) * cfg.img_range

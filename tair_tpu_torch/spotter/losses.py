@@ -19,9 +19,10 @@ import torch
 import torch.nn.functional as F
 
 from .matcher import (
+    assign_many,
+    box_cost,
     box_cxcywh_to_xyxy,
-    box_match,
-    ctrl_point_match,
+    ctrl_point_cost,
     generalized_box_iou_pairwise,
 )
 
@@ -151,31 +152,37 @@ def set_criterion(
     targets: Dict[str, torch.Tensor],
     cfg: CriterionConfig = CriterionConfig(),
 ) -> Dict[str, torch.Tensor]:
-    """Full weighted TESTR loss dict; 'loss_total' is the training scalar."""
+    """Full weighted TESTR loss dict; 'loss_total' is the training scalar.
+    Every matching's cost (the last decoder layer, the auxiliary layers, the
+    encoder proposals) is formed first, and the matcher solves them in one
+    call: one launch of kernel J1 on the card."""
     num_inst = targets["inst_mask"].float().sum().clamp(min=1.0)
 
-    def match_points(out):
-        return ctrl_point_match(
-            out, targets, cfg.point_class_weight, cfg.point_coord_weight,
-            cfg.focal_alpha, cfg.focal_gamma, cfg.matcher,
-        )
-
-    losses: Dict[str, torch.Tensor] = {}
-    losses.update(dec_losses(outputs, targets, match_points(outputs), num_inst, cfg))
-
+    point_outputs = [outputs]
     if cfg.aux_loss and "aux_outputs" in outputs:
-        for i, aux in enumerate(outputs["aux_outputs"]):
-            for k, v in dec_losses(aux, targets, match_points(aux), num_inst, cfg).items():
-                losses[f"{k}_{i}"] = v
-
+        point_outputs += list(outputs["aux_outputs"])
+    problems = [
+        ctrl_point_cost(out, targets, cfg.point_class_weight, cfg.point_coord_weight,
+                        cfg.focal_alpha, cfg.focal_gamma)
+        for out in point_outputs
+    ]
     if "enc_outputs" in outputs:
-        enc_idx = box_match(
+        problems.append(box_cost(
             outputs["enc_outputs"], targets,
             cfg.box_class_weight, cfg.box_coord_weight, cfg.box_giou_weight,
-            cfg.focal_alpha, cfg.focal_gamma, cfg.matcher,
-        )
+            cfg.focal_alpha, cfg.focal_gamma,
+        ))
+    matched = assign_many(cfg.matcher, problems)
+
+    losses: Dict[str, torch.Tensor] = {}
+    losses.update(dec_losses(outputs, targets, matched[0], num_inst, cfg))
+    for i, aux in enumerate(point_outputs[1:]):
+        for k, v in dec_losses(aux, targets, matched[1 + i], num_inst, cfg).items():
+            losses[f"{k}_{i}"] = v
+
+    if "enc_outputs" in outputs:
         losses.update(
-            enc_losses(outputs["enc_outputs"], targets, enc_idx, num_inst, cfg)
+            enc_losses(outputs["enc_outputs"], targets, matched[-1], num_inst, cfg)
         )
 
     losses["loss_total"] = sum(losses.values())

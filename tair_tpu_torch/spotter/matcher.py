@@ -11,9 +11,10 @@ exact solve has two routes, as in the JAX package:
 
 - "hungarian" / "jv" (the default): the Jonker-Volgenant shortest augmenting
   path of ``tair_tpu/spotter/matcher.py::_jv_single`` / ``jv_assignment``
-  (``:86-211``). On a CUDA tensor it is kernel J1 (``ops/csrc/jv_assign.cu``),
-  one thread block per matrix, one launch per matching, nothing read back to
-  the host; on a CPU tensor its plain version ``jv_assignment_reference``, a
+  (``:86-211``). On CUDA tensors it is kernel J1 (``ops/csrc/jv_assign.cu``):
+  ``assign_many`` solves a list of matchings in one launch (a warp for each
+  narrow matrix, a thread block for each wide one), nothing read back to the
+  host; on CPU tensors its plain version ``jv_assignment_reference``, a
   line-for-line transcription in float32 with JAX's operation order, so the
   assignment equals JAX's bit for bit, ties included.
 - "hungarian_host": the same optimum on the host through the native C++
@@ -26,7 +27,7 @@ exact solve has two routes, as in the JAX package:
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -191,7 +192,12 @@ def jv_assignment_reference(cost: torch.Tensor, n_valid: torch.Tensor,
 
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _JV = {}  # J1's C entries, bound at the first call
-_WORKSPACE_BYTES = {}  # (device, B, Q, M) -> device memory J1 needs beside shared memory
+_WORKSPACE_BYTES = {}  # (device, shapes) -> device memory J1 needs beside shared memory
+
+# matrices one J1 launch solves (``jv_assign.cu``'s kMaxMatrices: the table of
+# matrices is a kernel parameter); a call with more makes a launch more for
+# each MATRICES_PER_LAUNCH more
+MATRICES_PER_LAUNCH = 64
 
 
 def _jv_entries() -> dict:
@@ -199,51 +205,79 @@ def _jv_entries() -> dict:
         from ..ops import _build
 
         lib = _build.library("jv_assign")
-        lib.jv_assign.argtypes = [_PTR] * 4 + [_I64] + [_INT] * 3 + [_PTR]
+        lib.jv_assign.argtypes = [_PTR, _INT, _PTR, _I64, _PTR]
         lib.jv_assign.restype = _INT
-        lib.jv_assign_workspace_bytes.argtypes = [_INT] * 3
+        lib.jv_assign_workspace_bytes.argtypes = [_PTR, _INT]
         lib.jv_assign_workspace_bytes.restype = _I64
         _JV.update(assign=lib.jv_assign, workspace_bytes=lib.jv_assign_workspace_bytes)
     return _JV
 
 
-def _launch_jv(cost: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
-    """Kernel J1 on the cost's CUDA device: one thread block per matrix, the
-    orientation, padding, inversion and -1 masking of
-    ``jv_assignment_reference`` done inside the one launch. A matrix whose
-    vectors do not fit a block's shared memory (over about 13,600 columns)
-    gets a workspace in device memory. Raises for any other device, and when
-    the launch fails."""
-    if cost.device.type != "cuda":
-        raise ValueError(f"kernel J1 runs on CUDA tensors, got a {cost.device.type} tensor")
-    if cost.dim() != 3 or n_valid.shape != cost.shape[:1]:
-        raise ValueError(f"J1 takes cost [B, Q, M] and n_valid [B], got "
-                         f"{tuple(cost.shape)} and {tuple(n_valid.shape)}")
-    b, q, m = cost.shape
-    cost = cost.detach().float().contiguous()
-    n_valid = n_valid.to(device=cost.device, dtype=torch.long).contiguous()
-    out = torch.empty((b, m), dtype=torch.long, device=cost.device)
-    if b == 0 or m == 0:
-        return out
+def _launch_jv(problems) -> List[torch.Tensor]:
+    """Kernel J1 on a list of (cost [B, Q, M], n_valid [B]) on one CUDA
+    device: every matrix of every batch in one launch (one more for each
+    MATRICES_PER_LAUNCH more), the orientation, padding, inversion and -1
+    masking of ``jv_assignment_reference`` done inside it. The table of
+    matrices is a kernel parameter; a wide matrix whose A or vectors do not
+    fit in shared memory gets a workspace in device memory. Raises for any
+    other device, and when a launch fails."""
+    prepared, dev = [], None
+    for cost, n_valid in problems:
+        if cost.device.type != "cuda":
+            raise ValueError(f"kernel J1 runs on CUDA tensors, got a {cost.device.type} tensor")
+        if cost.dim() != 3 or n_valid.shape != cost.shape[:1]:
+            raise ValueError(f"J1 takes cost [B, Q, M] and n_valid [B], got "
+                             f"{tuple(cost.shape)} and {tuple(n_valid.shape)}")
+        if dev is None:
+            dev = cost.device
+        elif cost.device != dev:
+            raise ValueError(f"J1 solves one launch on one device, got {dev} and {cost.device}")
+        cost = cost.detach().float().contiguous()
+        prepared.append((cost, n_valid.to(device=dev, dtype=torch.long).contiguous(),
+                         torch.empty((cost.shape[0], cost.shape[2]), dtype=torch.long,
+                                     device=dev)))
+    if not prepared:
+        return []
+    table = np.array([[c.data_ptr(), n.data_ptr(), o.data_ptr(), *c.shape]
+                      for c, n, o in prepared], dtype=np.int64)
     entries = _jv_entries()
-    with torch.cuda.device(cost.device):
-        key = (cost.device.index, b, q, m)
+    with torch.cuda.device(dev):
+        key = (dev.index, table[:, 3:].tobytes())
         nbytes = _WORKSPACE_BYTES.get(key)
         if nbytes is None:
-            nbytes = entries["workspace_bytes"](b, q, m)
+            nbytes = entries["workspace_bytes"](table.ctypes.data, len(table))
             if nbytes < 0:
-                raise RuntimeError(f"jv_assign could not read the device (error {-nbytes})")
+                raise RuntimeError(f"jv_assign could not plan its launch (error {-nbytes})")
             _WORKSPACE_BYTES[key] = nbytes
-        workspace = torch.empty((nbytes,), dtype=torch.uint8, device=cost.device) if nbytes else None
-        err = entries["assign"](
-            cost.data_ptr(), n_valid.data_ptr(), out.data_ptr(),
-            workspace.data_ptr() if nbytes else None, nbytes, b, q, m,
+        workspace = torch.empty((nbytes,), dtype=torch.uint8, device=dev) if nbytes else None
+        made = entries["assign"](
+            table.ctypes.data, len(table), workspace.data_ptr() if nbytes else None, nbytes,
             torch.cuda.current_stream().cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"jv_assign launch failed with error {err} at B={b}, Q={q}, M={m}")
-    launches["assign"] += 1
-    return out
+    if made < 0:
+        raise RuntimeError(f"jv_assign launch failed with error {-made} at shapes "
+                           f"{[tuple(c.shape) for c, _, _ in prepared]}")
+    launches["assign"] += made
+    return [o for _, _, o in prepared]
+
+
+def assign_many(impl: str, problems) -> List[torch.Tensor]:
+    """The assignments of a list of (cost [B, Q, M], n_valid [B]) matchings,
+    in order, each [B, M] matched query per target (-1 = padding or
+    unmatched) on its cost's device. "hungarian" / "jv": kernel J1 solves
+    them all in one launch on CUDA tensors; the plain version, one after the
+    other, only for tensors on the CPU. "hungarian_host" and "greedy": each
+    matching in turn."""
+    problems = list(problems)
+    if impl in ("hungarian", "jv"):
+        if problems and all(cost.device.type == "cpu" for cost, _ in problems):
+            return [jv_assignment_reference(cost, n_valid) for cost, n_valid in problems]
+        return _launch_jv(problems)
+    if impl == "hungarian_host":
+        return [hungarian_assignment(cost, n_valid) for cost, n_valid in problems]
+    if impl == "greedy":
+        return [greedy_assignment(cost, n_valid) for cost, n_valid in problems]
+    raise ValueError(f"unknown matcher impl {impl!r}")
 
 
 def jv_assignment(cost: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
@@ -251,9 +285,7 @@ def jv_assignment(cost: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
     [B, M] matched query per target (-1 = padding or unmatched), on cost's
     device. Kernel J1 on a CUDA tensor; the plain version only for a tensor on
     the CPU."""
-    if cost.device.type == "cpu":
-        return jv_assignment_reference(cost, n_valid)
-    return _launch_jv(cost, n_valid)
+    return assign_many("jv", [(cost, n_valid)])[0]
 
 
 def greedy_assignment(cost: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
@@ -354,13 +386,5 @@ def box_cost(outputs, targets, class_weight=2.0, coord_weight=5.0, giou_weight=2
 
 
 def _dispatch(impl: str, cost: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
-    """"hungarian"/"jv": the exact solve on the tensors' device (kernel J1 on
-    CUDA). "hungarian_host": the exact solve on the host. "greedy": the
-    approximation on the device."""
-    if impl in ("hungarian", "jv"):
-        return jv_assignment(cost, n_valid)
-    if impl == "hungarian_host":
-        return hungarian_assignment(cost, n_valid)
-    if impl == "greedy":
-        return greedy_assignment(cost, n_valid)
-    raise ValueError(f"unknown matcher impl {impl!r}")
+    """One matching by `impl` (``assign_many`` of one)."""
+    return assign_many(impl, [(cost, n_valid)])[0]

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from .data.resize import resize
 from .models.layers import edge_pad
+from .utils.device_constants import cached
 
 
 def split_grid(height: int, width: int, patch: int = 128, overlap: int = 16):
@@ -80,7 +81,8 @@ def merge_with_overlap(
     c = patches.shape[-1]
     dev = patches.device
 
-    window = torch.from_numpy(fade_window(out_patch, out_overlap)).to(dev)[..., None]
+    window = cached(("fade_window", out_patch, out_overlap), dev,
+                    lambda: fade_window(out_patch, out_overlap))[..., None]
     canvas = torch.zeros((fh, fw, c), dtype=torch.float32, device=dev)
     weights = torch.zeros((fh, fw, 1), dtype=torch.float32, device=dev)
     for i in range(n_h * n_w):
@@ -182,7 +184,7 @@ def make_tiled_fn(fn: Callable, size: int, stride: int):
         key = (h, w, device)
         if key not in grids:
             pos = [(i, j) for i in starts(h) for j in starts(w)]
-            win = torch.from_numpy(win_np).to(device)[..., None]
+            win = cached(("gaussian_window", size), device, lambda: win_np)[..., None]
             weights = torch.zeros((1, h, w, 1), dtype=torch.float32, device=device)
             for i, j in pos:
                 weights[:, i : i + size, j : j + size] += win

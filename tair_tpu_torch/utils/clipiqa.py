@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .device_constants import cached
 from .iqa import attend, images_on, load_module, resolve_device, scoring
 
 # CLIP's preprocessing constants (openai/CLIP clip/clip.py _transform)
@@ -186,8 +187,9 @@ class CLIPIQAMetric:
     def __call__(self, images) -> torch.Tensor:
         x = images_on(images, self.device).permute(0, 3, 1, 2)
         with scoring(self.device):
-            mean = x.new_tensor(CLIP_MEAN).view(1, 3, 1, 1)
-            std = x.new_tensor(CLIP_STD).view(1, 3, 1, 1)
+            mean = cached(("clip_mean",), x.device, lambda: np.array(CLIP_MEAN), x.dtype)
+            std = cached(("clip_std",), x.device, lambda: np.array(CLIP_STD), x.dtype)
+            mean, std = mean.view(1, 3, 1, 1), std.view(1, 3, 1, 1)
             feat = self.visual((x - mean) / std)
             feat = feat / torch.linalg.vector_norm(feat, dim=-1, keepdim=True)
             logits = self.logit_scale * feat @ self.text_emb.T  # [B, 2]

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .device_constants import cached
 from .iqa import images_on, load_module, resolve_device, scoring
 
 # VGG16's convolution widths by stage
@@ -28,13 +29,17 @@ _MEAN = (0.485, 0.456, 0.406)
 _STD = (0.229, 0.224, 0.225)
 
 
+def _hann_window(size: int) -> np.ndarray:
+    w1 = np.hanning(size)[1:-1]
+    win = np.outer(w1, w1)
+    return (win / win.sum()).astype(np.float32)
+
+
 def _l2_pool(x: torch.Tensor, size: int = 5, stride: int = 2) -> torch.Tensor:
     """Hann-windowed L2 pooling of ``[B, C, H, W]``: ``np.hanning(5)[1:-1]``, a
     3-tap [0.25, 0.5, 0.25] window, depthwise over the squares, stride 2,
     padding 1, then ``sqrt(max(., 1e-12))``; in float32."""
-    w1 = np.hanning(size)[1:-1]
-    win = np.outer(w1, w1)
-    win = torch.from_numpy((win / win.sum()).astype(np.float32)).to(x.device)
+    win = cached(("dists_hann", size), x.device, lambda: _hann_window(size))
     c = x.shape[1]
     pad = (size - 2) // 2
     out = F.conv2d((x * x).float(), win.expand(c, 1, *win.shape), stride=stride, padding=pad,
@@ -74,8 +79,9 @@ class DISTS(nn.Module):
 
     def features(self, x: torch.Tensor) -> List[torch.Tensor]:
         """The six levels of ``[B, 3, H, W]`` images in [0, 1]."""
-        mean = x.new_tensor(_MEAN).view(1, 3, 1, 1)
-        std = x.new_tensor(_STD).view(1, 3, 1, 1)
+        mean = cached(("dists_mean",), x.device, lambda: np.array(_MEAN), x.dtype)
+        std = cached(("dists_std",), x.device, lambda: np.array(_STD), x.dtype)
+        mean, std = mean.view(1, 3, 1, 1), std.view(1, 3, 1, 1)
         return self.vgg((x - mean) / std)
 
     def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -12,10 +12,12 @@ from __future__ import annotations
 
 from typing import Any, List, Mapping, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .device_constants import cached
 from .iqa import images_on, load_module, resolve_device, scoring
 
 # AlexNet's convolutions: (in channels, out channels, kernel, stride)
@@ -51,8 +53,9 @@ class LPIPS(nn.Module):
 
     def features(self, x: torch.Tensor) -> List[torch.Tensor]:
         """The five levels of ``[B, 3, H, W]`` images in [0, 1]."""
-        shift = x.new_tensor(_SHIFT).view(1, 3, 1, 1)
-        scale = x.new_tensor(_SCALE).view(1, 3, 1, 1)
+        shift = cached(("lpips_shift",), x.device, lambda: np.array(_SHIFT), x.dtype)
+        scale = cached(("lpips_scale",), x.device, lambda: np.array(_SCALE), x.dtype)
+        shift, scale = shift.view(1, 3, 1, 1), scale.view(1, 3, 1, 1)
         return self.alex((x * 2.0 - 1.0 - shift) / scale)
 
     def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,6 @@ they are not in the repo.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from functools import lru_cache
 from typing import Any, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -34,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .device_constants import cached
 from .iqa import TransformerBlock, attend, images_on, load_module, resolve_device, scoring
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -127,14 +127,12 @@ def _shift_mask(hh: int, ww: int, ws: int, sh: int) -> np.ndarray:
     return np.where(wins[:, None, :] - wins[:, :, None] != 0, -100.0, 0.0).astype(np.float32)
 
 
-@lru_cache(maxsize=None)
 def _on_device(table: str, device: torch.device, *args) -> torch.Tensor:
     """`_rel_pos_index(*args)` (flattened) or `_shift_mask(*args)` on `device`,
-    made once: a copy from the host in every block would wait for the device
-    each time."""
+    made once."""
     if table == "index":
-        return torch.from_numpy(_rel_pos_index(*args).reshape(-1)).to(device)
-    return torch.from_numpy(_shift_mask(*args)).to(device)
+        return cached(("swin_index", *args), device, lambda: _rel_pos_index(*args).reshape(-1))
+    return cached(("swin_mask", *args), device, lambda: _shift_mask(*args))
 
 
 class WindowAttention(nn.Module):
@@ -293,8 +291,9 @@ class MANIQAMetric:
         often each was drawn ``[U, 1]``)."""
         size = self.cfg.vit.img_size
         x = images_on(images, self.device).permute(0, 3, 1, 2)
-        mean = x.new_tensor(IMAGENET_MEAN).view(1, 3, 1, 1)
-        std = x.new_tensor(IMAGENET_STD).view(1, 3, 1, 1)
+        mean = cached(("maniqa_mean",), x.device, lambda: np.array(IMAGENET_MEAN), x.dtype)
+        std = cached(("maniqa_std",), x.device, lambda: np.array(IMAGENET_STD), x.dtype)
+        mean, std = mean.view(1, 3, 1, 1), std.view(1, 3, 1, 1)
         x = (x - mean) / std
         h, w = x.shape[2:]
         if h < size or w < size:
@@ -304,8 +303,9 @@ class MANIQAMetric:
         draws = [(int(rng.randint(0, h - size + 1)), int(rng.randint(0, w - size + 1)))
                  for _ in range(self.num_crops)]
         uniq = sorted(set(draws))
-        counts = torch.tensor([draws.count(o) for o in uniq], dtype=torch.float32,
-                              device=self.device)[:, None]
+        counts = tuple(draws.count(o) for o in uniq)
+        counts = cached(("maniqa_crop_counts", counts), self.device,
+                        lambda: np.array(counts, np.float32)[:, None])
         return torch.cat([x[:, :, i:i + size, j:j + size] for i, j in uniq]), counts
 
     def __call__(self, images) -> torch.Tensor:

@@ -8,10 +8,14 @@ perceptual ones (LPIPS, DISTS) are not part of the port yet.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..data.degradation import reflect_pad
+from .device_constants import cached
+
+_BINOMIAL_3 = np.array([0.25, 0.5, 0.25], np.float32)
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:
@@ -61,8 +65,8 @@ def ssim(
 def _gaussian_blur(x: torch.Tensor, radius: int) -> torch.Tensor:
     """3x3 binomial blur with dilation `radius` over a reflect-padded border
     (reflected again where the pad is wider than the image, as ``jnp.pad``)."""
-    k1 = torch.tensor([0.25, 0.5, 0.25], device=x.device)
-    return _depthwise(reflect_pad(x, radius), torch.outer(k1, k1), dilation=radius)
+    k = cached(("binomial_3x3",), x.device, lambda: np.outer(_BINOMIAL_3, _BINOMIAL_3))
+    return _depthwise(reflect_pad(x, radius), k, dilation=radius)
 
 
 def wavelet_decompose(x: torch.Tensor, levels: int = 5):

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .device_constants import cached
 from .iqa import TransformerBlock, images_on, load_module, resolve_device, scoring
 
 PATCH = 32
@@ -160,6 +161,22 @@ def _crop_to_budget(img: torch.Tensor, gh: int, gw: int, budget: int):
     return gh, gw, img[:, oh:oh + h, ow:ow + w]
 
 
+def _hash_index(g: int, grids) -> np.ndarray:
+    """Each token's cell of the g x g hash grid, over the scales' (gh, gw)
+    patch grids in turn."""
+    out = []
+    for gh, gw in grids:
+        hi = np.minimum((np.arange(gh) * g) // gh, g - 1)
+        hj = np.minimum((np.arange(gw) * g) // gw, g - 1)
+        out.append((hi[:, None] * g + hj[None, :]).reshape(-1))
+    return np.concatenate(out)
+
+
+def _scale_index(grids) -> np.ndarray:
+    """Each token's scale, over the scales' (gh, gw) patch grids in turn."""
+    return np.concatenate([np.full(gh * gw, sid) for sid, (gh, gw) in enumerate(grids)])
+
+
 class MUSIQ(nn.Module):
     """The multi-scale model over ``[B, H, W, 3]`` images in [0, 1] -> ``[B]``."""
 
@@ -172,23 +189,19 @@ class MUSIQ(nn.Module):
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         b = images.shape[0]
-        all_tokens, all_hash, all_scale = [], [], []
-        for sid, img in enumerate(_multiscale(images * 2.0 - 1.0, cfg.scales)):  # TF's [-1, 1]
+        all_tokens, grids = [], []
+        for img in _multiscale(images * 2.0 - 1.0, cfg.scales):  # TF's [-1, 1]
             img = F.pad(img, (0, 0, 0, (-img.shape[2]) % PATCH, 0, (-img.shape[1]) % PATCH))
             gh, gw, img = _crop_to_budget(img, img.shape[1] // PATCH, img.shape[2] // PATCH,
                                           cfg.max_tokens_per_scale)
             patches = img.reshape(b, gh, PATCH, gw, PATCH, 3).permute(0, 1, 3, 5, 2, 4)
             tok = self.patch_encoder(patches.reshape(b * gh * gw, 3, PATCH, PATCH))
             all_tokens.append(tok.reshape(b, gh * gw, cfg.hidden))
-            g = cfg.hash_grid
-            hi = np.minimum((np.arange(gh) * g) // gh, g - 1)
-            hj = np.minimum((np.arange(gw) * g) // gw, g - 1)
-            all_hash.append((hi[:, None] * g + hj[None, :]).reshape(-1))
-            all_scale.append(np.full(gh * gw, sid))
-        dev = images.device
+            grids.append((gh, gw))
+        key, dev = (cfg.hash_grid, tuple(grids)), images.device
         return self.backbone(torch.cat(all_tokens, dim=1),
-                             torch.from_numpy(np.concatenate(all_hash)).to(dev),
-                             torch.from_numpy(np.concatenate(all_scale)).to(dev))
+                             cached(("musiq_hash", key), dev, lambda: _hash_index(*key)),
+                             cached(("musiq_scale", key), dev, lambda: _scale_index(key[1])))
 
 
 class MUSIQMetric:

@@ -1,9 +1,10 @@
 """Shared helpers of the PyTorch port's parity tests (tests/test_torch_*.py).
 
-Both packages get the same parameters: the JAX model's parameter tree is
-traced abstractly (``jax.eval_shape`` of its ``init``: structure and shapes,
-no compute), and EVERY leaf is then filled with seeded numpy noise, so no
-leaf keeps an init value of zero or a constant (zero convs, ``proj_out``,
+Both packages get the same parameters: the JAX model's parameter tree
+(structure and shapes; for the tiny bundle worked out from the port's modules
+by ``weights.convert.jax_param_shapes``, which equals the abstract trace of
+the JAX ``init``) has EVERY leaf filled with seeded numpy noise, so no leaf
+keeps an init value of zero or a constant (zero convs, ``proj_out``,
 ``sampling_offsets``...) that would hide a wrong transposition or lane order.
 The port loads the tree through ``weights.convert`` with ``strict=True``.
 """
@@ -16,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from tair_tpu_torch.weights.convert import BUNDLE_KEYS, convert_tree
+from tair_tpu_torch.weights.convert import BUNDLE_KEYS, convert_tree, jax_param_shapes
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -58,8 +59,8 @@ def jax_shapes(init_fn, *args):
 
 @functools.lru_cache(maxsize=None)
 def _tiny_shapes(part: str):
-    """Parameter shapes of one sub-model of the JAX tiny bundle (traced once
-    per worker process, whichever test file asks first)."""
+    """Parameter shapes of one sub-model of the JAX tiny bundle, by an
+    abstract trace of its JAX ``init`` (traced once per worker process)."""
     from tair_tpu.pipeline import build_tiny_model as jax_tiny
 
     jm = jax_tiny()
@@ -78,6 +79,17 @@ def _tiny_shapes(part: str):
     return jax.eval_shape(init, jax.random.PRNGKey(0))["params"]
 
 
+@functools.lru_cache(maxsize=None)
+def tiny_bundle_shapes():
+    """The JAX tiny bundle's parameter tree, worked out from the port's tiny
+    model: leaf for leaf the tree of `_tiny_shapes`, without tracing the JAX
+    ``init`` (``test_torch_config_checkpoint.py::test_port_export_loads_into_jax``
+    holds the two equal)."""
+    from tair_tpu_torch.pipeline import build_tiny_model
+
+    return jax_param_shapes(build_tiny_model(device="cpu"))
+
+
 def tiny_pair(seed: int = 0, parts=BUNDLE_KEYS):
     """(JAX tiny TeReDiff, noise-filled params of `parts`, the port's tiny
     TeReDiff holding the same parameters in those parts), float32 on the CPU.
@@ -86,7 +98,7 @@ def tiny_pair(seed: int = 0, parts=BUNDLE_KEYS):
     from tair_tpu.pipeline import build_tiny_model as jax_tiny
     from tair_tpu_torch.pipeline import build_tiny_model as torch_tiny
 
-    params = noise_params({part: _tiny_shapes(part) for part in parts}, seed)
+    params = noise_params({part: tiny_bundle_shapes()[part] for part in parts}, seed)
     tm = torch_tiny(device="cpu")
     for part in parts:
         holder = tm if part in ("swinir", "testr") else tm.cldm

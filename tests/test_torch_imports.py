@@ -92,6 +92,7 @@ MODULES = [
     "tair_tpu_torch.data.codeformer",
     "tair_tpu_torch.models.ram",
     "tair_tpu_torch.utils.caption",
+    "tair_tpu_torch.utils.device_constants",
 ]
 
 ENTRY_POINTS = ["tair_tpu_torch.val", "tair_tpu_torch.val_patches", "tair_tpu_torch.spotter_eval"]
@@ -104,10 +105,21 @@ def _run(code: str) -> subprocess.CompletedProcess:
     )
 
 
-def test_port_imports_no_jax_flax_or_jax_package():
+@pytest.fixture(scope="module")
+def fresh_process():
+    """One new interpreter for the import checks: it first imports the kernel
+    wrappers alone and reports whether any library was built, then imports
+    every module of the port and reports what else came in."""
     proc = _run(
         f"""
         import importlib, sys
+        import tair_tpu_torch.ops.flash_attention, tair_tpu_torch.ops.msda_reduce
+        import tair_tpu_torch.ops.patchify, tair_tpu_torch.ops.quant, tair_tpu_torch.train.step
+        import tair_tpu_torch.probes.dyngather, tair_tpu_torch.probes.stream
+        import tair_tpu_torch.probes.msda_lab, tair_tpu_torch.spotter.matcher
+        from tair_tpu_torch import native_ext
+        from tair_tpu_torch.ops import _build
+        print("built", len(_build._LIBS), native_ext._LIB is not None)
         for name in {MODULES!r}:
             importlib.import_module(name)
         # nor regex, yaml, PIL or cv2 at import (PIL is imported where an image
@@ -117,12 +129,15 @@ def test_port_imports_no_jax_flax_or_jax_package():
             if m.split(".")[0] in ("jax", "jaxlib", "flax", "tair_tpu", "regex", "yaml", "PIL",
                                    "cv2")
         )
-        assert not bad, bad
-        print("clean", len({MODULES!r}))
+        print("imported", len({MODULES!r}), *bad)
         """
     )
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["clean", str(len(MODULES))]
+    return dict(line.split(" ", 1) for line in proc.stdout.splitlines())
+
+
+def test_port_imports_no_jax_flax_or_jax_package(fresh_process):
+    assert fresh_process["imported"].split() == [str(len(MODULES))]
 
 
 def test_sources_do_not_name_jax_imports():
@@ -186,17 +201,35 @@ def test_entry_point_help_works_without_a_card(module):
     assert "--device" in proc.stdout and "--config" in proc.stdout
 
 
+@pytest.fixture(scope="module")
+def entry_point_errors():
+    """Each entry point run as ``python -m <module> --config C`` (no
+    ``--device``), in turn in one new interpreter: the error each raised."""
+    proc = _run(
+        f"""
+        import runpy, sys
+        for module in {ENTRY_POINTS!r}:
+            config = "configs/train_smoke.yaml" if module.endswith("spotter_eval") else "configs/val_smoke.yaml"
+            sys.argv = [module, "--config", config]
+            try:
+                runpy.run_module(module, run_name="__main__", alter_sys=True)
+                print(module, "returned")
+            except BaseException as e:
+                print(module, type(e).__name__, str(e).replace(chr(10), " "))
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    return dict(line.split(" ", 1) for line in proc.stdout.splitlines() if line.startswith("tair"))
+
+
 @pytest.mark.parametrize("module", ENTRY_POINTS)
-def test_entry_points_raise_without_a_card_unless_told_cpu(module):
+def test_entry_points_raise_without_a_card_unless_told_cpu(module, entry_point_errors):
     import torch
 
     if torch.cuda.is_available():  # decided inside the test, never at import
         pytest.skip("a CUDA device is present: the default device works here")
-    config = "configs/train_smoke.yaml" if module.endswith("spotter_eval") else "configs/val_smoke.yaml"
-    proc = subprocess.run([sys.executable, "-m", module, "--config", config], cwd=ROOT,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode != 0
-    assert "RuntimeError" in proc.stderr and "CUDA" in proc.stderr
+    error = entry_point_errors[module]
+    assert error.startswith("RuntimeError") and "CUDA" in error
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
@@ -212,24 +245,14 @@ def test_chip_smoke_refuses_to_run_without_a_card():
     assert '"ok"' not in proc.stdout
 
 
-def test_kernel_wrappers_do_not_build_on_import():
-    proc = _run(
-        """
-        import tair_tpu_torch.ops.flash_attention, tair_tpu_torch.ops.msda_reduce
-        import tair_tpu_torch.ops.patchify, tair_tpu_torch.ops.quant, tair_tpu_torch.train.step
-        import tair_tpu_torch.probes.dyngather, tair_tpu_torch.probes.stream
-        import tair_tpu_torch.probes.msda_lab, tair_tpu_torch.spotter.matcher
-        from tair_tpu_torch import native_ext
-        from tair_tpu_torch.ops import _build
-        assert not _build._LIBS and native_ext._LIB is None
-        assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-            "flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_tc.cu",
-            "flash_attention_wide_tc.cu", "flash_attention_dq_tc.cu",
-            "flash_attention_dkv_tc.cu", "msda_reduce.cu", "patchify.cu",
-            "quant_act.cu", "int8_conv.cu", "jv_assign.cu",
-            "probe_gather.cu", "probe_stream.cu", "probe_msda_lab.cu"}
-        assert set(_build.KERNEL_SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
-        print("ok")
-        """
-    )
-    assert proc.returncode == 0, proc.stderr
+def test_kernel_wrappers_do_not_build_on_import(fresh_process):
+    from tair_tpu_torch.ops import _build
+
+    assert fresh_process["built"].split() == ["0", "False"]
+    assert {p.name for p in _build.CSRC.glob("*.cu")} == {
+        "flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_tc.cu",
+        "flash_attention_wide_tc.cu", "flash_attention_dq_tc.cu",
+        "flash_attention_dkv_tc.cu", "msda_reduce.cu", "patchify.cu",
+        "quant_act.cu", "int8_conv.cu", "jv_assign.cu",
+        "probe_gather.cu", "probe_stream.cu", "probe_msda_lab.cu"}
+    assert set(_build.KERNEL_SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}

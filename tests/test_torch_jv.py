@@ -5,7 +5,10 @@ kernel J1 (``jv_assignment_reference``), and the default matcher
 element for element, on float costs and on integer costs full of ties, in both
 orientations (M <= Q target-major, M > Q query-major), with all-padded rows
 and n_valid = 0. The (Q, M) pairs are those of ``tests/test_jv_matcher.py``
-plus the stage-3 config's (100, 32). Each JAX shape is compiled once."""
+plus the stage-3 config's (100, 32). Each JAX shape is compiled once. The
+batched entry (``assign_many``, one launch of J1 for a criterion's matchings
+on the card) on CPU tensors, matrix by matrix against JAX; ``set_criterion``
+calls it once."""
 
 import functools
 
@@ -16,8 +19,10 @@ import pytest
 import torch
 
 from tair_tpu.spotter import matcher as jm
+from tair_tpu_torch.spotter import losses as tl
 from tair_tpu_torch.spotter import matcher as tm
 from test_torch_common import torch_single_thread  # noqa: F401
+from test_torch_losses import _case, _tree
 
 PAIRS = [(8, 8), (20, 7), (100, 16), (5, 1), (3, 5), (8, 32), (100, 128), (1, 4), (100, 32)]
 
@@ -110,3 +115,57 @@ def test_kernel_wrapper_never_falls_back():
     cost = torch.zeros((1, 4, 3), device="meta")
     with pytest.raises(ValueError, match="J1 runs on CUDA tensors"):
         tm.jv_assignment(cost, torch.tensor([3], device="meta"))
+
+
+def test_batched_entry_equals_jax_matrix_by_matrix():
+    """``assign_many`` on CPU tensors, the route of a criterion's one call: a
+    mixed list (decoder-like [4, 100, M] matrices, a tall [4, 300, 8] one like
+    the encoder's proposals, more slots than queries, integer costs full of
+    ties; every batch holds an element with n_valid = 0), each assignment in
+    order equal to JAX's; "greedy" and "hungarian_host" keep their per-matching
+    routes through the same entry."""
+    problems = [_costs(q, m, kind, seed=seed) for q, m, kind, seed in (
+        (100, 16, "float", 1), (100, 32, "float", 2), (300, 8, "float", 3),
+        (100, 128, "float", 4), (100, 32, "tied", 5))]
+    torch_problems = [(torch.from_numpy(c), torch.from_numpy(n)) for c, n in problems]
+    got = tm.assign_many("hungarian", torch_problems)
+    assert len(got) == len(problems)
+    for (cost, n_valid), g in zip(problems, got):
+        assert g.dtype == torch.long and tuple(g.shape) == (4, cost.shape[2])
+        np.testing.assert_array_equal(g.numpy(), _jax(cost, n_valid.astype(np.int32)))
+    small = torch_problems[:2]
+    for impl in ("greedy", "hungarian_host"):
+        for g, (cost, n_valid) in zip(tm.assign_many(impl, small), small):
+            np.testing.assert_array_equal(g.numpy(), tm._dispatch(impl, cost, n_valid).numpy())
+    assert tm.assign_many("jv", []) == []
+    with pytest.raises(ValueError, match="unknown matcher"):
+        tm.assign_many("auction", small)
+
+
+def test_set_criterion_solves_its_matchings_in_one_call(monkeypatch):
+    """The criterion forms every matching's cost (the last decoder layer, the
+    auxiliary layers, the encoder proposals) and hands them to the matcher in
+    one call: one J1 launch on the card. The losses are those of a criterion
+    that matched each in turn (tests/test_torch_losses.py holds them to JAX)."""
+    outputs, targets = _case(3, 10, 4, s=40, seed=10)
+    t_out, t_tgt = _tree(torch.from_numpy, outputs), _tree(torch.from_numpy, targets)
+    calls = []
+    solve = tm.assign_many
+
+    def counted(impl, problems):
+        calls.append([tuple(cost.shape) for cost, _ in problems])
+        return solve(impl, problems)
+
+    monkeypatch.setattr(tl, "assign_many", counted)
+    got = tl.set_criterion(t_out, t_tgt)
+    assert calls == [[(3, 10, 4)] * 3 + [(3, 40, 4)]]  # final + 2 aux layers, encoder
+    num_inst, cfg = t_tgt["inst_mask"].float().sum().clamp(min=1.0), tl.CriterionConfig()
+    want = tl.dec_losses(t_out, t_tgt, tm.ctrl_point_match(t_out, t_tgt), num_inst, cfg)
+    for i, aux in enumerate(t_out["aux_outputs"]):
+        for k, v in tl.dec_losses(aux, t_tgt, tm.ctrl_point_match(aux, t_tgt), num_inst, cfg).items():
+            want[f"{k}_{i}"] = v
+    enc = t_out["enc_outputs"]
+    want.update(tl.enc_losses(enc, t_tgt, tm.box_match(enc, t_tgt), num_inst, cfg))
+    assert list(got) == list(want) + ["loss_total"]
+    for key, value in want.items():
+        assert torch.equal(got[key], value), key

@@ -94,7 +94,8 @@ def test_without_aux_and_encoder_outputs_and_with_greedy_matcher():
         outputs.pop(key)
     cfg_j = jl.CriterionConfig(matcher="greedy", point_text_weight=0.5)
     cfg_t = tl.CriterionConfig(matcher="greedy", point_text_weight=0.5)
-    want = jl.set_criterion(_tree(jnp.asarray, outputs), _tree(jnp.asarray, targets), cfg_j)
+    want = jax.jit(jl.set_criterion, static_argnums=2)(
+        _tree(jnp.asarray, outputs), _tree(jnp.asarray, targets), cfg_j)
     got = tl.set_criterion(
         _tree(torch.from_numpy, outputs), _tree(torch.from_numpy, targets), cfg_t
     )

@@ -3,6 +3,7 @@ the assignments of the exact solve against the on-device Jonker-Volgenant
 (``jv_assignment``) on seeded costs without ties, in both orientations and
 with padded targets."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,10 +106,10 @@ def test_greedy_equals_greedy_assignment(q, m):
 @pytest.mark.parametrize("q,m", [(10, 4), (3, 6)])
 def test_ctrl_point_and_box_match_equal_the_jax_matchers(q, m):
     outputs, enc, targets = _outputs_targets(3, q, m, 16, seed=q)
-    want = np.asarray(jm.ctrl_point_match(_j(outputs), _j(targets)))
+    want = np.asarray(jax.jit(jm.ctrl_point_match)(_j(outputs), _j(targets)))
     got = tm.ctrl_point_match(_t(outputs), _t(targets))
     np.testing.assert_array_equal(got.numpy(), want)
-    want = np.asarray(jm.box_match(_j(enc), _j(targets)))
+    want = np.asarray(jax.jit(jm.box_match)(_j(enc), _j(targets)))
     got = tm.box_match(_t(enc), _t(targets))
     np.testing.assert_array_equal(got.numpy(), want)
     cost, n_valid = tm.box_cost(_t(enc), _t(targets))

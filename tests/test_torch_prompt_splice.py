@@ -1,6 +1,7 @@
 """Port's on-device prompt splice against the JAX function (token ids exact),
 and its constant token tables against the JAX package's tokenizer."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,8 +23,11 @@ def test_constant_tables_equal_the_tokenizer():
     np.testing.assert_array_equal(ps.empty_tokens(3), jax_empty_tokens(3))
 
 
+_jax_splice = jax.jit(jax_splice, static_argnums=3)  # one compile per shape, not one per op
+
+
 def _both(recs, scores, keep, max_words):
-    want = jax_splice(jnp.asarray(recs), jnp.asarray(scores), jnp.asarray(keep), max_words)
+    want = _jax_splice(jnp.asarray(recs), jnp.asarray(scores), jnp.asarray(keep), max_words)
     got = ps.splice_tag_prompt(
         torch.from_numpy(recs), torch.from_numpy(scores), torch.from_numpy(keep), max_words
     )

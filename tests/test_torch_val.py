@@ -187,7 +187,8 @@ def test_long_captions_truncate_with_eot_last():
 def test_clip_encode_and_prepare_condition(pair):
     jm, params, tm = pair
     img = np.random.default_rng(76).random((1, 64, 64, 3), dtype=np.float32)
-    want = jm.cldm.prepare_condition(params, jnp.asarray(img), ["a sign"])
+    want = jax.jit(lambda p, x: jm.cldm.prepare_condition(p, x, ["a sign"]))(
+        params, jnp.asarray(img))
     with torch.no_grad():
         got = tm.cldm.prepare_condition(torch.from_numpy(img), ["a sign"])
     np.testing.assert_allclose(t2n(got["c_txt"]), np.asarray(want["c_txt"]), atol=1e-4)
