@@ -63,7 +63,13 @@ through its kernels:
             train_reference), then full-width steps with float32 master
             weights and bfloat16 compute on one 512 x 512 image (one J1
             launch a step), and its host synchronisations and seconds a step
-            with J1 and with the host matcher (phase train);
+            with J1 and with the host matcher (phase train); the step at
+            batch 1, 2 and 4 with gradient checkpointing off and on (seconds,
+            peak memory, launches with the recomputed forwards), the loss
+            and gradients with checkpointing against those without, and the
+            trainer with ``fsdp: true`` and ``val_patches`` through a process
+            group of one (NCCL) against their plain runs (phase
+            train_scale);
             then the port's trainer as a user starts it, ``python -m
             tair_tpu_torch.train`` on configs/train_chip_demo.yaml (its own
             data, degradation on the card, checkpoint, resume, validation with
@@ -105,6 +111,7 @@ subset for development and never prints a verdict.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -229,8 +236,8 @@ PROBE_REPS = 2        # timed repetitions per setting of the probes' own runs
 SERVE_STEPS = 4
 
 PHASES = ("kernels", "probes", "reference", "restore", "restore_flatpatch", "layers",
-          "enc_topk", "quant", "matcher", "diffbir", "ckpt", "train_reference", "train", "iqa", "train_entry",
-          "val", "val_patches", "spotter_eval", "face", "ram")
+          "enc_topk", "quant", "matcher", "diffbir", "ckpt", "train_reference", "train",
+          "train_scale", "iqa", "train_entry", "val", "val_patches", "spotter_eval", "face", "ram")
 # the paths on which the serving entry points run K1 and K3
 ENTRY_PHASES = ("val", "val_patches", "spotter_eval")
 
@@ -1516,6 +1523,394 @@ def phase_train(seed: int, steps: int, kernels: list, profile: bool) -> dict:
     if profile:
         phase_profile("train_profile", lambda: one_step()[0])
     return timed[-1][2]
+
+
+# phase train_scale: the stage-3 step at these batches, gradient checkpointing
+# off and on in turns; the checkpointing check's batch; the trainer's steps
+TRAIN_SCALE_BATCHES = (1, 2, 4)
+TRAIN_SCALE_CHECK_BATCH = 2
+TRAIN_SCALE_TRAINER_STEPS = 3
+TRAIN_SCALE_TIMED_STEPS = 3  # after one warm-up step, per setting
+# the FSDP trainer's losses against the plain trainer's: the first step is the
+# same program, the later ones start from updates whose gradients the plain
+# backward's atomic sums already vary (1.8e-4 seen on an H100)
+TRAIN_SCALE_LOSS_RTOL = 1e-3
+# the gradients with checkpointing against those without it, each tensor's
+# difference in norm relative to its norm: the largest and the median over the
+# trained tensors within this many times those of a second plain backward, which
+# is not deterministic (atomic float sums, then bfloat16 roundings that flip),
+# plus this (one bfloat16 rounding is 2^-9 of a value). One tensor's own spread
+# is too noisy a yardstick: two plain runs may agree on it by chance.
+TRAIN_SCALE_GRAD_SPREAD = 2.0
+TRAIN_SCALE_GRAD_RTOL = 2.0 ** -8
+
+
+# wrong recomputations planted as controls of the checkpointing check
+RECOMPUTE_FAULTS = ("inputs_one_ulp", "autocast_off")
+
+
+class recompute_probe:
+    """Within it, every checkpointed block's body (the function that
+    ``models/layers.py`` hands to ``checkpoint``) records its outputs in the
+    forward and in the backward's recomputation, the recomputation running to
+    its end (early stop off). `fault` plants a wrong recomputation:
+    ``inputs_one_ulp`` recomputes from the block's first dense floating input
+    one bfloat16 ulp up (other values, the same shapes and types), ``autocast_off``
+    recomputes outside autocast. ``calls``: for each checkpointed call, the
+    outputs of its runs in order."""
+
+    def __init__(self, fault: str = None):
+        from tair_tpu_torch.models import layers
+
+        self.layers, self.real, self.fault = layers, layers.checkpoint, fault
+        self.calls = []
+        self.early_stop = torch.utils.checkpoint.set_checkpoint_early_stop(False)
+
+    def __enter__(self):
+        def probed(body, *args, **kwargs):
+            runs = []
+            self.calls.append(runs)
+
+            def run(*a):
+                again = bool(runs)
+                if again and self.fault == "inputs_one_ulp":
+                    # in place on a copy with the input's strides (an
+                    # expanded input would copy densely and take another
+                    # path): the recomputation must save the same tensors
+                    i = next(i for i, t in enumerate(a) if torch.is_tensor(t)
+                             and t.is_floating_point() and 0 not in t.stride())
+                    with torch.no_grad():
+                        x = a[i].clone()
+                        x.copy_(x.to(torch.bfloat16).mul(1 + 2.0 ** -7))
+                    a = (*a[:i], x.requires_grad_(a[i].requires_grad), *a[i + 1:])
+                off = again and self.fault == "autocast_off"
+                with torch.autocast("cuda", enabled=False) if off else contextlib.nullcontext():
+                    out = body(*a)
+                leaves = out if isinstance(out, (tuple, list)) else (out,)
+                runs.append([t.detach().clone() for t in leaves if torch.is_tensor(t)])
+                return out
+
+            return self.real(run, *args, **kwargs)
+
+        self.layers.checkpoint = probed
+        self.early_stop.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.early_stop.__exit__(*exc)
+        self.layers.checkpoint = self.real
+
+    def bit_equal(self) -> int:
+        """Checkpointed calls whose recomputation gave the forward's outputs
+        bit for bit; raises unless every call ran exactly twice."""
+        if any(len(runs) != 2 for runs in self.calls):
+            raise AssertionError(f"train_scale: checkpointed calls ran "
+                                 f"{sorted({len(r) for r in self.calls})} times, not twice")
+        return sum(int(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)))
+                   for a, b in self.calls)
+
+
+def recomputed_launches(model, compute_dtype: torch.dtype) -> dict:
+    """Forward launches that gradient checkpointing adds to a training step:
+    the flash forward of every attention and the msda reduce forward of every
+    deformable attention inside a unit that the backward recomputes (the
+    UNet's and the ControlNet's encoder, middle and decoder blocks, the
+    spotter's encoder and decoder layers)."""
+    from tair_tpu_torch.models.attention import CrossAttention
+    from tair_tpu_torch.ops import flash_attention as fa
+    from tair_tpu_torch.parallel.fsdp import checkpointed_blocks
+    from tair_tpu_torch.spotter.ms_deform_attn import MSDeformAttn
+
+    extra = {}
+    for unit in checkpointed_blocks(model):
+        for m in unit.modules():
+            if isinstance(m, CrossAttention):
+                name = f"flash_attention_{fa.kernel_name(compute_dtype, m.dim_head, 'fwd')}"
+                extra[name] = extra.get(name, 0) + 1
+            elif isinstance(m, MSDeformAttn):
+                extra["msda_corner_reduce_fwd"] = extra.get("msda_corner_reduce_fwd", 0) + 1
+    return extra
+
+
+def release_device_memory() -> None:
+    """Free what a finished part left on the card: objects held only in
+    reference cycles (modules with hooks) first, then the cached blocks."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def trainer_config(path: Path, exp_dir: Path, **train_fields) -> Path:
+    """configs/train_chip_demo.yaml with its experiment directory and the
+    `train` fields given set (the block is the file's last)."""
+    root = Path(__file__).resolve().parent
+    fields = {"exp_dir": str(exp_dir), **train_fields}
+    lines = []
+    for line in (root / TRAIN_ENTRY_CONFIG).read_text().splitlines():
+        key = line.strip().split(":")[0]
+        if line.startswith("  ") and key in fields:
+            line = f"  {key}: {fields.pop(key)}"
+        lines.append(line)
+    lines += [f"  {key}: {value}" for key, value in fields.items()]
+    path.write_text("\n".join(lines) + "\n")
+    return path
+
+
+def phase_train_scale(seed: int) -> dict:
+    """The training step at scale, and the data-parallel path on one card:
+
+    - stage 3 at full width (float32 master weights, bfloat16 compute,
+      512 x 512, 8 padded instances of which 5 are real) at batch 1, 2 and 4,
+      ``use_checkpoint`` off and on in turns (off, on; on, off; off, on): a
+      warm-up step, then TRAIN_SCALE_TIMED_STEPS steps timed by the host
+      clock around synchronisations, their peak device memory, and every
+      step's launches held to the structure's count (checkpointing adds the
+      recomputed units' flash and msda forwards); at batch 1 also one step
+      under torch.profiler each way: every kernel launch, device busy time,
+      and autocast's weight casts;
+    - at batch 2, one loss and its gradients with the same draws, without,
+      with, and again without checkpointing: the same losses, every
+      checkpointed block's recomputed outputs bit-equal to its forward's
+      (`recompute_probe`), the gradients' differences within the spread of
+      the two plain backwards (TRAIN_SCALE_GRAD_SPREAD, TRAIN_SCALE_GRAD_RTOL);
+      then each planted wrong recomputation (RECOMPUTE_FAULTS), which must
+      fail the check, with its readings beside the gradient bound;
+    - the port's trainer on configs/train_chip_demo.yaml for
+      TRAIN_SCALE_TRAINER_STEPS steps, in this process: plain, then with
+      ``fsdp: true`` under a process group of one (NCCL on an in-process
+      store, no socket); the same losses, and the bytes the process holds;
+    - ``val_patches`` on one 240 x 240 image (4 patches at 512 x 512, two
+      steps), plain and then through the same group (its rows drawn and
+      gathered by ``ShardedRestore``): the same image.
+
+    Returns the launch counts of the last timed step (batch 4, with
+    checkpointing)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tair_tpu_torch.diffusion.diffusion import Diffusion
+    from tair_tpu_torch.parallel.fsdp import checkpointed_blocks
+    from tair_tpu_torch.parallel.mesh import init_distributed
+    from tair_tpu_torch.pipeline import build_default_model
+    from tair_tpu_torch.train.__main__ import main as train_main
+    from tair_tpu_torch.train.step import diffusion_loss_fn, make_draws
+    from tair_tpu_torch.utils.image_io import load_image, save_image
+    from tair_tpu_torch.val_patches import main as val_patches_main
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = build_default_model(dtype=torch.float32, device=dev, training=True)
+    model.init_parameters(torch.Generator(device=dev).manual_seed(seed))
+    state, step = make_trainer(model, torch.bfloat16)
+    torch.cuda.synchronize()
+    build_seconds = time.perf_counter() - t0
+    extra = recomputed_launches(model, torch.bfloat16)
+    rng = np.random.default_rng(seed)
+    batches = {
+        b: {k: torch.from_numpy(v).to(dev)
+            for k, v in train_batch(rng, batch=b, size=512, max_inst=8, n_inst=5).items()}
+        for b in TRAIN_SCALE_BATCHES
+    }
+
+    def timed_steps(b: int, checkpointing: bool):
+        model.set_use_checkpoint(checkpointing)
+        want = predicted_train_launches(model, torch.bfloat16, b)
+        if checkpointing:
+            want = {k: n + extra.get(k, 0) for k, n in want.items()}
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        seconds, peaks = [], []
+        for _ in range(1 + TRAIN_SCALE_TIMED_STEPS):  # the first is the warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t = time.perf_counter()
+            _, aux = step(state, batches[b], generator=gen)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t)
+            peaks.append(torch.cuda.max_memory_allocated())
+            got = launch_counts()
+            if got != want:
+                raise AssertionError(f"train_scale batch {b} checkpointing {checkpointing}: "
+                                     f"launches {got}, structure says {want}")
+            aux = {k: v.item() for k, v in aux.items()}
+            if not all(np.isfinite(v) for v in aux.values()):
+                raise AssertionError(f"train_scale batch {b}: a loss is not finite: {aux}")
+        row = dict(batch=b, use_checkpoint=checkpointing,
+                   median_step_seconds=statistics.median(seconds[1:]),
+                   step_seconds=seconds[1:], warmup_seconds=seconds[0],
+                   peak_memory_bytes=max(peaks[1:]), loss_total=aux["loss_total"],
+                   launches={k: n for k, n in got.items() if n})
+        if b == TRAIN_SCALE_BATCHES[0]:
+            # every kernel of a step, autocast's weight casts (aten::_to_copy)
+            # among them: the recomputation casts its blocks' weights again
+            def run() -> float:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step(state, batches[b], generator=gen)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t
+
+            prof = profiled(run, ops=("aten::_to_copy",))
+            row["profile"] = {k: prof[k] for k in (
+                "wall_seconds", "wall_seconds_under_profiler", "device_busy_seconds",
+                "device_idle_share", "kernel_launches", "ops")}
+        return row, got
+
+    table, last = [], None
+    for i, b in enumerate(TRAIN_SCALE_BATCHES):
+        for checkpointing in ((False, True) if i % 2 == 0 else (True, False)):
+            row, got = timed_steps(b, checkpointing)
+            table.append(row)
+            if b == TRAIN_SCALE_BATCHES[-1] and checkpointing:
+                last = got
+    model.set_use_checkpoint(False)
+
+    # the same loss and gradients without and with checkpointing
+    b = TRAIN_SCALE_CHECK_BATCH
+    draws = make_draws(torch.Generator(device=dev).manual_seed(seed + 1), b, (64, 64),
+                       model.schedule.num_timesteps, dev, vae_dtype=torch.bfloat16)
+    spotter_loss = model.spotter_loss_fn()
+    trained = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+
+    def loss_and_grads(checkpointing: bool, fault: str = None):
+        model.set_use_checkpoint(checkpointing)
+        state.optimizer.zero_grad(set_to_none=True)
+        probe = recompute_probe(fault)
+        with probe:
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                loss, _ = diffusion_loss_fn(
+                    model, Diffusion(model.schedule, parameterization="v"), batches[b],
+                    draws=draws, spotter_loss_fn=spotter_loss, ocr_loss_weight=TRAIN_OCR_WEIGHT)
+            loss.backward()
+        grads = {n: p.grad.detach().clone() for n, p in trained}
+        state.optimizer.zero_grad(set_to_none=True)
+        return loss.item(), grads, probe
+
+    def rel(a: torch.Tensor, b: torch.Tensor) -> float:
+        return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+    def grad_stats(grads) -> dict:
+        """The largest and the median over the trained tensors of
+        |grads - plain| / |plain|, and the five largest."""
+        per_tensor = {n: rel(grads[n], ref) for n, ref in grads_off.items()}
+        return dict(max=max(per_tensor.values()), median=statistics.median(per_tensor.values()),
+                    largest=sorted(per_tensor.items(), key=lambda kv: -kv[1])[:5],
+                    bit_equal=sum(int(torch.equal(grads[n], ref)) for n, ref in grads_off.items()))
+
+    loss_off, grads_off, _ = loss_and_grads(False)
+    loss_on, grads_on, probe_on = loss_and_grads(True)
+    loss_again, grads_again, _ = loss_and_grads(False)  # the spread of the plain backward
+    units = len(checkpointed_blocks(model))
+    on, again = grad_stats(grads_on), grad_stats(grads_again)
+    bound = {k: TRAIN_SCALE_GRAD_SPREAD * again[k] + TRAIN_SCALE_GRAD_RTOL
+             for k in ("max", "median")}
+    del grads_on, grads_again
+    bit_equal_calls = probe_on.bit_equal()
+    del probe_on
+    beyond = [k for k in bound if on[k] > bound[k]]
+    if loss_on != loss_off or loss_again != loss_off or bit_equal_calls != units or beyond:
+        raise AssertionError(
+            f"train_scale: checkpointing changed the loss ({loss_off} -> {loss_on}, plain again "
+            f"{loss_again}), recomputed {units - bit_equal_calls} of {units} blocks' outputs "
+            f"otherwise than the forward, or moved the gradients beyond the plain backward's "
+            f"spread ({beyond}: with {on}, plain again {again})")
+    # the controls: a wrong recomputation must fail the check
+    controls = {}
+    for fault in RECOMPUTE_FAULTS:
+        try:
+            loss_f, grads_f, probe_f = loss_and_grads(True, fault)
+        except torch.OutOfMemoryError:
+            raise
+        except RuntimeError as e:  # torch's CheckpointError among them
+            controls[fault] = dict(caught_by=f"the recomputation raised {type(e).__name__}",
+                                   error=str(e).splitlines()[0])
+            state.optimizer.zero_grad(set_to_none=True)
+            continue
+        st = grad_stats(grads_f)
+        controls[fault] = dict(
+            loss=loss_f, calls_bit_equal=probe_f.bit_equal(),
+            grad_rel_norm_diff={k: st[k] for k in ("max", "median", "bit_equal")},
+            within_gradient_bound=all(st[k] <= bound[k] for k in bound))
+        del grads_f, probe_f
+        if controls[fault]["calls_bit_equal"] == units:
+            raise AssertionError(f"train_scale: the control {fault} recomputed every block "
+                                 f"bit for bit: the check cannot see a wrong recomputation")
+    model.set_use_checkpoint(False)
+    emit("train_scale", card=torch.cuda.get_device_name(0), stage="all_modules",
+         geometry="build_default_model, 512x512, 8 padded target instances (5 real)",
+         master_dtype="float32", compute_dtype="bfloat16", model_build_seconds=build_seconds,
+         steps=table, recomputed_launches_per_step=extra,
+         checkpointing_check=dict(
+             batch=b, loss_without=loss_off, loss_with=loss_on, loss_again=loss_again,
+             checkpointed_calls=units, recomputed_bit_equal=bit_equal_calls,
+             grad_tensors=len(trained), grad_rel_norm_diff=dict(
+                 with_checkpointing=on, plain_again=again, bound=bound),
+             controls=controls,
+             tolerance=f"the losses equal; every checkpointed block's recomputed outputs "
+                       f"equal its forward's bit for bit; over the trained tensors, the "
+                       f"largest and the median |with - without| / |without| within "
+                       f"{TRAIN_SCALE_GRAD_SPREAD} x those of |again - without| / |without| "
+                       f"+ {TRAIN_SCALE_GRAD_RTOL} (Frobenius norms); each control fails"))
+    del grads_off, trained, spotter_loss, draws
+    del state, step, model, batches
+    release_device_memory()
+
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="train_scale_", dir=root / "build"))
+    try:
+        lq, _ = synthetic_pairs(1, 512, seed + 1)
+        (work / "lq").mkdir()
+        save_image(str(work / "lq" / "img0.png"), lq[0, :240, :240])
+        runs = {}
+        for name, fsdp in (("plain", False), ("fsdp", True)):
+            if fsdp:
+                init_distributed("cuda", group_of_one=True)
+            cfg = trainer_config(work / f"train_{name}.yaml", work / f"train_{name}",
+                                 fsdp=str(fsdp).lower(), final_checkpoint="false",
+                                 log_loss_every=1)
+            torch.cuda.reset_peak_memory_stats()  # the trainer's steps report the peak since
+            t = time.perf_counter()
+            train_main(["--config", str(cfg), "--max-steps", str(TRAIN_SCALE_TRAINER_STEPS)])
+            seconds = time.perf_counter() - t
+            release_device_memory()  # the trainer's model, held in cycles by its hooks
+            steps = read_jsonl(work / f"train_{name}" / "steps.jsonl")
+            vp_cfg = serving_config(work / f"vp_{name}.yaml", lq_dir=work / "lq",
+                                    gt_dir="null", output_dir=work / f"vp_{name}", chunk="null")
+            t = time.perf_counter()
+            val_patches_main(["--config", str(vp_cfg), "--steps", "2"])
+            release_device_memory()
+            runs[name] = dict(
+                trainer_seconds=seconds, losses=[r["loss_total"] for r in steps],
+                step_seconds=[r["seconds"] for r in steps],
+                peak_memory_bytes=[r["peak_memory_bytes"] for r in steps],
+                state_bytes_here=steps[-1].get("state_bytes_here"),
+                val_patches_seconds=time.perf_counter() - t,
+            )
+        dist.destroy_process_group()
+        plain, fsdp = runs["plain"]["losses"], runs["fsdp"]["losses"]
+        rel = max(abs(a - b) / abs(a) for a, b in zip(plain, fsdp))
+        if len(plain) != TRAIN_SCALE_TRAINER_STEPS or len(fsdp) != len(plain) or \
+                rel > TRAIN_SCALE_LOSS_RTOL:
+            raise AssertionError(f"train_scale: the FSDP trainer's losses {fsdp}, plain {plain}")
+        if not runs["fsdp"]["state_bytes_here"]:
+            raise AssertionError("train_scale: the FSDP trainer logged no state bytes")
+        images = [load_image(str(work / f"vp_{n}" / "restored_img0.png")) for n in runs]
+        image_diff = float(np.abs(images[0] - images[1]).max())
+        if images[0].shape != (960, 960, 3) or image_diff > 1 / 255 + 1e-6:
+            raise AssertionError(f"train_scale: val_patches through the group differs by "
+                                 f"{image_diff} ({images[0].shape})")
+        emit("train_scale_fsdp", card=torch.cuda.get_device_name(0), config=TRAIN_ENTRY_CONFIG,
+             group="NCCL, world size 1, in-process store", loss_rel_diff=rel,
+             val_patches_image_max_diff=image_diff, **runs)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    return last
 
 
 def matcher_step_turns(model, state, batch, gen, matchings: int) -> dict:
@@ -4070,6 +4465,11 @@ def main() -> None:
         path_launches["train"] = phase_train(
             args.seed, args.train_steps, model_kernels, args.profile_train
         )
+    if "train_scale" in phases:
+        path_launches["train_scale"] = phase_train_scale(args.seed)
+        for entry in kernels:
+            if "train" in entry["paths"]:  # every kernel of the train step
+                entry["paths"] = (*entry["paths"], "train_scale")
     iqa_weights = {}
     if phases & {"iqa", "train_entry", "val"}:
         import shutil

@@ -67,8 +67,8 @@ class TrainConfig:
     log_tool: Optional[str] = None   # None/jsonl | tensorboard | wandb
     # "hungarian" (exact) | "hungarian_host" | "greedy"
     matcher: str = "hungarian"
-    # sharding of params + optimizer moments over the data axis (the
-    # parallel slice; the port's trainer raises on it)
+    # sharding of params + optimizer moments over the data axis
+    # (parallel/fsdp.py)
     fsdp: bool = False
 
 

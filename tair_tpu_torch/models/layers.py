@@ -18,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import quant
 
@@ -66,6 +67,42 @@ def gn_stats_over_batch():
         yield
     finally:
         _GN_STATS_OVER_BATCH.reset(token)
+
+
+def checkpoint_block(block: nn.Module, *args):
+    """`block(*args)`, its activations recomputed in the backward when
+    gradients are on (the unit of the JAX package's ``nn.remat``):
+    non-reentrant checkpointing, which restores autocast and the global random
+    state for the recomputation, and here also `gn_stats_over_batch`. It does
+    not restore a ``torch.Generator`` handed in, so a block that drew from one
+    would recompute other values: such an argument raises. Under ``no_grad``
+    the block runs as it is.
+
+    Only the block's ``forward`` is recomputed. The hooks of the block's call
+    run once, around the checkpointed region: FSDP gathers a unit's
+    parameters in them, and if they ran inside the region, the forward would
+    save other tensors than the recomputation, which finds the parameters
+    already gathered by FSDP's pre-backward hook."""
+    if any(isinstance(a, torch.Generator) for a in args):
+        raise TypeError("a checkpointed block must not draw from a torch.Generator")
+    if not torch.is_grad_enabled():
+        return block(*args)
+    pooled = _GN_STATS_OVER_BATCH.get()
+
+    def contexts():
+        again = gn_stats_over_batch() if pooled else contextlib.nullcontext()
+        return contextlib.nullcontext(), again
+
+    body = block.forward
+
+    def checkpointed(*a):
+        return checkpoint(body, *a, use_reentrant=False, context_fn=contexts)
+
+    block.forward = checkpointed  # for this call only: the call's hooks run around it
+    try:
+        return block(*args)
+    finally:
+        del block.forward
 
 
 class GroupNorm32(nn.Module):

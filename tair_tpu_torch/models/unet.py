@@ -7,7 +7,9 @@ tagged block's trailing upsample). Every convolution and dense layer but the
 time-embedding MLP and ``emb_proj`` is quantizable (``layers.QuantConv2d`` /
 ``QuantLinear``): inside ``ops.quant.quantized()`` it runs w8a8, and its sites
 run in the JAX package's order, which the calibration record follows.
-Gradient checkpointing is not part of the port.
+With ``use_checkpoint`` the units that the JAX package wraps in ``nn.remat``
+(``EncoderBlock``, ``MiddleBlock``, ``DecoderBlock``) keep no activations for
+the backward and run again inside it (``checkpoint_block``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from .attention import SpatialTransformer
 from .layers import (
     GroupNorm32,
     TimestepEmbedder,
+    checkpoint_block,
     conv1x1,
     conv3x3,
     nearest_upsample_2x,
@@ -44,6 +47,9 @@ class UNetConfig:
     context_dim: int = 1024
     # ControlNet only:
     hint_channels: int = 4
+    # recompute the encoder, middle and decoder blocks in the backward
+    # (training: less activation memory for more compute)
+    use_checkpoint: bool = False
 
     @property
     def extract_idx(self) -> Tuple[int, ...]:
@@ -179,6 +185,9 @@ class _EncoderTower(nn.Module):
     block's output."""
 
     def _build_encoder(self, cfg: UNetConfig, in_channels: int):
+        # an attribute, so that a built model can be switched
+        # (``TeReDiff.set_use_checkpoint``)
+        self.use_checkpoint = cfg.use_checkpoint
         self.time_embed = TimestepEmbedder(cfg.model_channels)
         self.plan = _encoder_plan(cfg)
         chans = []
@@ -203,12 +212,17 @@ class _EncoderTower(nn.Module):
         for i, (kind, _, _) in enumerate(self.plan):
             if kind == "conv":
                 h = self.in_conv(h)
+            elif kind == "down":
+                h = getattr(self, f"in_{i}")(h)
             else:
-                h = getattr(self, f"in_{i}")(h, emb, context)
+                h = self._block(getattr(self, f"in_{i}"), h, emb, context)
             hs.append(h)
             if after_block is not None:
                 after_block(i, h)
         return hs
+
+    def _block(self, block: nn.Module, *args):
+        return checkpoint_block(block, *args) if self.use_checkpoint else block(*args)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -252,7 +266,7 @@ class UNetModel(_EncoderTower):
         emb = self.time_embed(t).to(dtype)
         context = context.to(dtype)
         hs = self._run_encoder(to_nchw(x).to(dtype), emb, context)
-        h = self.middle(hs[-1], emb, context)
+        h = self._block(self.middle, hs[-1], emb, context)
 
         ctrl = [to_nchw(c) for c in control] if control is not None else None
         if ctrl is not None:
@@ -264,7 +278,7 @@ class UNetModel(_EncoderTower):
             skip = hs.pop()
             if ctrl is not None:
                 skip = skip + ctrl.pop().to(skip.dtype)
-            h = getattr(self, f"out_{i}")(torch.cat([h, skip], dim=1), emb, context)
+            h = self._block(getattr(self, f"out_{i}"), torch.cat([h, skip], dim=1), emb, context)
             if extract_features and i in extract_idx:
                 feats.append(to_nhwc(h))
 
@@ -300,5 +314,5 @@ class ControlNet(_EncoderTower):
             h, emb, context,
             after_block=lambda i, h_i: outs.append(to_nhwc(getattr(self, f"zero_{i}")(h_i))),
         )
-        outs.append(to_nhwc(self.middle_out(self.middle(hs[-1], emb, context))))
+        outs.append(to_nhwc(self.middle_out(self._block(self.middle, hs[-1], emb, context))))
         return tuple(outs)

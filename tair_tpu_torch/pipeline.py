@@ -121,6 +121,14 @@ class TeReDiff(nn.Module):
             p.copy_((noise * std).to(p.dtype))
         return self
 
+    def set_use_checkpoint(self, on: bool) -> "TeReDiff":
+        """Switch gradient checkpointing of the ControlNet, the UNet and the
+        spotter's transformer (``UNetConfig.use_checkpoint``,
+        ``TESTRConfig.use_checkpoint``) on a built model."""
+        for module in (self.cldm.unet, self.cldm.controlnet, self.testr.transformer):
+            module.use_checkpoint = on
+        return self
+
     def sampler(self, rescale_cfg: bool = False) -> SpacedSampler:
         return SpacedSampler(
             training_betas=self.schedule.betas, parameterization="v", rescale_cfg=rescale_cfg
@@ -135,10 +143,12 @@ class TeReDiff(nn.Module):
     def spotter_apply(self, feats):
         return self.testr(feats)
 
-    def spotter_loss_fn(self, criterion_cfg=None):
+    def spotter_loss_fn(self, criterion_cfg=None, group=None):
         """Adapter for the train step: (feats, batch) -> (loss, aux), the
         spotter on the UNet's decoder features under the TESTR set criterion.
-        criterion_cfg: optional ``CriterionConfig`` (e.g. the matcher)."""
+        criterion_cfg: optional ``CriterionConfig`` (e.g. the matcher);
+        `group`: the data-parallel process group, whose global batch
+        normalises the loss (``set_criterion``)."""
         from .spotter.losses import CriterionConfig, set_criterion
 
         cfg = criterion_cfg if criterion_cfg is not None else CriterionConfig()
@@ -148,7 +158,7 @@ class TeReDiff(nn.Module):
             targets = {
                 k: batch[k] for k in ("inst_mask", "boxes", "ctrl_points", "texts")
             }
-            losses = set_criterion(out, targets, cfg)
+            losses = set_criterion(out, targets, cfg, group=group)
             aux = {
                 "loss_ocr_ce": losses["loss_ce"],
                 "loss_ocr_ctrl_points": losses["loss_ctrl_points"],

@@ -5,17 +5,18 @@ classification, control-point L1 and text cross-entropy for the decoder (and
 every auxiliary layer), focal + box L1 + GIoU for the encoder proposals,
 normalised by the number of target instances. Targets are padded to
 ``[B, M, ...]`` with ``inst_mask``; the matcher returns a dense ``[B, M]`` query
-index, so every loss is a masked gather. The cross-replica mean of the
-instance count (the JAX function's ``axis_name``) belongs to the parallel
-slice and is not here.
+index, so every loss is a masked gather. Under data parallelism (a process
+group) the instance count and the text cells are those of the global batch,
+as the JAX trainer's global-view step computes them (``_global_counts``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .matcher import (
@@ -82,8 +83,11 @@ def _positive_queries(src_idx, mask, q: int) -> torch.Tensor:
     return onehot.sum(dim=1)
 
 
-def dec_losses(outputs, targets, src_idx, num_inst, cfg: CriterionConfig):
-    """Decoder losses for one layer's outputs."""
+def dec_losses(outputs, targets, src_idx, num_inst, cfg: CriterionConfig,
+               n_cells: Optional[torch.Tensor] = None):
+    """Decoder losses for one layer's outputs; `n_cells` (the matched
+    (instance, character) cells that divide the text loss) is counted on
+    `targets` when not given."""
     mask = _matched_mask(targets, src_idx)  # [B, M]
     q = outputs["pred_logits"].shape[1]
 
@@ -106,7 +110,8 @@ def dec_losses(outputs, targets, src_idx, num_inst, cfg: CriterionConfig):
     logp = torch.log_softmax(src_txt.float(), dim=-1)
     tgt = targets["texts"].long()  # [B,M,Nw]
     nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
-    n_cells = (mask.sum() * tgt.shape[-1]).clamp(min=1.0)
+    if n_cells is None:
+        n_cells = (mask.sum() * tgt.shape[-1]).clamp(min=1.0)
     loss_texts = (nll * mask[:, :, None]).sum() / n_cells
 
     return {
@@ -147,16 +152,33 @@ def enc_losses(enc_outputs, targets, src_idx, num_inst, cfg: CriterionConfig):
     }
 
 
+def _global_counts(counts: Sequence[torch.Tensor], group) -> torch.Tensor:
+    """The loss denominators of a data-parallel step, each ``max(global
+    count, 1) / n`` over the n processes of `group` (one all-reduce): a
+    process's loss is then its rows' numerator over the global count times n,
+    so the mean over processes, which the gradient reduction takes, is the
+    global batch's loss. This follows the JAX trainer's global-view step
+    (``set_criterion`` with ``axis_name=None`` on the sharded global batch),
+    not the JAX function's ``axis_name`` branch: that one takes ``max(., 1)``
+    after the mean over replicas and leaves the text cells per replica."""
+    counts = torch.stack([c.detach().float() for c in counts])
+    n = dist.get_world_size(group)
+    dist.all_reduce(counts, group=group)
+    return counts.clamp(min=1.0) / n
+
+
 def set_criterion(
     outputs: Dict[str, Any],
     targets: Dict[str, torch.Tensor],
     cfg: CriterionConfig = CriterionConfig(),
+    group: Optional[dist.ProcessGroup] = None,
 ) -> Dict[str, torch.Tensor]:
     """Full weighted TESTR loss dict; 'loss_total' is the training scalar.
     Every matching's cost (the last decoder layer, the auxiliary layers, the
     encoder proposals) is formed first, and the matcher solves them in one
-    call: one launch of kernel J1 on the card."""
-    num_inst = targets["inst_mask"].float().sum().clamp(min=1.0)
+    call: one launch of kernel J1 on the card. `group`: the data-parallel
+    process group whose global batch normalises the losses (`_global_counts`);
+    None, a single process."""
 
     point_outputs = [outputs]
     if cfg.aux_loss and "aux_outputs" in outputs:
@@ -174,10 +196,19 @@ def set_criterion(
         ))
     matched = assign_many(cfg.matcher, problems)
 
+    n_chars = targets["texts"].shape[-1]
+    counts = [targets["inst_mask"].float().sum()] + [
+        _matched_mask(targets, idx).sum() * n_chars for idx in matched[: len(point_outputs)]
+    ]
+    if group is not None and dist.get_world_size(group) > 1:
+        num_inst, *n_cells = _global_counts(counts, group).unbind()
+    else:
+        num_inst, *n_cells = (c.clamp(min=1.0) for c in counts)
+
     losses: Dict[str, torch.Tensor] = {}
-    losses.update(dec_losses(outputs, targets, matched[0], num_inst, cfg))
+    losses.update(dec_losses(outputs, targets, matched[0], num_inst, cfg, n_cells[0]))
     for i, aux in enumerate(point_outputs[1:]):
-        for k, v in dec_losses(aux, targets, matched[1 + i], num_inst, cfg).items():
+        for k, v in dec_losses(aux, targets, matched[1 + i], num_inst, cfg, n_cells[1 + i]).items():
             losses[f"{k}_{i}"] = v
 
     if "enc_outputs" in outputs:

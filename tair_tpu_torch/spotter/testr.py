@@ -47,6 +47,8 @@ class TESTRConfig:
     enc_msda_q_chunk: int = 16384
     # the sparse encoder update (DeformableTransformer.enc_topk): 0 = exact
     enc_topk: int = 0
+    # recompute the encoder and decoder layers in the backward (training)
+    use_checkpoint: bool = False
 
 
 class DiffFeatProj(nn.Module):
@@ -105,6 +107,7 @@ class TESTR(nn.Module):
             num_proposals=cfg.num_proposals,
             enc_msda_q_chunk=cfg.enc_msda_q_chunk,
             enc_topk=cfg.enc_topk,
+            use_checkpoint=cfg.use_checkpoint,
         )
         # heads shared across decoder layers
         self.ctrl_point_class = nn.Linear(c, 1)

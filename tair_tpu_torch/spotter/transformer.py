@@ -5,8 +5,9 @@ MSDeformAttn self-attention over the flattened multi-scale tokens, two-stage
 proposal generation with top-K selection, and a 6-layer composite decoder
 (location branch and factorized text branch). Feature maps are never padded,
 so valid-ratio bookkeeping is omitted; dropout is omitted. The sparse encoder
-update (``enc_topk``) is the JAX module's; its sequence parallelism and
-rematerialisation are not ported. Tokens are ``[B, S, C]`` throughout.
+update (``enc_topk``) is the JAX module's, and so is ``use_checkpoint``, which
+recomputes each encoder and decoder layer in the backward; its sequence
+parallelism is not ported. Tokens are ``[B, S, C]`` throughout.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.layers import LayerNorm32, MultiHeadAttention
+from ..models.layers import LayerNorm32, MultiHeadAttention, checkpoint_block
 from .ms_deform_attn import MSDeformAttn
 
 
@@ -275,6 +276,7 @@ class DeformableTransformer(nn.Module):
         num_proposals: int = 100,
         enc_msda_q_chunk: int = 16384,
         enc_topk: int = 0,
+        use_checkpoint: bool = False,
     ):
         super().__init__()
         if enc_topk < 0:
@@ -285,6 +287,10 @@ class DeformableTransformer(nn.Module):
         # enc_topk tokens that the two-stage objectness head scores highest on
         # the encoder's input, so the msda gather's rows fall by S / enc_topk
         self.enc_topk = enc_topk
+        # the layers are ``nn.remat``'s units: with it, the backward recomputes
+        # them (the sparse update's `sel_idx` is an input, so the recomputation
+        # updates the same tokens)
+        self.use_checkpoint = use_checkpoint
         self.n_levels = n_levels
         self.num_encoder_layers = num_encoder_layers
         self.num_decoder_layers = num_decoder_layers
@@ -303,6 +309,9 @@ class DeformableTransformer(nn.Module):
         for i in range(num_decoder_layers):
             setattr(self, f"dec_{i}",
                     CompositeDecoderLayer(d_model, d_ffn, n_levels, n_heads, dec_n_points))
+
+    def _layer(self, layer: nn.Module, *args):
+        return checkpoint_block(layer, *args) if self.use_checkpoint else layer(*args)
 
     def select_tokens(self, src_flat: torch.Tensor, prop_valid: torch.Tensor) -> torch.Tensor:
         """[B, enc_topk] ascending indices of the tokens with the highest
@@ -342,7 +351,8 @@ class DeformableTransformer(nn.Module):
         )
         memory = src_flat
         for i in range(self.num_encoder_layers):
-            memory = getattr(self, f"enc_{i}")(memory, pos_flat, ref, spatial_shapes, sel_idx)
+            memory = self._layer(getattr(self, f"enc_{i}"), memory, pos_flat, ref, spatial_shapes,
+                                 sel_idx)
 
         # two-stage proposals
         output_memory = torch.where(
@@ -373,8 +383,9 @@ class DeformableTransformer(nn.Module):
 
         hs, hs_text = [], []
         for i in range(self.num_decoder_layers):
-            tgt, tgt_text = getattr(self, f"dec_{i}")(
-                tgt, qp, tgt_text, text_pos_embed, ref_input, memory, spatial_shapes
+            tgt, tgt_text = self._layer(
+                getattr(self, f"dec_{i}"),
+                tgt, qp, tgt_text, text_pos_embed, ref_input, memory, spatial_shapes,
             )
             hs.append(tgt)
             hs_text.append(tgt_text)

@@ -10,10 +10,19 @@ the UNet features). Usage:
 
     python -m tair_tpu_torch.train --config configs/train_chip_demo.yaml
     python -m tair_tpu_torch.train --config configs/train_smoke.yaml --device cpu
+    torchrun --nproc_per_node=N -m tair_tpu_torch.train --config configs/train_stage3.yaml
+    torchrun --nproc_per_node=2 -m tair_tpu_torch.train --config configs/train_smoke_fsdp.yaml --device cpu
 
 It runs on the CUDA device unless ``--device cpu`` is given, and raises when
-there is none. Data parallelism (``n_data_devices`` > 1) and ``fsdp`` belong to
-the parallel slice and raise. Besides the JAX trainer's metric stream
+there is none. Under ``torchrun`` each process drives one card (NCCL; gloo on
+the CPU) and the data axis spans the processes: ``n_data_devices`` defaults to
+their number and must equal it. Every process reads the same global batch of
+``batch_size × n_data`` rows, degrades it, and steps on its own rows with its
+rows of the global batch's draws; the gradients are averaged over the
+processes (``train.fsdp``: sharded by the JAX package's rule with FSDP2), so
+the update is the global batch's. Logging, images and checkpoint files come
+from rank 0; a checkpoint of a sharded state is gathered first and loads into
+a single process. Besides the JAX trainer's metric stream
 (``metrics.jsonl``) it writes one record per step to ``steps.jsonl`` in the
 experiment directory: seconds of the step, of the wait for its batch and of
 the batch's making on the host, milliseconds of the degradation (between CUDA
@@ -71,25 +80,29 @@ def main(argv=None) -> None:
     from ..data.satext import data_iterator
     from ..diffusion.diffusion import Diffusion
     from ..ops.launches import launch_counts, reset_launch_counts
+    from ..parallel.fsdp import (
+        GradientSync, apply_fsdp, fsdp_units, local_bytes, sharded_fraction,
+    )
+    from ..parallel.mesh import DATA_AXIS, create_mesh, init_distributed, shard_batch, world_size
     from ..pipeline import _resolve_device
     from ..utils.logging import MetricLogger, is_main_process
     from .checkpoint import (
         latest_checkpoint, load_params, restore_checkpoint, save_checkpoint, save_params,
-        state_checksums,
+        state_checksums, state_dicts,
     )
-    from .step import create_train_state, make_train_step
+    from .stages import apply_trainable_mask
+    from .step import create_train_state, make_draws, make_train_step
 
     cfg = load_config(args.config)
     tc = cfg.train
     max_steps = args.max_steps or tc.train_steps
-    device = _resolve_device(args.device)
-    if tc.fsdp:
-        raise NotImplementedError("train.fsdp belongs to the parallel slice of the port")
-    n_data = tc.n_data_devices or (torch.cuda.device_count() if device.type == "cuda" else 1)
-    if n_data != 1:
-        raise NotImplementedError(
-            f"n_data_devices={n_data}: data parallelism belongs to the parallel slice of the port"
-        )
+    device = init_distributed(_resolve_device(args.device).type, group_of_one=tc.fsdp)
+    n_data = tc.n_data_devices or world_size()
+    # a mesh wherever more than one process or FSDP is asked for; one the
+    # group cannot hold raises
+    mesh = create_mesh(n_data, device_type=device.type) if (
+        n_data > 1 or world_size() > 1 or tc.fsdp) else None
+    group = mesh.get_group(DATA_AXIS) if mesh is not None else None
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     logger = MetricLogger(tc.exp_dir, log_tool=tc.log_tool)
@@ -97,7 +110,8 @@ def main(argv=None) -> None:
     main_process = is_main_process()
     if main_process:
         name = torch.cuda.get_device_name(device) if cuda else "cpu"
-        print(f"device={device} ({name}) stage={tc.stage}", flush=True)
+        print(f"device={device} ({name}) data={n_data} fsdp={tc.fsdp} stage={tc.stage}",
+              flush=True)
 
     model = build_model(cfg, device, training=True)
     model.init_parameters(torch.Generator(device=device).manual_seed(tc.seed))
@@ -110,7 +124,19 @@ def main(argv=None) -> None:
     if main_process:
         print(f"total params: {n_params / 1e6:.1f}M", flush=True)
 
+    units, replicated = [], list(model.parameters())
+    if tc.fsdp:
+        apply_trainable_mask(model, tc.stage)  # FSDP reads requires_grad as it shards
+        replicated = apply_fsdp(model, mesh)
+        units = fsdp_units(model)
     state = create_train_state(model, tc.stage, tc.learning_rate, grad_accum=tc.grad_accum)
+    if mesh is not None:
+        state.sync = GradientSync(replicated, units, group)
+    if tc.fsdp and main_process:
+        trained = [p for g in state.optimizer.param_groups for p in g["params"]]
+        _, total, per_dev = sharded_fraction(model, n_data, moments=trained)
+        print(f"fsdp: state {total / 2**30:.2f} GiB -> {per_dev / 2**30:.2f} GiB/device",
+              flush=True)
     if args.start_step:
         state.step = args.start_step
 
@@ -122,18 +148,20 @@ def main(argv=None) -> None:
         restore_checkpoint(resume_path, state)
         sync()
         read_s = time.perf_counter() - t0
+        sums = state_checksums(state) if (main_process or tc.fsdp) else {}
         if main_process:
             print(f"resumed from {resume_path} at step {state.step}", flush=True)
             logger.log(state.step, {
                 "read_seconds": read_s, "gigabytes": _dir_bytes(resume_path) / 1e9,
-                **{f"restored_{k}": v for k, v in state_checksums(state).items()},
+                **{f"restored_{k}": v for k, v in sums.items()},
             }, prefix="checkpoint/")
 
     spotter_fn = None
     if tc.stage in ("stage2", "stage3"):
         from ..spotter.losses import CriterionConfig
 
-        spotter_fn = model.spotter_loss_fn(criterion_cfg=CriterionConfig(matcher=tc.matcher))
+        spotter_fn = model.spotter_loss_fn(
+            criterion_cfg=CriterionConfig(matcher=tc.matcher), group=group)
     step_fn = make_train_step(
         model, Diffusion(model.schedule, parameterization="v"),
         spotter_loss_fn=spotter_fn, ocr_loss_weight=tc.ocr_loss_weight,
@@ -147,20 +175,31 @@ def main(argv=None) -> None:
         max_inst=cfg.dataset.max_instances, batch_seconds=batch_seconds,
     )
 
+    # a sharded state is gathered by every process, so every process calls
+    # these; only rank 0 writes
     def save(step: int) -> None:
+        if not (main_process or tc.fsdp):
+            return
         sync()
         t0 = time.perf_counter()
-        path = save_checkpoint(ckpt_dir, state, step)
-        logger.log(step, {
-            "write_seconds": time.perf_counter() - t0, "gigabytes": _dir_bytes(path) / 1e9,
-            **{f"saved_{k}": v for k, v in state_checksums(state).items()},
-        }, prefix="checkpoint/")
-        print(f"saved checkpoint {path}", flush=True)
+        path = save_checkpoint(ckpt_dir, state, step, write=main_process)
+        write_s = time.perf_counter() - t0
+        sums = state_checksums(state)
+        if main_process:
+            logger.log(step, {
+                "write_seconds": write_s, "gigabytes": _dir_bytes(path) / 1e9,
+                **{f"saved_{k}": v for k, v in sums.items()},
+            }, prefix="checkpoint/")
+            print(f"saved checkpoint {path}", flush=True)
 
     def export(step: int) -> None:
-        path = os.path.join(tc.exp_dir, f"params_step_{step:08d}.npz")
-        save_params(path, model, dtype=np.float16)
-        print(f"exported weights {path}", flush=True)
+        if not (main_process or tc.fsdp):
+            return
+        model_sd, _ = state_dicts(state)
+        if main_process:
+            path = os.path.join(tc.exp_dir, f"params_step_{step:08d}.npz")
+            save_params(path, model, dtype=np.float16, state_dict=model_sd)
+            print(f"exported weights {path}", flush=True)
 
     loss_acc, t_last = [], time.time()
     val_metric_cache: dict = {}  # NIQE parameters and metrics built, for every validation
@@ -186,12 +225,16 @@ def main(argv=None) -> None:
             generator=torch.Generator(device=device).manual_seed(deg_seed),
         )
         timer.stop()
-        batch = {"gt": gt, "lq": lq, **{
+        # this process's rows of the global batch and of its draws
+        batch = shard_batch(mesh, {"gt": gt, "lq": lq, **{
             k: host_batch[k] for k in ("tokens", "inst_mask", "boxes", "ctrl_points", "texts")
-        }}
+        }})
         step_gen = torch.Generator(device=device).manual_seed(
             stream_seed(tc.seed, _STEP, global_step))
-        state, aux = step_fn(state, batch, generator=step_gen)
+        draws = make_draws(step_gen, gt.shape[0], (gt.shape[1] // 8, gt.shape[2] // 8),
+                           tc.timestep_max or model.schedule.num_timesteps, device,
+                           vae_dtype=compute_dtype(cfg))
+        state, aux = step_fn(state, batch, draws=shard_batch(mesh, draws))
         aux = {k: float(v) for k, v in aux.items()}  # waits for the step
         global_step += 1
         loss_acc.append(aux)
@@ -201,6 +244,12 @@ def main(argv=None) -> None:
             "degrade_ms": timer.ms(), **aux,
             "launches": {k: n for k, n in launch_counts().items() if n},
             "peak_memory_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
+            # what this process holds of the parameters and AdamW's moments
+            **({"state_bytes_here": local_bytes([
+                *model.parameters(),
+                *(t for s in state.optimizer.state.values() for t in s.values()
+                  if torch.is_tensor(t) and t.dim()),
+            ])} if tc.fsdp else {}),
         })
 
         if global_step % tc.log_loss_every == 0:
@@ -211,10 +260,10 @@ def main(argv=None) -> None:
             logger.log(global_step, metrics, prefix="train/")
             loss_acc, t_last = [], time.time()
 
-        if global_step % tc.ckpt_every == 0 and main_process:
+        if global_step % tc.ckpt_every == 0:
             save(global_step)
 
-        if tc.save_params_every and global_step % tc.save_params_every == 0 and main_process:
+        if tc.save_params_every and global_step % tc.save_params_every == 0:
             export(global_step)
 
         if global_step % tc.log_image_every == 0:
@@ -229,12 +278,12 @@ def main(argv=None) -> None:
             )
             logger.log(global_step, val_metrics, prefix="val/")
 
+    # skip the final export when the in-loop one just fired at this step
+    if tc.save_params_every and global_step % tc.save_params_every != 0:
+        export(global_step)
+    if tc.final_checkpoint:
+        save(global_step)
     if main_process:
-        # skip the final export when the in-loop one just fired at this step
-        if tc.save_params_every and global_step % tc.save_params_every != 0:
-            export(global_step)
-        if tc.final_checkpoint:
-            save(global_step)
         print("training done", flush=True)
 
 

@@ -3,7 +3,10 @@
 Counterpart of ``tair_tpu/train/checkpoint.py``. A checkpoint holds the step
 counter, every parameter and buffer of the model and the optimizer's state
 (AdamW's moments and step counts), written with ``torch.save`` under
-``ckpt_dir/step_XXXXXXXX``, so resuming is exact. The weight-only export keeps
+``ckpt_dir/step_XXXXXXXX``, so resuming is exact. A state sharded by FSDP is
+gathered before it is written (every process takes part; one writes), so a
+checkpoint has one layout whatever wrote it: it loads into a single process,
+and a sharded resume keeps each process's shard of it. The weight-only export keeps
 the JAX package's ``.npz`` layout: one array per JAX leaf, keyed by its
 ``/``-joined tree path, in the JAX layout (HWIO kernels, [in, H, D] attention
 projections), so an export of either package loads into the other.
@@ -17,25 +20,39 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel.fsdp import full_state, full_tensor, load_full_state
 from ..weights.convert import from_jax_params, jax_param_shapes, to_jax_params
 
 CHECKPOINT_FILE = "state.pt"
 
 
-def save_checkpoint(ckpt_dir: str, state, step: int) -> str:
+def is_sharded(model: torch.nn.Module) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(p, DTensor) for p in model.parameters())
+
+
+def state_dicts(state):
+    """(model, optimizer) state dicts of `state` in a single process's
+    layout: gathered where FSDP shards them, a collective then."""
+    if is_sharded(state.model):
+        return full_state(state.model, state.optimizer)
+    return state.model.state_dict(), state.optimizer.state_dict()
+
+
+def save_checkpoint(ckpt_dir: str, state, step: int, write: bool = True) -> str:
     """Write `state` (a ``train.step.TrainState``) as the checkpoint of
-    `step`. Saving a step that already has one is a no-op (resume + exit)."""
+    `step`. Saving a step that already has one is a no-op (resume + exit).
+    A sharded state is gathered first, so every process calls; those with
+    `write` false write nothing."""
     path = os.path.abspath(os.path.join(ckpt_dir, f"step_{step:08d}"))
-    if os.path.exists(path):
+    model_sd, opt_sd = state_dicts(state)
+    if not write or os.path.exists(path):
         return path
     tmp = path + ".partial"
     os.makedirs(tmp, exist_ok=True)
     torch.save(
-        {
-            "step": int(state.step),
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-        },
+        {"step": int(state.step), "model": model_sd, "optimizer": opt_sd},
         os.path.join(tmp, CHECKPOINT_FILE),
     )
     os.replace(tmp, path)  # a checkpoint directory is complete or absent
@@ -55,13 +72,17 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 
 def restore_checkpoint(path: str, state):
     """Load the checkpoint at `path` into `state` (model, optimizer, step) in
-    place, onto the model's device; returns `state`."""
+    place, onto the model's device; a sharded state keeps its shard of each
+    tensor. Returns `state`."""
     device = next(state.model.parameters()).device
     data = torch.load(
         os.path.join(path, CHECKPOINT_FILE), map_location=device, weights_only=True
     )
-    state.model.load_state_dict(data["model"], strict=True)
-    state.optimizer.load_state_dict(data["optimizer"])
+    if is_sharded(state.model):
+        load_full_state(state.model, state.optimizer, data["model"], data["optimizer"])
+    else:
+        state.model.load_state_dict(data["model"], strict=True)
+        state.optimizer.load_state_dict(data["optimizer"])
     state.step = int(data["step"])
     return state
 
@@ -69,8 +90,10 @@ def restore_checkpoint(path: str, state):
 def state_checksums(state) -> Dict[str, float]:
     """Float64 sums and sums of squares of the parameters and of AdamW's two
     moments, and the sum of AdamW's step counts: what a restore must
-    reproduce. Tensors are visited in the optimizer's parameter order."""
+    reproduce. Tensors are visited in the optimizer's parameter order; sharded
+    ones are gathered (a collective)."""
     def sums(tensors):
+        tensors = [full_tensor(t) for t in tensors]
         per = torch.stack([
             torch.stack([t.double().sum(), t.double().square().sum()]) for t in tensors
         ]) if tensors else torch.zeros(1, 2, dtype=torch.float64)
@@ -114,10 +137,12 @@ def save_tree(path: str, tree, dtype=None) -> None:
     np.savez(path, **arrays)
 
 
-def save_params(path: str, model: torch.nn.Module, dtype=None) -> None:
+def save_params(path: str, model: torch.nn.Module, dtype=None, state_dict=None) -> None:
     """Weight-only export of `model` in the JAX package's npz layout
-    (`save_tree` of its JAX-layout tree)."""
-    save_tree(path, to_jax_params(model.state_dict(), jax_param_shapes(model)), dtype)
+    (`save_tree` of its JAX-layout tree); `state_dict` in place of the
+    model's own (a gathered one, for a sharded model)."""
+    sd = model.state_dict() if state_dict is None else state_dict
+    save_tree(path, to_jax_params(sd, jax_param_shapes(model)), dtype)
 
 
 def load_params(path: str, model: torch.nn.Module) -> torch.nn.Module:

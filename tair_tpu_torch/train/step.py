@@ -9,8 +9,11 @@ update of the stage's trainable subset.
 Where it departs from the JAX signature: the model owns its parameters, so the
 state holds the model and a ``torch.optim.AdamW`` instead of a parameter tree
 and an optax state; randomness comes from a ``torch.Generator`` or is handed in
-as tensors (``draws``); the mesh and sharding arguments belong to the parallel
-slice. Precision: parameters stay float32 (master weights) and, with
+as tensors (``draws``, `make_draws`); in place of the mesh and sharding
+arguments, a data-parallel state carries a ``parallel.fsdp.GradientSync``,
+and each process steps on its rows of the global batch with its rows of the
+global batch's draws, so n processes compute the one-process step of the
+global batch (the JAX step's global view). Precision: parameters stay float32 (master weights) and, with
 ``compute_dtype=torch.bfloat16``, the forward runs under ``torch.autocast``, so
 matrix products and convolutions compute in bfloat16 while norms, softmax
 statistics and losses stay float32, as the JAX package trains
@@ -25,6 +28,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..diffusion.diffusion import Diffusion
+from ..parallel.fsdp import GradientSync
 from ..pipeline import TeReDiff
 from .stages import apply_trainable_mask
 
@@ -41,6 +45,9 @@ class TrainState:
     model: TeReDiff
     optimizer: torch.optim.Optimizer
     grad_accum: int = 1
+    # data parallelism: the gradient reduction and the mean of the losses
+    # over the processes; None in a single process
+    sync: Optional[GradientSync] = None
 
 
 def make_optimizer(
@@ -72,6 +79,37 @@ def create_train_state(
     return TrainState(step=0, model=model, optimizer=optimizer, grad_accum=grad_accum)
 
 
+def make_draws(
+    generator: torch.Generator,
+    batch_size: int,
+    latent_hw: Tuple[int, int],
+    t_hi: int,
+    device: torch.device,
+    vae_dtype: torch.dtype = torch.float32,
+) -> Dict[str, torch.Tensor]:
+    """The step's three draws for a batch of `batch_size` (the global batch
+    under data parallelism, whose rows each process then takes), in the
+    order JAX's loss function splits its key: ``vae_noise`` [B, h, w, 4] in
+    `vae_dtype`, the dtype of the VAE's moments it is added to (JAX draws it
+    in ``mean.dtype``: the train step's compute dtype under autocast), ``t``
+    [B] in ``[0, t_hi)``, ``noise`` [B, h, w, 4] in float32, the dtype of the
+    latent the port's loss keeps."""
+    shape = (batch_size, *latent_hw, 4)
+    return dict(
+        vae_noise=torch.randn(shape, dtype=vae_dtype, device=device, generator=generator),
+        t=torch.randint(0, t_hi, (batch_size,), device=device, generator=generator),
+        noise=torch.randn(shape, device=device, generator=generator),
+    )
+
+
+def _moments_dtype(model: TeReDiff, device_type: str) -> torch.dtype:
+    """The dtype of the VAE's moments: autocast's where it is on, else the
+    VAE's parameters'."""
+    if torch.is_autocast_enabled(device_type):
+        return torch.get_autocast_dtype(device_type)
+    return next(model.cldm.vae.parameters()).dtype
+
+
 def diffusion_loss_fn(
     model: TeReDiff,
     diffusion: Diffusion,
@@ -87,34 +125,30 @@ def diffusion_loss_fn(
 
     Returns (total_loss, aux dict). timestep_max > 0 restricts t ~ U(0,
     timestep_max). The three random draws (`vae_noise` [B,h,w,4], `t` [B],
-    `noise` [B,h,w,4]) are taken from `draws` where it has them and from
-    `generator` otherwise.
+    `noise` [B,h,w,4]) are `draws`, or else `make_draws` from `generator`.
     """
     if not 0 <= timestep_max <= diffusion.num_timesteps:
         raise ValueError(
             f"timestep_max {timestep_max} lies outside the schedule's "
             f"{diffusion.num_timesteps} steps"
         )
-    draws = draws or {}
-    bsz = batch["gt"].shape[0]
-    dev = batch["gt"].device
+    gt = batch["gt"]
+    if draws is None:
+        t_hi = timestep_max if timestep_max > 0 else diffusion.num_timesteps
+        draws = make_draws(generator, gt.shape[0], (gt.shape[1] // 8, gt.shape[2] // 8),
+                           t_hi, gt.device, _moments_dtype(model, gt.device.type))
+    elif set(draws) != {"vae_noise", "t", "noise"}:
+        raise ValueError(f"draws holds {sorted(draws)}, not vae_noise, t and noise")
 
     with torch.no_grad():  # the frozen parts
         clean = model.clean(batch["lq"])
-        z_0 = model.cldm.vae_encode(
-            batch["gt"], sample=True, noise=draws.get("vae_noise"), generator=generator
-        ).float()
+        z_0 = model.cldm.vae_encode(gt, sample=True, noise=draws["vae_noise"]).float()
         cond = dict(
             c_txt=model.cldm.clip_encode_tokens(batch["tokens"]),
             c_img=model.cldm.vae_encode(clean * 2.0 - 1.0, sample=False).float(),
         )
-    t = draws.get("t")
-    if t is None:
-        t_hi = timestep_max if timestep_max > 0 else diffusion.num_timesteps
-        t = torch.randint(0, t_hi, (bsz,), device=dev, generator=generator)
-
     diff_loss, feats = diffusion.p_losses(
-        model.cldm.apply, z_0, t, cond, noise=draws.get("noise"), generator=generator
+        model.cldm.apply, z_0, draws["t"], cond, noise=draws["noise"]
     )
 
     aux = {"loss_diffusion": diff_loss}
@@ -159,12 +193,20 @@ def make_train_step(
                 timestep_max=timestep_max,
             )
         # gradients add up in .grad: dividing each micro-batch's loss makes
-        # their sum the micro-batch mean
+        # their sum the micro-batch mean; processes reduce only on the update
+        update = (state.step + 1) % state.grad_accum == 0
+        if state.sync is not None:
+            state.sync.before_backward(update)
         (loss / state.grad_accum).backward()
+        if state.sync is not None:
+            state.sync.after_backward(update)
         state.step += 1
-        if state.step % state.grad_accum == 0:
+        if update:
             state.optimizer.step()
             state.optimizer.zero_grad(set_to_none=True)
-        return state, {k: v.detach() for k, v in aux.items()}
+        aux = {k: v.detach() for k, v in aux.items()}
+        if state.sync is not None:
+            aux = state.sync.mean(aux)
+        return state, aux
 
     return step_fn

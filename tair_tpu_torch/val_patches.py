@@ -16,20 +16,25 @@ coordinates. Usage:
 
     python -m tair_tpu_torch.val_patches --config configs/val.yaml
     python -m tair_tpu_torch.val_patches --config configs/val_smoke.yaml --device cpu
+    torchrun --nproc_per_node=N -m tair_tpu_torch.val_patches --config configs/val.yaml
 
 It runs on one CUDA device unless ``--device cpu`` is given, and raises when
-there is none; with more than one card visible it uses the first and says so
-(sharding the patch batch over cards belongs to the parallel slice). Image i
-draws its noise from a ``torch.Generator`` seeded with ``val.seed + i``. Each
-image prints one JSON line to stderr (seconds, patches, kernel launches, peak
-device memory).
+there is none. Under ``torchrun`` (or in a process group its caller made) the
+patch batch is sharded over the processes, one card each, as the JAX script shards it over its chips: the
+batch (``val.chunk``, or all patches) is rounded up to a multiple of the
+process count and padded with zero patches; every process draws the batch's
+noise at the whole batch's shape and restores its rows of it
+(`ShardedRestore`), and rank 0 gathers the rows, merges and writes, so the
+result is one process's at that batch. Image i draws its noise from a
+``torch.Generator`` seeded with ``val.seed + i``. Each image prints one JSON
+line to stderr from rank 0 (seconds, patches, kernel launches, peak device
+memory).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import sys
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -60,14 +65,16 @@ def main(argv=None) -> None:
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from .config import load_config
     from .data.resize import resize
     from .models.prompt_splice import empty_tokens
+    from .parallel.mesh import create_mesh, init_distributed, world_size
     from .pipeline import _resolve_device
     from .tiling import restore_tiled, split_grid
     from .utils.image_io import list_images, load_image, save_image
-    from .utils.logging import MetricLogger
+    from .utils.logging import MetricLogger, is_main_process
     from .utils.metrics import psnr, ssim
     from .val import ImageReport, load_model
 
@@ -78,38 +85,48 @@ def main(argv=None) -> None:
     dump_spots = bool(args.dump_dir)
     if dump_spots and not vc.tiled_ocr_loop:
         raise SystemExit("--dump-dir needs the spotter in the loop: set val.tiled_ocr_loop")
-    device = _resolve_device(args.device)
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
-        device = torch.device("cuda:0")
-        print(f"{torch.cuda.device_count()} cards visible: the patch batch runs on cuda:0 "
-              "(sharding it belongs to the parallel slice)", file=sys.stderr, flush=True)
+    device = init_distributed(_resolve_device(args.device).type)
+    # a group (torchrun's, or one the caller made) shards the patch batch
+    mesh = create_mesh(device_type=device.type) if dist.is_initialized() else None
+    main_process = is_main_process()
     steps = args.steps or vc.steps
     os.makedirs(vc.output_dir, exist_ok=True)
     logger = MetricLogger(vc.output_dir, "val_patches_metrics.jsonl")
     model = load_model(cfg, device, args.ckpt)
 
-    def restore_batch(lq_batch, generator):
+    def restore_batch(lq_batch, generator, x_T=None, step_noises=None):
         if vc.tiled_ocr_loop:
             restored, _, spots = model.restore_fused_feedback(
                 lq_batch, generator, steps=steps, score_threshold=vc.score_threshold,
                 spotter_every=args.spotter_every, return_spots=True,
+                x_T=x_T, step_noises=step_noises,
             )
         else:
             toks = torch.from_numpy(empty_tokens(lq_batch.shape[0])).to(device).long()
-            restored, _, _ = model.restore(lq_batch, toks, generator, steps=steps)
+            restored, _, _ = model.restore(
+                lq_batch, toks, generator, steps=steps, x_T=x_T, step_noises=step_noises
+            )
             spots = None
         return (restored, spots) if dump_spots else restored
+
+    if mesh is not None:
+        restore_batch = ShardedRestore(
+            restore_batch, mesh, model.sampler().make_schedule(steps).num_steps, dump_spots
+        )
 
     all_preds = []
     for i, name in enumerate(list_images(vc.lq_dir)):
         lq = load_image(os.path.join(vc.lq_dir, name))
         n_h, n_w, _, _ = split_grid(lq.shape[0], lq.shape[1], vc.patch_size, vc.overlap)
+        chunk = vc.chunk
+        if mesh is not None:  # a batch that splits evenly over the processes
+            chunk = -(-(chunk or n_h * n_w) // world_size()) * world_size()
         report = ImageReport(device)
         out = restore_tiled(
             restore_batch, torch.from_numpy(lq).to(device),
             torch.Generator(device=device).manual_seed(vc.seed + i),
             patch=vc.patch_size, overlap=vc.overlap, out_scale=vc.out_scale,
-            chunk=vc.chunk, return_aux=dump_spots,
+            chunk=chunk, return_aux=dump_spots,
         )
         if dump_spots:
             out, spots = out
@@ -119,7 +136,9 @@ def main(argv=None) -> None:
                 vc.overlap, vc.out_scale, out_hw,
             ))
         out = out.cpu()
-        report.emit(image=name, patches=n_h * n_w, chunk=vc.chunk, steps=steps)
+        if not main_process:
+            continue
+        report.emit(image=name, patches=n_h * n_w, chunk=chunk, steps=steps)
         stem = os.path.splitext(name)[0]
         save_image(os.path.join(vc.output_dir, f"restored_{stem}.png"), out.numpy())
 
@@ -131,6 +150,8 @@ def main(argv=None) -> None:
             metrics["ssim"] = float(ssim(out[None], gt)[0])
         logger.log(i, metrics)
 
+    if not main_process:
+        return
     if dump_spots:
         from .utils.submission import dump_submission
 
@@ -141,6 +162,58 @@ def main(argv=None) -> None:
         print(f"submission bundle: {paths}")
 
     print(f"wrote results to {vc.output_dir}")
+
+
+class ShardedRestore:
+    """A patch-batch restore (`restore_batch(lq_batch, generator, x_T,
+    step_noises)`) sharded over `mesh`'s data axis: the batch's noise is
+    drawn on every process at the whole batch's shape, in the order one
+    process draws it (the start `x_T`, then one noise per step but the
+    last), each process restores its rows ``[r·B, (r+1)·B)`` with its rows
+    of the noise, and the rows are gathered on every process."""
+
+    def __init__(self, restore_batch, mesh, total_steps: int, with_aux: bool):
+        self.restore_batch = restore_batch
+        self.mesh = mesh
+        self.total = total_steps
+        self.with_aux = with_aux
+
+    def __call__(self, lq_batch, generator):
+        import torch
+
+        from .parallel.mesh import DATA_AXIS, local_rows
+
+        b, h, w, _ = lq_batch.shape
+        shape = (b, h // 8, w // 8, 4)
+
+        def draw():
+            return torch.randn(shape, dtype=torch.float32, device=lq_batch.device,
+                               generator=generator)
+
+        x_T = draw()
+        noises = [draw() for _ in range(self.total - 1)]
+        noises.append(torch.zeros_like(x_T))  # the last step adds no noise
+        rows = local_rows(b, self.mesh)
+        out = self.restore_batch(
+            lq_batch[rows], generator, x_T=x_T[rows], step_noises=[n[rows] for n in noises]
+        )
+        group = self.mesh.get_group(DATA_AXIS)
+        if not self.with_aux:
+            return _gather_rows(out, group)
+        restored, aux = out
+        return _gather_rows(restored, group), {k: _gather_rows(v, group) for k, v in aux.items()}
+
+
+def _gather_rows(x, group):
+    """The processes' row blocks of `x`, in rank order, on every process."""
+    import torch
+    import torch.distributed as dist
+
+    if x.dtype == torch.bool:  # gloo moves no booleans
+        return _gather_rows(x.to(torch.uint8), group).bool()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, 0)
 
 
 def _spots_to_image_preds(spots, n_w, patch, overlap, out_scale, canvas_hw, iou_dedup=0.5):

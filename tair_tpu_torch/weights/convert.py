@@ -270,12 +270,11 @@ def _jax_module_path(path: str) -> Tuple[str, ...]:
     return tuple(out)
 
 
-def _shapes_of(model: torch.nn.Module, tops) -> Dict[str, Any]:
-    """{top: JAX tree of `LeafShape`s} of `model`'s parameters, each under the
-    first (top, prefix) of `tops` whose prefix (``""`` for the whole model)
-    starts its name."""
+def _jax_leaves(model: torch.nn.Module, tops) -> Iterator[Tuple[str, str, Tuple[str, ...], Tuple[int, ...]]]:
+    """(parameter name, top, JAX path below the top, JAX shape) of each of
+    `model`'s parameters, under the first (top, prefix) of `tops` whose prefix
+    (``""`` for the whole model) starts its name."""
     modules = dict(model.named_modules())
-    tree: Dict[str, Any] = {}
     for name, value in model.named_parameters():
         top, prefix = next(
             (t, p) for t, p in tops if not p or name.startswith(p + ".")
@@ -291,11 +290,44 @@ def _shapes_of(model: torch.nn.Module, tops) -> Dict[str, Any]:
         back, _ = _convert_leaf(path, np.empty(shape, np.float32))
         if back != rel:
             raise ValueError(f"{name} maps to JAX {'/'.join(path)}, which maps back to {back}")
+        yield name, top, path, shape
+
+
+def _shapes_of(model: torch.nn.Module, tops) -> Dict[str, Any]:
+    """{top: JAX tree of `LeafShape`s} of `model`'s parameters (`_jax_leaves`)."""
+    tree: Dict[str, Any] = {}
+    for _, top, path, shape in _jax_leaves(model, tops):
         node = tree.setdefault(top, {})
         for part in path[:-1]:
             node = node.setdefault(part, {})
         node[path[-1]] = LeafShape(shape)
     return tree
+
+
+def jax_leaves(model: torch.nn.Module) -> Iterator[Tuple[str, Tuple[str, ...], Tuple[int, ...]]]:
+    """(parameter name, JAX path from the bundle's top, JAX shape) of each
+    parameter of the port's `TeReDiff`: the leaves of `jax_param_shapes`."""
+    for name, top, path, shape in _jax_leaves(
+        model, [(top, _PREFIX[top]) for top in BUNDLE_KEYS]
+    ):
+        yield name, (top,) + path, shape
+
+
+def torch_axes(path: Tuple[str, ...], ndim: int) -> Tuple[int, ...]:
+    """For each axis of the JAX leaf at `path` (of rank `ndim`), the axis of
+    the port's parameter that holds it: `_convert_leaf`'s transposes and
+    folds, read off a probe array (two JAX axes folded into one land on the
+    same axis)."""
+    probe = np.arange(int(np.prod(range(2, 2 + ndim)))).reshape(tuple(range(2, 2 + ndim)))
+    _, value = _convert_leaf(path, probe)
+    coords = np.unravel_index(value, probe.shape)
+    axes = []
+    for c in coords:
+        moving = [d for d in range(value.ndim) if (np.diff(c, axis=d) != 0).any()]
+        if len(moving) != 1:
+            raise ValueError(f"JAX leaf {'/'.join(path)}: an axis spreads over {moving}")
+        axes.append(moving[0])
+    return tuple(axes)
 
 
 def jax_param_shapes(model: torch.nn.Module) -> Dict[str, Any]:

@@ -30,8 +30,8 @@ from tair_tpu.utils.clipiqa import CLIP_MEAN, CLIP_STD
 from tair_tpu_torch.weights import convert as tc
 from tair_tpu_torch.weights import export as tx
 from test_torch_common import (  # noqa: F401
-    assert_trees_equal, jax_shapes, noise_params, positive_variances, save_checkpoint, t2n,
-    torch_single_thread,
+    assert_trees_equal, jax_fast_compiles, jax_shapes, noise_params, positive_variances,
+    save_checkpoint, t2n, torch_single_thread,
 )
 
 WIDTH, LAYERS, EMBED, IMG = 8, (1, 1, 1, 1), 16, 64

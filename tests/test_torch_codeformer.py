@@ -18,7 +18,7 @@ import jax
 import jax.numpy as jnp
 from tair_tpu.data import codeformer as jc
 from tair_tpu_torch.data import codeformer as tcf
-from test_torch_common import t2n, torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, t2n, torch_single_thread  # noqa: F401
 
 TOL = 1e-5
 SIZE = 32

@@ -9,6 +9,7 @@ keeps an init value of zero or a constant (zero convs, ``proj_out``,
 The port loads the tree through ``weights.convert`` with ``strict=True``.
 """
 
+import contextlib
 import functools
 
 import jax
@@ -30,6 +31,30 @@ def torch_single_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_fast_compiles():
+    """Import this fixture into a test module whose JAX references cost more
+    to compile than to run: they compile without XLA's costly passes for that
+    module's tests (`jax_compiles_fast`)."""
+    with jax_compiles_fast():
+        yield
+
+
+@contextlib.contextmanager
+def jax_compiles_fast():
+    """JAX programs compiled without XLA's costly optimisation passes
+    (``jax_disable_most_optimizations``): the same float32 program, most of
+    whose cost at the tests' tiny shapes is its compilation. JAX's caches are
+    cleared after, so no program compiled so stays in them."""
+    before = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", before)
+        jax.clear_caches()
 
 
 def noise_params(shapes, seed: int):

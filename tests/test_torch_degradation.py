@@ -17,7 +17,7 @@ from tair_tpu_torch.data import batch_transform as torch_bt
 from tair_tpu_torch.data import degradation as torch_deg
 from tair_tpu_torch.data import diffjpeg as torch_jpeg
 from tair_tpu_torch.data import resize as torch_resize
-from test_torch_common import t2n, torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, t2n, torch_single_thread  # noqa: F401
 
 TOL = 1e-5  # float32 on both sides; summation order only
 

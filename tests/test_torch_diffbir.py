@@ -34,7 +34,8 @@ from tair_tpu_torch.tiling import gaussian_window, make_tiled_fn
 from tair_tpu_torch.utils import guidance as tg
 from tair_tpu_torch.utils import tilevae as tt
 from test_torch_common import (  # noqa: F401
-    jax_shapes, load_module, noise_params, t2n, tiny_pair, torch_single_thread,
+    jax_fast_compiles, jax_shapes, load_module, noise_params, t2n, tiny_pair,
+    torch_single_thread,
 )
 
 PARTS = ("unet", "controlnet", "vae", "clip", "swinir")

@@ -12,7 +12,7 @@ from tair_tpu.diffusion import Diffusion as JaxDiffusion
 from tair_tpu.diffusion.schedules import DiffusionSchedule as JaxSchedule
 from tair_tpu_torch.diffusion.diffusion import Diffusion
 from tair_tpu_torch.diffusion.schedules import DiffusionSchedule
-from test_torch_common import torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, torch_single_thread  # noqa: F401
 
 TOL = 1e-6  # float32 elementwise arithmetic on float32 buffers of one float64 schedule
 KW = dict(timesteps=1000, beta_schedule="linear", linear_start=0.00085,

@@ -19,7 +19,7 @@ import torch
 import jax.numpy as jnp
 from tair_tpu.utils import face as jf
 from tair_tpu_torch.utils import face as tf
-from test_torch_common import t2n, torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, t2n, torch_single_thread  # noqa: F401
 
 WARP_TOL = 1e-6
 HELPER_TOL = 1e-5

@@ -15,7 +15,7 @@ from tair_tpu.ops.attention import einsum_sdpa as jax_einsum_sdpa
 from tair_tpu.ops.flash_attention import _flash_attention_fwd
 from tair_tpu_torch.ops import flash_attention as fa
 from tair_tpu_torch.ops.attention import einsum_sdpa, sdpa
-from test_torch_common import torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, torch_single_thread  # noqa: F401
 
 # float32 on both sides; only the summation order differs
 TOL = 1e-5

@@ -13,7 +13,7 @@ import torch
 
 from tair_tpu.ops.flash_attention import flash_attention as jax_flash
 from tair_tpu_torch.ops import flash_attention as fa
-from test_torch_common import torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, torch_single_thread  # noqa: F401
 
 # float32 on both sides; only the summation order differs
 TOL = 2e-5

@@ -93,6 +93,9 @@ MODULES = [
     "tair_tpu_torch.models.ram",
     "tair_tpu_torch.utils.caption",
     "tair_tpu_torch.utils.device_constants",
+    "tair_tpu_torch.parallel",
+    "tair_tpu_torch.parallel.mesh",
+    "tair_tpu_torch.parallel.fsdp",
 ]
 
 ENTRY_POINTS = ["tair_tpu_torch.val", "tair_tpu_torch.val_patches", "tair_tpu_torch.spotter_eval"]

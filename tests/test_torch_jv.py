@@ -21,7 +21,7 @@ import torch
 from tair_tpu.spotter import matcher as jm
 from tair_tpu_torch.spotter import losses as tl
 from tair_tpu_torch.spotter import matcher as tm
-from test_torch_common import torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, torch_single_thread  # noqa: F401
 from test_torch_losses import _case, _tree
 
 PAIRS = [(8, 8), (20, 7), (100, 16), (5, 1), (3, 5), (8, 32), (100, 128), (1, 4), (100, 32)]

@@ -11,7 +11,7 @@ import torch
 
 from tair_tpu.spotter import losses as jl
 from tair_tpu_torch.spotter import losses as tl
-from test_torch_common import torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, torch_single_thread  # noqa: F401
 
 N_PTS, N_CHARS, VOC = 16, 25, 97
 

@@ -11,7 +11,7 @@ import torch
 
 from tair_tpu.spotter import matcher as jm
 from tair_tpu_torch.spotter import matcher as tm
-from test_torch_common import torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, torch_single_thread  # noqa: F401
 
 TOL = 1e-5  # float32 elementwise arithmetic
 

@@ -17,7 +17,9 @@ from tair_tpu_torch.spotter.ms_deform_attn import (
     ms_deform_attn_core_flatlanes,
     patchify_value,
 )
-from test_torch_common import jax_shapes, load_module, noise_params, torch_single_thread  # noqa: F401
+from test_torch_common import (  # noqa: F401
+    jax_fast_compiles, jax_shapes, load_module, noise_params, torch_single_thread,
+)
 
 TOL = 1e-4  # float32; gathers are exact, sums differ in order
 SHAPES = ((6, 5), (3, 4), (2, 2), (1, 3))

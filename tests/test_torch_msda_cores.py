@@ -22,7 +22,7 @@ import torch
 from tair_tpu.ops.patchify import patchify_value_pallas
 from tair_tpu.spotter import ms_deform_attn as J
 from tair_tpu_torch.spotter import ms_deform_attn as T
-from test_torch_common import torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, torch_single_thread  # noqa: F401
 
 FWD_TOL = 1e-5   # float32 on both sides; gathers are exact, sums differ in order
 GRAD_TOL = 1e-4  # scatter-adds of up to Q*P rows, in another order

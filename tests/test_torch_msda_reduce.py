@@ -8,7 +8,7 @@ import torch
 
 from tair_tpu.ops.msda_reduce import msda_corner_reduce as jax_reduce
 from tair_tpu_torch.ops import msda_reduce as mr
-from test_torch_common import torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, torch_single_thread  # noqa: F401
 
 TOL = 1e-5  # float32 on both sides; summation order only
 

@@ -32,7 +32,8 @@ from tair_tpu_torch.weights import convert as tc
 from tair_tpu_torch.weights import export as tx
 from tair_tpu_torch.weights import musiq_shim as tshim
 from test_torch_common import (  # noqa: F401
-    assert_trees_equal, jax_shapes, noise_params, save_checkpoint, t2n, torch_single_thread,
+    assert_trees_equal, jax_fast_compiles, jax_shapes, noise_params, save_checkpoint, t2n,
+    torch_single_thread,
 )
 
 ATOL = 1e-5

@@ -19,7 +19,7 @@ from tair_tpu.ops.patchify import patchify_value_pallas
 from tair_tpu.spotter import ms_deform_attn as jmsda
 from tair_tpu_torch.ops import patchify as tp
 from tair_tpu_torch.spotter.ms_deform_attn import patchify_value_conv, patchify_value_roll
-from test_torch_common import torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, torch_single_thread  # noqa: F401
 
 # a 1-pixel-wide level among ordinary ones; the Pallas kernel cannot shift a
 # level that is one pixel HIGH, so those are held against the concat packing

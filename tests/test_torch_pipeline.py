@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import t2n, tiny_pair, torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, t2n, tiny_pair, torch_single_thread  # noqa: F401
 
 STEPS = 3
 

@@ -12,7 +12,7 @@ from tair_tpu.models.prompt_splice import splice_tag_prompt as jax_splice
 from tair_tpu.models.tokenizer import empty_tokens as jax_empty_tokens
 from tair_tpu.spotter.charset import PAD_ID, encode_text
 from tair_tpu_torch.models import prompt_splice as ps
-from test_torch_common import torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, torch_single_thread  # noqa: F401
 
 
 def test_constant_tables_equal_the_tokenizer():

@@ -26,7 +26,8 @@ from tair_tpu_torch.utils import caption as tcap
 from tair_tpu_torch.weights import convert as tc
 from tair_tpu_torch.weights import export as tx
 from test_torch_common import (  # noqa: F401
-    assert_trees_equal, noise_params, save_checkpoint, t2n, torch_single_thread,
+    assert_trees_equal, jax_fast_compiles, noise_params, save_checkpoint, t2n,
+    torch_single_thread,
 )
 
 TOL = 1e-5

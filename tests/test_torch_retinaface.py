@@ -27,8 +27,8 @@ from tair_tpu_torch.utils import retinaface as tr
 from tair_tpu_torch.weights import convert as tc
 from tair_tpu_torch.weights import export as tx
 from test_torch_common import (  # noqa: F401
-    assert_trees_equal, noise_params, positive_variances, save_checkpoint, t2n,
-    torch_single_thread,
+    assert_trees_equal, jax_fast_compiles, noise_params, positive_variances, save_checkpoint,
+    t2n, torch_single_thread,
 )
 
 REL_TOL = 1e-5

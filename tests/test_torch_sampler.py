@@ -11,7 +11,7 @@ from tair_tpu.diffusion import schedules as js
 from tair_tpu.sampler.spaced import SpacedSampler as JaxSampler
 from tair_tpu_torch.diffusion import schedules as ts
 from tair_tpu_torch.sampler.spaced import SpacedSampler
-from test_torch_common import torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, torch_single_thread  # noqa: F401
 
 BUFFERS = (
     "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod", "sqrt_recip_alphas_cumprod",

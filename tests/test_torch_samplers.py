@@ -22,7 +22,7 @@ from tair_tpu_torch.sampler import ddim as t_ddim
 from tair_tpu_torch.sampler import dpm as t_dpm
 from tair_tpu_torch.sampler import edm as t_edm
 from tair_tpu_torch.sampler.spaced import SpacedSampler as TSpaced
-from test_torch_common import torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, torch_single_thread  # noqa: F401
 
 SHAPE = (2, 4, 4, 3)
 STEPS = 4

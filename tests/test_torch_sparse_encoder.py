@@ -36,7 +36,9 @@ from tair_tpu_torch.spotter.transformer import (
 )
 from tair_tpu_torch.weights.convert import convert_tree, module_param_shapes
 from test_spotter import TINY
-from test_torch_common import jax_shapes, noise_params, t2n, torch_single_thread  # noqa: F401
+from test_torch_common import (  # noqa: F401
+    jax_fast_compiles, jax_shapes, noise_params, t2n, torch_single_thread,
+)
 from test_torch_spotter import TOL
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -10,7 +10,7 @@ import torch
 
 from tair_tpu.spotter.testr import spotter_inference as jax_inference
 from tair_tpu_torch.spotter.testr import spotter_inference
-from test_torch_common import t2n, tiny_pair, torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, t2n, tiny_pair, torch_single_thread  # noqa: F401
 
 TOL = 1e-4  # float32 on both sides; summation order only
 

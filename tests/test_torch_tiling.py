@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, torch_single_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TILED_TOL = 1e-5

@@ -17,7 +17,7 @@ import torch
 
 from tair_tpu.sampler.spaced import SpacedSampler as JaxSampler
 from tair_tpu_torch.sampler.spaced import SpacedSampler
-from test_torch_common import t2n, torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, t2n, torch_single_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SMOKE = ROOT / "configs" / "train_smoke.yaml"

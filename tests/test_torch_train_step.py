@@ -26,7 +26,7 @@ from tair_tpu_torch.diffusion.diffusion import Diffusion
 from tair_tpu_torch.train import step as tstep
 from tair_tpu_torch.train.stages import count_trainable, trainable_mask
 from tair_tpu_torch.weights.convert import from_jax_params, to_jax_params
-from test_torch_common import tiny_pair, torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, tiny_pair, torch_single_thread  # noqa: F401
 
 LR = 1e-4
 OCR_WEIGHT = 0.01
@@ -304,3 +304,36 @@ def test_timestep_max_beyond_the_schedule_raises(setup):
     _, _, tm, batch, _ = setup
     with pytest.raises(ValueError, match="timestep_max"):
         tstep.diffusion_loss_fn(tm, Diffusion(tm.schedule), _torch_batch(batch), timestep_max=1001)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_generator_draws_through_make_draws_in_the_moments_dtype(setup, dtype, monkeypatch):
+    """Without `draws`, the loss draws `make_draws` from its generator, with
+    ``vae_noise`` in the dtype of the VAE's moments, as JAX draws it in
+    ``mean.dtype``: bfloat16 under autocast."""
+    _, _, tm, batch, _ = setup
+    seen = {}
+    encode_moments, vae_encode = tm.cldm.vae.encode_moments, tm.cldm.vae_encode
+
+    def moments(x):
+        mean, logvar = encode_moments(x)
+        seen.setdefault("mean", mean.dtype)
+        return mean, logvar
+
+    def encode(image, sample=True, generator=None, noise=None):
+        if sample:
+            seen["vae_noise"] = noise.dtype
+        return vae_encode(image, sample=sample, generator=generator, noise=noise)
+
+    monkeypatch.setattr(tm.cldm.vae, "encode_moments", moments)
+    monkeypatch.setattr(tm.cldm, "vae_encode", encode)
+    b, diffusion = _torch_batch(batch), Diffusion(tm.schedule)
+    with torch.no_grad(), torch.autocast("cpu", dtype=dtype, enabled=dtype != torch.float32):
+        drawn = tstep.diffusion_loss_fn(tm, diffusion, b, generator=torch.Generator().manual_seed(5))
+        given = tstep.diffusion_loss_fn(tm, diffusion, b, draws=tstep.make_draws(
+            torch.Generator().manual_seed(5), B, (HW // 8, HW // 8),
+            tm.schedule.num_timesteps, torch.device("cpu"), vae_dtype=dtype))
+    assert seen == {"mean": dtype, "vae_noise": dtype}
+    assert torch.equal(drawn[0], given[0])
+    with pytest.raises(ValueError, match="draws"):
+        tstep.diffusion_loss_fn(tm, diffusion, b, draws={"t": torch.zeros(B, dtype=torch.long)})

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import t2n, tiny_pair, torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, t2n, tiny_pair, torch_single_thread  # noqa: F401
 
 TOL = 1e-4  # float32 on both sides, small widths; summation order only
 

@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from tair_tpu.models.vae import AutoencoderKL as JaxVAE
-from test_torch_common import t2n, tiny_pair, torch_single_thread  # noqa: F401
+from test_torch_common import jax_fast_compiles, t2n, tiny_pair, torch_single_thread  # noqa: F401
 
 TOL = 1e-4  # float32 on both sides; summation order only
 

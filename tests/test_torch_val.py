@@ -27,7 +27,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import iqa_checkpoints, t2n, tiny_pair, torch_single_thread  # noqa: F401
+from test_torch_common import (  # noqa: F401
+    iqa_checkpoints, jax_fast_compiles, t2n, tiny_pair, torch_single_thread,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 STEPS = 3
