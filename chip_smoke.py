@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout and holds each of the
-ten model kernels (flash attention forward, dQ and dK/dV on the tensor cores for
-bfloat16, the forward at D <= 128 and at the autoencoder's D = 512, and on FMA
-for float32; msda corner reduce forward, backward; the msda patchify kernel)
+twelve model kernels (flash attention forward, dQ and dK/dV on the tensor cores
+for bfloat16, at D <= 128 and at the autoencoder's D = 512, and on FMA for
+float32; msda corner reduce forward, backward; the msda patchify kernel)
 against its plain PyTorch version at every shape the main paths give it, with
 its time beside its bound (each tensor-core kernel timed in turns with the FMA
 kernel it replaces, the patchify kernel's band design with its first design,
@@ -35,6 +35,13 @@ through its kernels:
             against their plain versions at every quantized site shape of a
             step (phase quant); phase restore also times one spotter pass
             with the proposals picked by the stable sort and by torch.topk;
+            and the same request with the parameters sharded by
+            ``parallel.tp.shard_params_tp`` and the spotter encoder
+            sequence-parallel, in a NCCL group of one, bit for bit the
+            unsharded request's (phase tp_sp);
+  gradient  the autoencoder's decoder differentiated with respect to the
+            latent at 512 x 512, bfloat16 and float32, through the D = 512
+            backward kernels (phase vae_grad);
   weights   the released checkpoints' path: the seeded full-width model
             exported under the reference's names (SD-2.1 bundle, ControlNet,
             SwinIR, TESTR), ``python -m tair_tpu_torch.convert_weights``, the
@@ -236,17 +243,20 @@ PROBE_REPS = 2        # timed repetitions per setting of the probes' own runs
 SERVE_STEPS = 4
 
 PHASES = ("kernels", "probes", "reference", "restore", "restore_flatpatch", "layers",
-          "enc_topk", "quant", "matcher", "diffbir", "ckpt", "train_reference", "train",
+          "enc_topk", "tp_sp", "vae_grad", "quant", "matcher", "diffbir", "ckpt", "train_reference", "train",
           "train_scale", "iqa", "train_entry", "val", "val_patches", "spotter_eval", "face", "ram")
 # the paths on which the serving entry points run K1 and K3
 ENTRY_PHASES = ("val", "val_patches", "spotter_eval")
 
 
 LOG_PATH = None  # --log: every phase line is appended there as well
+STARTED = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    line = json.dumps({"phase": phase, **fields})
+    """One JSON line; `at_seconds` is the script's wall time when it is printed."""
+    line = json.dumps({"phase": phase, **fields,
+                       "at_seconds": round(time.perf_counter() - STARTED, 1)})
     print(line, flush=True)
     if LOG_PATH is not None:
         with open(LOG_PATH, "a") as f:
@@ -458,7 +468,35 @@ FLASH_KERNEL_NAMES = {
     "fwd_tc_wide": ("flash_fwd_wide_tc_kernel",), "dq": ("flash_dq_kernel",),
     "dq_tc": ("flash_dq_tc_kernel",), "dkv": ("flash_dkv_kernel",),
     "dkv_tc": ("flash_dkv_tc_kernel", "sum_partials_kernel"),
+    "dq_tc_wide": ("flash_dq_wide_tc_kernel",), "dkv_tc_wide": ("flash_dkv_wide_tc_kernel",),
 }
+
+
+def flash_kernel_names(which: str, d: int) -> tuple:
+    """`FLASH_KERNEL_NAMES` of a launch at head width d: the FMA backward's
+    kernels at D = 512 are its wide ones."""
+    if which in ("dq", "dkv") and d == 512:
+        return (f"flash_{which}_wide_kernel",)
+    return FLASH_KERNEL_NAMES[which]
+
+
+def sdpa_backend(q, k, v, do) -> dict:
+    """Which of PyTorch's fused attentions `scaled_dot_product_attention`
+    took for the forward and backward of these [B, H, T, D] leaves: the
+    profiler's kernel names of one call, by device time."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(F.scaled_dot_product_attention(q, k, v), (q, k, v), do)
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.device_time_total) for e in prof.key_averages()
+                   if e.device_time_total > 0), key=lambda r: -r[1])
+    names = " ".join(n.lower() for n, _ in rows)
+    backend = ("flash" if "flash" in names else "cudnn" if "cudnn" in names
+               else "efficient" if ("fmha" in names or "efficient" in names or "mem_eff" in names)
+               else "math")
+    return dict(backend=backend, kernels=[n[:80] for n, _ in rows[:4]])
 
 
 def check_flash(rng: np.random.Generator, smi: str, steps: int) -> list:
@@ -632,21 +670,25 @@ def check_msda(rng: np.random.Generator, smi: str, steps: int) -> list:
     ]
 
 
+# the D = 512 shapes of the backward: phase vae_grad's, and a ragged one
+FLASH_BWD_WIDE_SHAPES = ("vae_mid", "vae_ragged_strided")
+
+
 def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
-    """dQ and dK/dV kernels at the forward's shapes (all but the autoencoder's
-    D=512, which is never differentiated), against the plain backward: the
-    tensor-core dQ and dK/dV in bfloat16 with the FMA kernels beside them
-    (checked too, timed in turns with them), the FMA kernels in float32. Each
-    time stands beside its bound, the plain backward and autograd through
-    PyTorch's fused attention (one call gives all three gradients, so that time
-    stands beside the kernels' sum)."""
+    """dQ and dK/dV kernels at the forward's shapes (the autoencoder's D = 512
+    included), against the plain backward: the tensor-core dQ and dK/dV in
+    bfloat16 (D <= 128 and D = 512) with the FMA kernels beside them (checked
+    too, timed in turns with them), the FMA kernels in float32. Each time
+    stands beside its bound, the plain backward and autograd through PyTorch's
+    fused attention (one call gives all three gradients, so that time stands
+    beside the kernels' sum), with the backend PyTorch took."""
     import torch.nn.functional as F
 
     from tair_tpu_torch.ops import flash_attention as fa
 
     rows = []
     for name, b, tq, tk, h, d, per_step, _ in K1_SHAPES:
-        if d not in fa.BWD_HEAD_DIMS:
+        if d not in fa.HEAD_DIMS or (d == 512 and name not in FLASH_BWD_WIDE_SHAPES):
             continue
         extra = 1 if name.endswith("_strided") else 0
         arrays = [
@@ -706,7 +748,7 @@ def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
             prod = 2.0 * tq * tk * d * h * b                              # one product
             kernels = {
                 which: (lambda which=which: fa._launch_backward_kernel(
-                    which, q, k, v, do, lse, delta, scale), FLASH_KERNEL_NAMES[which])
+                    which, q, k, v, do, lse, delta, scale), flash_kernel_names(which, d))
                 for which in dict.fromkeys((*mine.values(), "dq", "dkv"))
             }
             times = {}
@@ -725,11 +767,13 @@ def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
             library_ms = time_ms(
                 lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
             )
+            library = sdpa_backend(qt, kt, vt, dot)
             del lib_out, qt, kt, vt
             common = dict(
                 shape=name, batch=b, tq=tq, tk=tk, heads=h, d=d,
                 dtype=str(dtype).split(".")[-1], calls_per_train_step=per_step,
                 plain_ms_dq_and_dkv=plain_ms, library_ms_dq_and_dkv=library_ms,
+                library_backend=library["backend"], library_kernels=library["kernels"],
             )
             out_bytes = {"dq": tq * d * h * b, "dkv": 2 * tk * d * h * b}
             for kind, which in mine.items():
@@ -742,20 +786,27 @@ def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
                         "fma_held": held[kind]} if which != kind else {}),
                     **({"query_split": fa.dkv_query_split(b, h, tq, tk)}
                        if which == "dkv_tc" else {}),
+                    max_abs_err=max(g["max_abs_err"] for g in held[which].values()),
                     **bound_of((3 if kind == "dq" else 4) * prod,
                                qkv_bytes + stats_bytes + out_bytes[kind] * q.element_size(),
                                dtype),
                 ))
     entries = []
-    for which, site, file, head_dtype, paths in (
-        ("dq_tc", 229, "flash_attention_dq_tc.cu", "bfloat16", ("train",)),
-        ("dkv_tc", 245, "flash_attention_dkv_tc.cu", "bfloat16", ("train",)),
-        ("dq", 229, "flash_attention_bwd.cu", "float32", ("train_reference",)),
-        ("dkv", 245, "flash_attention_bwd.cu", "float32", ("train_reference",)),
+    for which, site, file, head_dtype, head_shape, paths in (
+        ("dq_tc", 229, "flash_attention_dq_tc.cu", "bfloat16", "unet_self_64", ("train",)),
+        ("dkv_tc", 245, "flash_attention_dkv_tc.cu", "bfloat16", "unet_self_64", ("train",)),
+        ("dq_tc_wide", 229, "flash_attention_wide_bwd_tc.cu", "bfloat16", "vae_mid",
+         ("vae_grad",)),
+        ("dkv_tc_wide", 245, "flash_attention_wide_bwd_tc.cu", "bfloat16", "vae_mid",
+         ("vae_grad",)),
+        ("dq", 229, "flash_attention_bwd.cu", "float32", "unet_self_64",
+         ("train_reference", "vae_grad")),
+        ("dkv", 245, "flash_attention_bwd.cu", "float32", "unet_self_64",
+         ("train_reference", "vae_grad")),
     ):
         mine = [r for r in rows if r["kernel"] == which]
-        head = next(r for r in mine if r["shape"] == "unet_self_64" and r["dtype"] == head_dtype)
-        tc = which.endswith("_tc")  # the FMA kernels run only in float32
+        head = next(r for r in mine if r["shape"] == head_shape and r["dtype"] == head_dtype)
+        tc = which.endswith("_tc")  # on the train step; the FMA kernels run only in float32
         sums = {}
         if tc:
             for key in ("ms", "device_ms", "bound_ms", "plain_ms_dq_and_dkv",
@@ -766,16 +817,26 @@ def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
             name=f"flash_attention_{which}", route="cuda",
             source=f"tair_tpu_torch/ops/csrc/{file}",
             replaces=f"tair_tpu/ops/flash_attention.py:{site}",
-            shape=f"Tq=Tk=4096 H=5 D=64 {head_dtype}",
-            max_abs_err=max(g["max_abs_err"] for g in head["held"].values()),
+            shape=(f"Tq=Tk=4096 H=5 D=64 {head_dtype}" if head_shape == "unet_self_64"
+                   else f"T=4096 H=1 D=512 {head_dtype}"),
+            max_abs_err=head["max_abs_err"],
             ms=head["ms"], plain_ms=head["plain_ms_dq_and_dkv"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms_dq_and_dkv"],
             plain_and_library_cover="dq + dkv (one call gives all three gradients)",
             paths=paths, device_ms=head["device_ms"],
             device_ms_launches=head["device_ms_launches"],
-            **({"ms_per_train_step": sums["ms_per_train_step"], "fma_ms": head["fma_ms"],
-                "fma_device_ms": head["fma_device_ms"]} if tc else {}),
+            library_backend=head["library_backend"],
+            **({"ms_per_train_step": sums["ms_per_train_step"]} if tc else {}),
+            **({"fma_ms": head["fma_ms"], "fma_device_ms": head["fma_device_ms"]}
+               if which != which.split("_")[0] else {}),
+            # the FMA kernels' own D = 512 kernels (float32, phase vae_grad)
+            **({"d512": {k: wide[k] for k in ("ms", "device_ms", "bound_ms", "max_abs_err",
+                                               "plain_ms_dq_and_dkv", "library_ms_dq_and_dkv",
+                                               "library_backend")}
+                for wide in [next(r for r in mine if r["shape"] == "vae_mid"
+                                  and r["dtype"] == "float32")]}
+               if which in ("dq", "dkv") else {}),
         ))
     return entries
 
@@ -3456,6 +3517,131 @@ ENCODER_KERNELS = ("vectorized_gather_kernel", "msda_corner_reduce_kernel")
 ENCODER_OPS = ("aten::index_select", "aten::gather", "aten::scatter")
 
 
+# steps of the requests of phase tp_sp
+TP_SP_STEPS = 4
+# phase vae_grad: the bfloat16 latent gradient against the float32 one,
+# |g16 - g32| / |g32| (Frobenius norms)
+VAE_GRAD_TOL = 0.1
+
+
+def phase_tp_sp(model, lq, seed: int, steps: int) -> dict:
+    """Tensor- and sequence-parallel serving (``parallel/tp.py``,
+    ``TESTRConfig.enc_sp_axis``) of the full-width model as a user builds it:
+    ``build_default_model(testr_overrides={"enc_sp_axis": "model"})`` holding
+    `model`'s parameters, ``shard_params_tp`` on a 1 x 1 ("data", "model")
+    mesh of a NCCL group of one (the card's machine has one card, and NCCL
+    refuses two ranks on one device). Every dense layer the rules shard is its
+    one-process ``ParallelLinear`` and every collective runs (the
+    column-parallel gathers, the row-parallel all-reduces, the encoder's token
+    gathers); the request must equal `model`'s unsharded request of the same
+    seed bit for bit, with the same kernel launches. The requests run in
+    turns: unsharded, sharded, sharded, unsharded. Returns the first sharded
+    request's launches."""
+    import torch.distributed as dist
+
+    from tair_tpu_torch.parallel.mesh import create_mesh, init_distributed
+    from tair_tpu_torch.parallel.tp import ParallelLinear, shard_params_tp
+    from tair_tpu_torch.pipeline import build_default_model
+    from tair_tpu_torch.spotter.transformer import EncoderLayer
+
+    def request(m):
+        reset_launch_counts()
+        image, tokens, seconds = restore_request(m, lq, seed, steps)
+        return image, tokens, seconds, launch_counts()
+
+    want_image, want_tokens, first_seconds, want = request(model)
+    served = build_default_model(dtype=torch.bfloat16, device=lq.device,
+                                 testr_overrides={"enc_sp_axis": "model"})
+    served.load_state_dict(model.state_dict(), strict=True)
+    init_distributed("cuda", group_of_one=True)
+    try:
+        mesh = create_mesh(1, 1, device_type="cuda")
+        layers, n_model = shard_params_tp(mesh, served)
+        kinds = [m.kind for m in served.modules() if isinstance(m, ParallelLinear)]
+        sp_layers = sum(isinstance(m, EncoderLayer) and m.sp_group is not None
+                        for m in served.modules())
+        sharded = [request(served) for _ in range(2)]
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    last = request(model)
+    counts = sharded[0][3]
+    for image, tokens, _, got in (*sharded, last):
+        check_restored(image, tokens)
+        if not (torch.equal(image, want_image) and torch.equal(tokens, want_tokens)):
+            raise AssertionError(
+                "tp_sp: a request differs from the first unsharded one: max |d| "
+                f"{(image.float() - want_image.float()).abs().max().item()}")
+        if got != want:
+            raise AssertionError(f"tp_sp: launches {got}, unsharded {want}")
+    if not (layers > 0 and sp_layers == served.testr.transformer.num_encoder_layers):
+        raise AssertionError(f"tp_sp: {layers} sharded layers, {sp_layers} SP encoder layers")
+    emit("tp_sp", steps=steps, group="NCCL, world size 1, in-process store",
+         mesh=dict(data=1, model=n_model), sharded_layers=layers,
+         column_parallel=kinds.count("column"), row_parallel=kinds.count("row"),
+         sequence_parallel_encoder_layers=sp_layers,
+         seconds_unsharded=[first_seconds, last[2]],
+         seconds_sharded=[r[2] for r in sharded], bit_equal=True,
+         launches={k: n for k, n in counts.items() if n},
+         note="a group of one runs every collective on one card; timing across cards "
+              "needs a machine with more than one")
+    del served
+    release_device_memory()
+    return counts
+
+
+def phase_vae_grad(model, seed: int) -> dict:
+    """The autoencoder's decoder differentiated at 512 x 512 (T = 4096
+    tokens of width 512 in its middle attention): the gradient of a
+    pixel-space objective (the decoded image's mean square) with respect to
+    the latent, in bfloat16 through the full-width model's decoder (the wide
+    tensor-core forward, dQ and dK/dV kernels) and in float32 through a
+    float32 copy of it (the FMA kernels). Checks each gradient finite, the
+    bfloat16 one within VAE_GRAD_TOL of the float32 one, and the flash
+    launches: one forward, one dQ and one dK/dV in each type. Returns the
+    launches of both (the counts set to 0 before the first)."""
+    from tair_tpu_torch.models.vae import AutoencoderKL
+    from tair_tpu_torch.ops import flash_attention as fa
+
+    vae16 = model.cldm.vae
+    vae32 = AutoencoderKL(vae16.cfg).to(device="cuda", memory_format=torch.channels_last).eval()
+    vae32.load_state_dict({k: v.float() for k, v in vae16.state_dict().items()}, strict=True)
+    z = torch.from_numpy(
+        np.random.default_rng(seed).standard_normal((1, 64, 64, 4), dtype=np.float32)
+    ).cuda()
+    grads, seconds = {}, {}
+    reset_launch_counts()
+    for dtype, vae in ((torch.bfloat16, vae16), (torch.float32, vae32)):
+        leaf = z.to(dtype).requires_grad_(True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        image = vae.decode(leaf)
+        (g,) = torch.autograd.grad(image.float().square().mean(), leaf)
+        torch.cuda.synchronize()
+        seconds[str(dtype).split(".")[-1]] = time.perf_counter() - t
+        if tuple(g.shape) != (1, 64, 64, 4) or not torch.isfinite(g).all():
+            raise AssertionError(f"vae_grad {dtype}: the latent gradient is not finite")
+        grads[dtype] = g.float()
+    counts = launch_counts()
+    flash = {k: n for k, n in counts.items() if k.startswith("flash_attention_") and n}
+    want = {f"flash_attention_{fa.kernel_name(dt, 512, kind)}": 1
+            for dt in (torch.bfloat16, torch.float32) for kind in ("fwd", "dq", "dkv")}
+    if flash != want:
+        raise AssertionError(f"vae_grad: flash launches {flash}, expected {want}")
+    g16, g32 = grads[torch.bfloat16], grads[torch.float32]
+    rel = ((g16 - g32).norm() / g32.norm()).item()
+    if not rel <= VAE_GRAD_TOL:
+        raise AssertionError(f"vae_grad: the bfloat16 gradient is {rel} of the float32 one off "
+                             f"(tolerance {VAE_GRAD_TOL})")
+    emit("vae_grad", shape="latent [1, 64, 64, 4] -> image [1, 512, 512, 3]",
+         attention="T=4096 H=1 D=512", objective="mean(image^2)", seconds=seconds,
+         bf16_vs_float32_rel_frobenius=rel, tol=VAE_GRAD_TOL, flash_launches=flash,
+         grad_norm_float32=g32.norm().item())
+    del vae32, grads
+    release_device_memory()
+    return counts
+
+
 def phase_enc_topk(model, lq, seed: int, steps: int) -> dict:
     """The sparse spotter encoder (``TESTRConfig.enc_topk``) on the full-width
     request: fused requests of `steps` steps at 512 x 512 in bfloat16 with
@@ -4427,7 +4613,7 @@ def main() -> None:
     if "diffbir" in phases:
         path_launches["diffbir_reference"] = phase_diffbir_reference(args.seed)
     if phases & {"restore", "restore_flatpatch", "layers", "enc_topk", "quant", "matcher",
-                 "diffbir", "val"} or args.profile_steps:
+                 "diffbir", "val", "tp_sp", "vae_grad"} or args.profile_steps:
         model, lq = build_model(args.seed)
         if "restore" in phases:
             path_launches["restore"] = phase_restore(model, lq, args.seed, args.steps)
@@ -4439,6 +4625,10 @@ def main() -> None:
             phase_layers(model, lq, args.steps)
         if "enc_topk" in phases:
             path_launches["enc_topk"] = phase_enc_topk(model, lq, args.seed, SERVE_STEPS)
+        if "tp_sp" in phases:
+            path_launches["tp_sp"] = phase_tp_sp(model, lq, args.seed, TP_SP_STEPS)
+        if "vae_grad" in phases:
+            path_launches["vae_grad"] = phase_vae_grad(model, args.seed)
         if "quant" in phases:
             quant_kernels, path_launches["quant"] = phase_quant(
                 model, lq, args.seed, SERVE_STEPS, smi)
@@ -4521,11 +4711,12 @@ def run_iqa_and_later_phases(args, phases, smi, kernels, path_launches, host_syn
                                  "msda_corner_reduce_fwd"):
                 entry["paths"] = (*entry["paths"], *(p for p in ENTRY_PHASES if p in phases))
     for entry in kernels:
-        # the requests of phases ckpt, enc_topk and quant run the serving path's kernels
+        # the requests of phases ckpt, enc_topk, tp_sp and quant run the serving
+        # path's kernels
         if entry["name"] in ("flash_attention_fwd_tc", "flash_attention_fwd_tc_wide",
                              "msda_corner_reduce_fwd"):
             entry["paths"] = (*entry["paths"],
-                              *(p for p in ("enc_topk", "quant", "ckpt") if p in phases))
+                              *(p for p in ("enc_topk", "tp_sp", "quant", "ckpt") if p in phases))
     if phases != set(PHASES):
         # a partial run is for development: it prints what it measured and no verdict
         print(json.dumps({"kernels": kernels, "launches": path_launches}), flush=True)

@@ -24,6 +24,8 @@ class CrossAttention(nn.Module):
                  context_dim: Optional[int] = None):
         super().__init__()
         inner = heads * dim_head
+        # the heads this module runs: all of them, or under tensor
+        # parallelism (parallel/tp.py) this process's
         self.heads = heads
         self.dim_head = dim_head
         ctx_dim = query_dim if context_dim is None else context_dim

@@ -225,16 +225,19 @@ class MultiHeadAttention(nn.Module):
 
     def __init__(self, dim: int, heads: int):
         super().__init__()
+        # the heads this module runs: all of them, or under tensor
+        # parallelism (parallel/tp.py) this process's
         self.heads = heads
+        self.head_dim = dim // heads
         self.query = nn.Linear(dim, dim)
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
 
     def forward(self, q_in, k_in, v_in, mask=None):
-        b, tq, c = q_in.shape
+        b, tq, _ = q_in.shape
         tk = k_in.shape[1]
-        d = c // self.heads
+        d = self.head_dim
         q = self.query(q_in).reshape(b, tq, self.heads, d)
         k = self.key(k_in).reshape(b, tk, self.heads, d)
         v = self.value(v_in).reshape(b, tk, self.heads, d)
@@ -242,7 +245,7 @@ class MultiHeadAttention(nn.Module):
         if mask is not None:
             logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
         weights = torch.softmax(logits, dim=-1).to(v.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, tq, c)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, tq, self.heads * d)
         return self.out(out)
 
 

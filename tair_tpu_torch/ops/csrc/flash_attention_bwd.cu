@@ -24,8 +24,9 @@
 // P = 0; rows past Tq are loaded as zeros (q, dO, lse and delta alike), so they
 // add nothing to either product, and no padded row is ever stored. The
 // [B, T, H, D] strides of q, k, v and dO are taken as given. Head widths up to
-// 128; D = 512 is the autoencoder's, which is never differentiated. Products
-// are plain FMA: no tensor cores yet.
+// 128 in this layout, and 512 (the autoencoder's) in the narrower one below.
+// Products are plain FMA: this file serves float32, whose tolerance TF32 or
+// bf16 tensor cores would not meet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -330,6 +331,217 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Head width 512 (the autoencoder's middle attention). The layout above does
+// not widen: its resident [64, D] float tiles alone would be 528 KB and a
+// thread's accumulators 128 (dQ) or 256 (dK/dV) floats. Here a block keeps
+// 16 rows of the resident side and streams 16-row tiles of the other: a
+// thread forms one (query, key) entry of the logits and of dP over all of D
+// (one pass, float4 reads), and then owns 4 columns of 8 output rows, so
+// each product's output goes to 128 threads x 4 columns x 2 row halves.
+// Shared memory is four [16, 516] float tiles and two [16, 17] ones (134 KB).
+constexpr int kWD = 512;
+constexpr int kWBT = 16;          // rows of the resident tile, and of a streamed one
+constexpr int kWLD = kWD + 4;     // row pitch of a [16, 512] tile
+constexpr int kWLDP = kWBT + 1;   // row pitch of a [16, 16] tile
+constexpr int kWTile = kWBT * kWLD;
+constexpr int kWPTile = kWBT * kWLDP;
+constexpr int kWRows = 8;         // output rows per thread
+constexpr int kWideSmem = (4 * kWTile + 2 * kWPTile) * static_cast<int>(sizeof(float));
+
+// (A[i] . B[j], C[i] . D[j]) over the 512 columns, float4 at a time
+__device__ inline void wide_dots(const float* A, const float* B, const float* C,
+                                 const float* D, int i, int j, float& s, float& t) {
+  s = 0.f;
+  t = 0.f;
+#pragma unroll 4
+  for (int dd = 0; dd < kWD; dd += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(&A[i * kWLD + dd]);
+    const float4 b = *reinterpret_cast<const float4*>(&B[j * kWLD + dd]);
+    const float4 c = *reinterpret_cast<const float4*>(&C[i * kWLD + dd]);
+    const float4 d = *reinterpret_cast<const float4*>(&D[j * kWLD + dd]);
+    s += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+    t += c.x * d.x + c.y * d.y + c.z * d.z + c.w * d.w;
+  }
+}
+
+// dQ at D = 512: one block per (batch*head, 16 queries); 16-key tiles of K and
+// V stream. Thread (i, j) = (tid / 16, tid % 16) forms dS[i][j]; then thread
+// tid owns rows (tid / 128) * 8 .. + 8 and columns (tid % 128) * 4 .. + 4 of dQ.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dO,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     T* __restrict__ dq, int H, int Tq, int Tk, Strides st,
+                     float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;            // scale * q
+  float* dOs = Qs + kWTile;
+  float* Ks = dOs + kWTile;
+  float* Vs = Ks + kWTile;
+  float* dSs = Vs + kWTile;    // [query][key]
+
+  const int tid = threadIdx.x;
+  const int si = tid >> 4;
+  const int sj = tid & 15;
+  const int r0 = (tid >> 7) * kWRows;
+  const int col = (tid & 127) * 4;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * kWBT;
+  const int q_valid = min(kWBT, Tq - q0);
+
+  const T* qp = q + b * st.q_b + h * st.q_h + static_cast<int64_t>(q0) * st.q_t;
+  const T* dop = dO + b * st.do_b + h * st.do_h + static_cast<int64_t>(q0) * st.do_t;
+  const T* kp = k + b * st.k_b + h * st.k_h;
+  const T* vp = v + b * st.v_b + h * st.v_h;
+  load_tile<T>(Qs, kWLD, qp, st.q_t, kWBT, q_valid, kWD, scale);
+  load_tile<T>(dOs, kWLD, dop, st.do_t, kWBT, q_valid, kWD, 1.f);
+  const int64_t at = (static_cast<int64_t>(b) * H + h) * Tq + q0 + si;
+  const float row_lse = si < q_valid ? lse[at] : 0.f;
+  const float row_delta = si < q_valid ? delta[at] : 0.f;
+
+  float acc[kWRows][4];
+#pragma unroll
+  for (int i = 0; i < kWRows; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int k0 = 0; k0 < Tk; k0 += kWBT) {
+    const int k_valid = min(kWBT, Tk - k0);
+    __syncthreads();  // the last tile's readers are done (and Q, dO are loaded)
+    load_tile<T>(Ks, kWLD, kp + static_cast<int64_t>(k0) * st.k_t, st.k_t, kWBT, k_valid,
+                 kWD, 1.f);
+    load_tile<T>(Vs, kWLD, vp + static_cast<int64_t>(k0) * st.v_t, st.v_t, kWBT, k_valid,
+                 kWD, 1.f);
+    __syncthreads();
+    float s, dp;
+    wide_dots(Qs, Ks, dOs, Vs, si, sj, s, dp);
+    const float p = sj < k_valid ? expf(s - row_lse) : 0.f;
+    dSs[si * kWLDP + sj] = p * (dp - row_delta) * scale;
+    __syncthreads();
+    // acc += dS k, keys in order
+#pragma unroll 4
+    for (int kk = 0; kk < kWBT; ++kk) {
+      const float4 kv = *reinterpret_cast<const float4*>(&Ks[kk * kWLD + col]);
+#pragma unroll
+      for (int i = 0; i < kWRows; ++i) {
+        const float ds = dSs[(r0 + i) * kWLDP + kk];
+        acc[i][0] += ds * kv.x;
+        acc[i][1] += ds * kv.y;
+        acc[i][2] += ds * kv.z;
+        acc[i][3] += ds * kv.w;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kWRows; ++i) {
+    const int row = q0 + r0 + i;
+    if (row >= Tq) continue;
+    T* op = dq + ((static_cast<int64_t>(b) * Tq + row) * H + h) * kWD + col;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) store_value(op + e, acc[i][e]);
+  }
+}
+
+// dK, dV at D = 512: one block per (batch*head, 16 keys); 16-query tiles of q
+// and dO stream. Thread (i, j) forms P[i][j] and dS[i][j] for query i, key j;
+// then thread tid owns key rows (tid / 128) * 8 .. + 8 and columns
+// (tid % 128) * 4 .. + 4 of dK and dV, the queries summed in order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dO,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      T* __restrict__ dk, T* __restrict__ dv, int H, int Tq, int Tk,
+                      Strides st, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;            // scale * k
+  float* Vs = Ks + kWTile;
+  float* Qs = Vs + kWTile;
+  float* dOs = Qs + kWTile;
+  float* Ps = dOs + kWTile;    // [query][key]
+  float* dSs = Ps + kWPTile;   // [query][key]
+
+  const int tid = threadIdx.x;
+  const int si = tid >> 4;
+  const int sj = tid & 15;
+  const int r0 = (tid >> 7) * kWRows;
+  const int col = (tid & 127) * 4;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.x * kWBT;
+  const int k_valid = min(kWBT, Tk - k0);
+
+  const T* kp = k + b * st.k_b + h * st.k_h + static_cast<int64_t>(k0) * st.k_t;
+  const T* vp = v + b * st.v_b + h * st.v_h + static_cast<int64_t>(k0) * st.v_t;
+  const T* qp = q + b * st.q_b + h * st.q_h;
+  const T* dop = dO + b * st.do_b + h * st.do_h;
+  const float* lsep = lse + (static_cast<int64_t>(b) * H + h) * Tq;
+  const float* deltap = delta + (static_cast<int64_t>(b) * H + h) * Tq;
+  load_tile<T>(Ks, kWLD, kp, st.k_t, kWBT, k_valid, kWD, scale);
+  load_tile<T>(Vs, kWLD, vp, st.v_t, kWBT, k_valid, kWD, 1.f);
+
+  float acc_k[kWRows][4], acc_v[kWRows][4];
+#pragma unroll
+  for (int i = 0; i < kWRows; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc_k[i][e] = 0.f;
+      acc_v[i][e] = 0.f;
+    }
+
+  for (int q0 = 0; q0 < Tq; q0 += kWBT) {
+    const int q_valid = min(kWBT, Tq - q0);
+    __syncthreads();  // the last tile's readers are done (and K, V are loaded)
+    load_tile<T>(Qs, kWLD, qp + static_cast<int64_t>(q0) * st.q_t, st.q_t, kWBT, q_valid,
+                 kWD, 1.f);
+    load_tile<T>(dOs, kWLD, dop + static_cast<int64_t>(q0) * st.do_t, st.do_t, kWBT,
+                 q_valid, kWD, 1.f);
+    __syncthreads();
+    float s, dp;
+    wide_dots(Qs, Ks, dOs, Vs, si, sj, s, dp);
+    const bool ok = si < q_valid && sj < k_valid;
+    const float p = ok ? expf(s - lsep[q0 + si]) : 0.f;
+    Ps[si * kWLDP + sj] = p;
+    dSs[si * kWLDP + sj] = ok ? p * (dp - deltap[q0 + si]) * scale : 0.f;
+    __syncthreads();
+    // acc_v += P^T dO, acc_k += dS^T q, the tile's queries in order
+#pragma unroll 4
+    for (int qq = 0; qq < kWBT; ++qq) {
+      const float4 dov = *reinterpret_cast<const float4*>(&dOs[qq * kWLD + col]);
+      const float4 qv = *reinterpret_cast<const float4*>(&Qs[qq * kWLD + col]);
+#pragma unroll
+      for (int i = 0; i < kWRows; ++i) {
+        const float pr = Ps[qq * kWLDP + r0 + i];
+        const float sr = dSs[qq * kWLDP + r0 + i];
+        acc_v[i][0] += pr * dov.x;
+        acc_v[i][1] += pr * dov.y;
+        acc_v[i][2] += pr * dov.z;
+        acc_v[i][3] += pr * dov.w;
+        acc_k[i][0] += sr * qv.x;
+        acc_k[i][1] += sr * qv.y;
+        acc_k[i][2] += sr * qv.z;
+        acc_k[i][3] += sr * qv.w;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kWRows; ++i) {
+    const int row = k0 + r0 + i;
+    if (row >= Tk) continue;
+    const int64_t at = ((static_cast<int64_t>(b) * Tk + row) * H + h) * kWD + col;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      store_value(dk + at + e, acc_k[i][e]);
+      store_value(dv + at + e, acc_v[i][e]);
+    }
+  }
+}
+
 Strides make_strides(const int64_t* s) {
   return Strides{s[0], s[1], s[2], s[3], s[4], s[5],
                  s[6], s[7], s[8], s[9], s[10], s[11]};
@@ -372,12 +584,47 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
   return cudaGetLastError();
 }
 
+template <typename T>
+int launch_dq_wide(const void* q, const void* k, const void* v, const void* dO,
+                   const float* lse, const float* delta, void* dq, int B, int H,
+                   int Tq, int Tk, const int64_t* st, float scale,
+                   cudaStream_t stream) {
+  auto kern = flash_dq_wide_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tq + kWBT - 1) / kWBT, B * H);
+  kern<<<grid, kThreads, kWideSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dO), lse, delta, static_cast<T*>(dq), H, Tq, Tk,
+      make_strides(st), scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_dkv_wide(const void* q, const void* k, const void* v, const void* dO,
+                    const float* lse, const float* delta, void* dk, void* dv, int B,
+                    int H, int Tq, int Tk, const int64_t* st, float scale,
+                    cudaStream_t stream) {
+  auto kern = flash_dkv_wide_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tk + kWBT - 1) / kWBT, B * H);
+  kern<<<grid, kThreads, kWideSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dO), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H,
+      Tq, Tk, make_strides(st), scale);
+  return cudaGetLastError();
+}
+
 #define FLASH_BWD_DISPATCH(FN, ...)                 \
   switch (D) {                                      \
     case 16:  return FN<T, 16>(__VA_ARGS__);        \
     case 32:  return FN<T, 32>(__VA_ARGS__);        \
     case 64:  return FN<T, 64>(__VA_ARGS__);        \
     case 128: return FN<T, 128>(__VA_ARGS__);       \
+    case 512: return FN##_wide<T>(__VA_ARGS__);     \
     default:  return -1;                            \
   }
 

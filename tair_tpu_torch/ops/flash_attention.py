@@ -8,15 +8,16 @@ differentiable with respect to q, k and v through a ``torch.autograd.Function``
 that saves ``q, k, v, O, lse``. On CUDA tensors each of its three kernels
 (forward, dQ, dK/dV) is taken from one of two families, as
 ``tensor_core_kernels(dtype, D, kind)`` decides: bfloat16 takes the tensor-core
-kernels, the forward at every head width (``csrc/flash_attention_tc.cu`` at
-D <= 128, ``csrc/flash_attention_wide_tc.cu`` at the autoencoder's D = 512) and
-dQ and dK/dV at D <= 128 (``csrc/flash_attention_dq_tc.cu``,
-``csrc/flash_attention_dkv_tc.cu``); float32 takes the FMA kernels
-(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``). ``delta =
-rowsum(dO * O)`` is formed here in float32, outside the kernels, as the JAX
-package does. The plain versions are taken only for tensors that lie on the
-CPU. The backward kernels have the head widths ``BWD_HEAD_DIMS``: a wider call
-that asks for a gradient on a CUDA device raises.
+kernels at every head width: the forward in ``csrc/flash_attention_tc.cu`` at
+D <= 128 and ``csrc/flash_attention_wide_tc.cu`` at the autoencoder's D = 512,
+dQ and dK/dV in ``csrc/flash_attention_dq_tc.cu`` and
+``csrc/flash_attention_dkv_tc.cu`` at D <= 128 and both in
+``csrc/flash_attention_wide_bwd_tc.cu`` at D = 512; float32 takes the FMA
+kernels (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``).
+``delta = rowsum(dO * O)`` is formed here in float32, outside the kernels, as
+the JAX package does. The plain versions are taken only for tensors that lie
+on the CPU. Every kernel has the head widths ``HEAD_DIMS``: another width
+raises on a CUDA device.
 """
 
 from __future__ import annotations
@@ -29,20 +30,20 @@ import torch
 
 from . import _build
 
+# the head widths of every kernel: forward, dQ and dK/dV, FMA and tensor cores
 HEAD_DIMS = (16, 32, 64, 128, 512)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
-# head widths of the tensor-core kernels (bfloat16 only), by kind of kernel
-TC_HEAD_DIMS = {"fwd": HEAD_DIMS, "dq": BWD_HEAD_DIMS, "dkv": BWD_HEAD_DIMS}
-WIDE_HEAD_DIM = 512  # the forward's own tensor-core kernel: csrc/flash_attention_wide_tc.cu
+# the tensor-core kernels of their own at this width: the forward in
+# csrc/flash_attention_wide_tc.cu, dQ and dK/dV in csrc/flash_attention_wide_bwd_tc.cu
+WIDE_HEAD_DIM = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 DKV_QUERY_TILE = 64  # a chunk of the dK/dV query split is a multiple of this
 SMS = 132            # streaming multiprocessors of an H100 SXM
 
 # kernel launches made by the wrapper, one count per kernel (never raised by a
-# plain version): forward (FMA; tensor cores at D <= 128 and at D = 512), dQ
-# (FMA, tensor cores), dK/dV (FMA, tensor cores)
-launches = {"fwd": 0, "fwd_tc": 0, "fwd_tc_wide": 0, "dq": 0, "dq_tc": 0, "dkv": 0,
-            "dkv_tc": 0}
+# plain version): forward, dQ and dK/dV, each on the FMA kernel, the
+# tensor-core kernel at D <= 128 and the tensor-core kernel at D = 512
+launches = {"fwd": 0, "fwd_tc": 0, "fwd_tc_wide": 0, "dq": 0, "dq_tc": 0, "dq_tc_wide": 0,
+            "dkv": 0, "dkv_tc": 0, "dkv_tc_wide": 0}
 
 # the C entry points: (library, symbol, argument types); pointers, then
 # B, H, Tq, Tk, D, the strides, the scale, and what each kernel takes after it
@@ -55,7 +56,11 @@ _ENTRY = {
                     [_PTR] * 5 + _SHAPE + [_PTR]),
     "dq": ("flash_attention_bwd", "flash_attention_dq", [_PTR] * 7 + _SHAPE + [_INT, _PTR]),
     "dq_tc": ("flash_attention_dq_tc", "flash_attention_dq_tc", [_PTR] * 7 + _SHAPE + [_PTR]),
+    "dq_tc_wide": ("flash_attention_wide_bwd_tc", "flash_attention_dq_wide_tc",
+                   [_PTR] * 7 + _SHAPE + [_PTR]),
     "dkv": ("flash_attention_bwd", "flash_attention_dkv", [_PTR] * 8 + _SHAPE + [_INT, _PTR]),
+    "dkv_tc_wide": ("flash_attention_wide_bwd_tc", "flash_attention_dkv_wide_tc",
+                    [_PTR] * 8 + _SHAPE + [_PTR]),
     # + the workspace pointer, and splits, chunk after the scale
     "dkv_tc": ("flash_attention_dkv_tc", "flash_attention_dkv_tc",
                [_PTR] * 9 + _SHAPE + [_INT, _INT, _PTR]),
@@ -82,18 +87,20 @@ def reset_launches() -> None:
 def tensor_core_kernels(dtype: torch.dtype, d: int, kind: str) -> bool:
     """Whether a call of this type and head width takes the tensor-core kernel
     of `kind` ("fwd", "dq" or "dkv") rather than the FMA one: bfloat16 at every
-    head width of that kind's tensor-core kernels (`TC_HEAD_DIMS`). float32 is
-    held to 1e-4 and never goes through TF32, so it stays on the FMA kernels."""
-    return dtype == torch.bfloat16 and d in TC_HEAD_DIMS[kind]
+    head width (`HEAD_DIMS`), whatever the kind. float32 is held to 1e-4 and
+    never goes through TF32, so it stays on the FMA kernels."""
+    if kind not in ("fwd", "dq", "dkv"):
+        raise ValueError(f"kind must be fwd, dq or dkv, got {kind!r}")
+    return dtype == torch.bfloat16 and d in HEAD_DIMS
 
 
 def kernel_name(dtype: torch.dtype, d: int, kind: str) -> str:
     """The `launches` key of the kernel of `kind` that a call of this type and
     head width takes: `kind` itself for the FMA kernel, else its tensor-core
-    kernel ("fwd_tc_wide" for the forward at D = 512)."""
+    kernel (``<kind>_tc_wide`` at D = 512)."""
     if not tensor_core_kernels(dtype, d, kind):
         return kind
-    return "fwd_tc_wide" if kind == "fwd" and d == WIDE_HEAD_DIM else f"{kind}_tc"
+    return f"{kind}_tc_wide" if d == WIDE_HEAD_DIM else f"{kind}_tc"
 
 
 def dkv_query_split(b: int, h: int, tq: int, tk: int) -> int:
@@ -244,25 +251,25 @@ def _launch(
 
 
 def _launch_backward_kernel(
-    which: str,  # "dq", "dq_tc", "dkv" or "dkv_tc"
+    which: str,  # "dq", "dkv" or a tensor-core kernel of one of them
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, scale: float,
 ):
     """One backward kernel on the tensors the forward launch saw: dq for "dq"
-    and "dq_tc", (dk, dv) for "dkv" and "dkv_tc". do must pass `_rows_aligned`;
-    lse and delta are float32 [B, H, Tq], contiguous. "dkv_tc" cuts the queries
+    and its tensor-core kernels, (dk, dv) for "dkv" and its tensor-core
+    kernels. do must pass `_rows_aligned`; lse and delta are float32
+    [B, H, Tq], contiguous. "dkv_tc" cuts the queries
     as `dkv_query_split` says and sums the chunks' float32 partials in a
     workspace allocated here."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    if d not in BWD_HEAD_DIMS:
+    if d not in HEAD_DIMS:
         raise NotImplementedError(
-            f"flash_attention backward kernels have head widths {BWD_HEAD_DIMS}, got {d}"
+            f"flash_attention backward kernels have head widths {HEAD_DIMS}, got {d}"
         )
-    if which.endswith("_tc") and not tensor_core_kernels(q.dtype, d, which[:-3]):
-        raise ValueError(
-            f"flash_attention_{which} takes bfloat16 at D in {TC_HEAD_DIMS[which[:-3]]}"
-        )
+    kind = which.split("_")[0]
+    if which != kind and kernel_name(q.dtype, d, kind) != which:
+        raise ValueError(f"flash_attention_{which} does not take {q.dtype} at D = {d}")
     for name, t in (("do", do), ("lse", lse), ("delta", delta)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must lie on q's device")
@@ -271,7 +278,7 @@ def _launch_backward_kernel(
     for name, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or t.shape != (b, h, tq) or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32 [B, H, Tq]")
-    is_dq = which in ("dq", "dq_tc")
+    is_dq = kind == "dq"
     if is_dq:
         outs = (torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device),)
     else:
@@ -292,7 +299,7 @@ def _launch_backward_kernel(
             None if ws is None else ws.data_ptr(), b, h, tq, tk, d, strides,
             float(scale), splits, dkv_chunk_queries(tq, splits),
         )
-    elif which == "dq_tc":
+    elif which != kind:  # dq_tc, dq_tc_wide, dkv_tc_wide
         tail = (b, h, tq, tk, d, strides, float(scale))
     else:
         tail = (b, h, tq, tk, d, strides, float(scale), _DTYPE_CODES[q.dtype])
@@ -335,13 +342,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        on_cuda = q.device.type == "cuda"
-        if on_cuda and any(ctx.needs_input_grad[:3]) and q.shape[-1] not in BWD_HEAD_DIMS:
-            raise NotImplementedError(
-                f"flash_attention has no backward kernel for head width {q.shape[-1]} "
-                f"(widths {BWD_HEAD_DIMS}); call it without gradients"
-            )
-        if on_cuda:
+        if q.device.type == "cuda":
             out, lse = _launch(q, k, v, scale)
         else:
             out, lse = flash_attention_plain(q, k, v, scale)

@@ -1,4 +1,4 @@
-"""Process group, device mesh and batch sharding of the port's training.
+"""Process group, device mesh and batch sharding of the port.
 
 Counterpart of ``tair_tpu/parallel/mesh.py`` over ``torch.distributed``: one
 process per device, joined by the environment that ``torchrun`` sets; a
@@ -54,13 +54,11 @@ def create_mesh(
     n_data: Optional[int] = None, n_model: int = 1, device_type: str = "cuda"
 ) -> DeviceMesh:
     """A ("data", "model") mesh over the process group, one device per
-    process. `n_data` defaults to all processes over `n_model`. A mesh that
-    asks for more or fewer devices than the group has raises ValueError, as
-    the JAX mesh does for more devices than it sees; so does `n_model` > 1:
-    no module of the port is sharded on the model axis yet (tensor
-    parallelism is not ported)."""
-    if n_model > 1:
-        raise ValueError(f"n_model {n_model}: tensor parallelism is not ported")
+    process, rank r at (r // n_model, r % n_model). `n_data` defaults to all
+    processes over `n_model`. A mesh that asks for more or fewer devices than
+    the group has raises ValueError, as the JAX mesh does for more devices
+    than it sees. The model axis serves tensor- and sequence-parallel
+    inference (``parallel/tp.py``); the trainer shards on the data axis only."""
     world = world_size()
     if n_data is None:
         n_data = world // n_model

@@ -616,6 +616,10 @@ class MSDeformAttn(nn.Module):
         self.reduce_mode = reduce_mode
         self.patchify = patchify
         self.q_chunk = q_chunk
+        # under tensor parallelism (parallel/tp.py): the heads [h0, h1) of the
+        # value table this process holds, whose lanes it takes from the
+        # replicated offsets and weights; None runs every head
+        self.head_range: Optional[Tuple[int, int]] = None
         lanes = n_heads * n_levels * n_points
         self.value_proj = nn.Linear(d_model, d_model)
         self.sampling_offsets = nn.Linear(d_model, lanes * 2)
@@ -631,15 +635,20 @@ class MSDeformAttn(nn.Module):
     def forward(self, query, reference_points, value_flatten, spatial_shapes):
         b, q, _ = query.shape
         s = value_flatten.shape[1]
-        h, l, p = self.n_heads, self.n_levels, self.n_points
-        d = self.d_model // h
+        l, p = self.n_levels, self.n_points
+        d = self.d_model // self.n_heads
+        h0, h1 = self.head_range or (0, self.n_heads)
+        h = h1 - h0
         lanes = h * l * p
         if self.core not in CORES:
             raise ValueError(f"core must be one of {CORES}, got {self.core!r}")
 
         value = self.value_proj(value_flatten).reshape(b, s, h, d)
         off_flat = self.sampling_offsets(query).float()  # lanes are (h,l,p,2), xy minor
-        attn = self.attention_weights(query).reshape(b, q, h, l * p)
+        attn = self.attention_weights(query).reshape(b, q, self.n_heads, l * p)
+        if self.head_range is not None:
+            off_flat = off_flat[..., h0 * l * p * 2 : h1 * l * p * 2]
+            attn = attn[:, :, h0:h1]
         attn = torch.softmax(attn.float(), dim=-1)
 
         if self.core == "flatlanes":

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +49,9 @@ class TESTRConfig:
     enc_topk: int = 0
     # recompute the encoder and decoder layers in the backward (training)
     use_checkpoint: bool = False
+    # sequence parallelism of the encoder: the mesh axis whose processes each
+    # update a slice of the query tokens (EncoderLayer.sp_axis); None = one process
+    enc_sp_axis: Optional[str] = None
 
 
 class DiffFeatProj(nn.Module):
@@ -108,6 +111,7 @@ class TESTR(nn.Module):
             enc_msda_q_chunk=cfg.enc_msda_q_chunk,
             enc_topk=cfg.enc_topk,
             use_checkpoint=cfg.use_checkpoint,
+            enc_sp_axis=cfg.enc_sp_axis,
         )
         # heads shared across decoder layers
         self.ctrl_point_class = nn.Linear(c, 1)

@@ -5,19 +5,22 @@ MSDeformAttn self-attention over the flattened multi-scale tokens, two-stage
 proposal generation with top-K selection, and a 6-layer composite decoder
 (location branch and factorized text branch). Feature maps are never padded,
 so valid-ratio bookkeeping is omitted; dropout is omitted. The sparse encoder
-update (``enc_topk``) is the JAX module's, and so is ``use_checkpoint``, which
-recomputes each encoder and decoder layer in the backward; its sequence
-parallelism is not ported. Tokens are ``[B, S, C]`` throughout.
+update (``enc_topk``) is the JAX module's, and so are ``use_checkpoint``,
+which recomputes each encoder and decoder layer in the backward, and the
+sequence-parallel encoder (``enc_sp_axis``: each process of a mesh axis updates
+its slice of the query tokens, over the value table of all of them, and the
+slices are gathered after each layer). Tokens are ``[B, S, C]`` throughout.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -128,11 +131,34 @@ def proposal_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :k]
 
 
+def _token_rows(x: torch.Tensor, n: int, rank: int) -> torch.Tensor:
+    """Process `rank`'s contiguous slice of the token axis (axis 1) of `x`
+    cut into `n` slices of ceil(S / n) tokens; the last slices are padded
+    with zeros where S does not divide (as GSPMD pads)."""
+    per = -(-x.shape[1] // n)
+    if per * n != x.shape[1]:
+        pad = x.new_zeros((x.shape[0], per * n - x.shape[1]) + tuple(x.shape[2:]))
+        x = torch.cat([x, pad], dim=1)
+    return x[:, rank * per : (rank + 1) * per]
+
+
+def _gather_tokens(x: torch.Tensor, total: int, group, n: int) -> torch.Tensor:
+    """Every process's token slice (`_token_rows`) joined back, the padding
+    dropped: [B, total, ...]."""
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=1)[:, :total]
+
+
 class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
                  n_points: int, msda_q_chunk: int = 16384,
-                 msda_core: str = "flatlanes"):
+                 msda_core: str = "flatlanes", sp_axis: Optional[str] = None):
         super().__init__()
+        # sequence parallelism: the mesh axis over which the query tokens are
+        # sliced; `parallel.tp.bind_sequence_parallel` gives its process group
+        self.sp_axis = sp_axis
+        self.sp_group = None
         # 16384 queries a block leaves the encoder's Q = S unchunked at
         # inference shapes; training at a large batch can lower it
         self.self_attn = MSDeformAttn(
@@ -148,25 +174,50 @@ class EncoderLayer(nn.Module):
         token indices): the sparse update, in which only the selected tokens
         are msda queries and go through the norms and the FFN; every token
         stays a sampling source (the value is the layer's input `src`), and
-        every other token passes through unchanged."""
+        every other token passes through unchanged.
+
+        With ``sp_axis`` each process of the axis' group updates its slice of
+        the query tokens (of all S, or of the N selected) and the slices are
+        gathered: the same result on every process."""
+        group = n_sp = rank = None
+        if self.sp_axis:
+            if self.sp_group is None:
+                raise RuntimeError(
+                    f"sp_axis {self.sp_axis!r} has no process group: bind one with "
+                    "parallel.tp.bind_sequence_parallel (or shard_params_tp)"
+                )
+            group = self.sp_group
+            n_sp, rank = dist.get_world_size(group), dist.get_rank(group)
         if sel_idx is None:
-            src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes)
-            src = self.norm1(src + src2).to(src.dtype)
-            h = self.linear2(F.relu(self.linear1(src)))
-            return self.norm2(src + h).to(src.dtype)
+            if group is None:
+                return self._update(src, pos, reference_points, src, spatial_shapes)
+            q_src, q_pos, q_ref = (
+                _token_rows(t, n_sp, rank) for t in (src, pos.expand(src.shape), reference_points)
+            )
+            upd = self._update(q_src, q_pos, q_ref, src, spatial_shapes)
+            return _gather_tokens(upd, src.shape[1], group, n_sp)
 
         b, n = sel_idx.shape
-        rows = sel_idx[..., None].expand(b, n, src.shape[-1])
+        local_idx = sel_idx if group is None else _token_rows(sel_idx, n_sp, rank)
+        rows = local_idx[..., None].expand(b, local_idx.shape[1], src.shape[-1])
         src_sel = src.gather(1, rows)
         pos_sel = pos.expand(src.shape).gather(1, rows)
         ref_sel = reference_points.gather(
-            1, sel_idx[:, :, None, None].expand((b, n) + reference_points.shape[2:])
+            1, local_idx[:, :, None, None].expand(rows.shape[:2] + reference_points.shape[2:])
         )
-        src2 = self.self_attn(src_sel + pos_sel, ref_sel, src, spatial_shapes)
-        upd = self.norm1(src_sel + src2).to(src.dtype)
-        h = self.linear2(F.relu(self.linear1(upd)))
-        upd = self.norm2(upd + h).to(src.dtype)
+        upd = self._update(src_sel, pos_sel, ref_sel, src, spatial_shapes)
+        if group is not None:
+            upd = _gather_tokens(upd, n, group, n_sp)
+            rows = sel_idx[..., None].expand(b, n, src.shape[-1])
         return src.scatter(1, rows, upd)  # a new tensor: `src` is left as it was
+
+    def _update(self, q_src, q_pos, ref, value, spatial_shapes):
+        """The layer on its query tokens `q_src` (at `q_pos`, `ref`), with
+        every token of `value` a sampling source."""
+        src2 = self.self_attn(q_src + q_pos, ref, value, spatial_shapes)
+        x = self.norm1(q_src + src2).to(q_src.dtype)
+        h = self.linear2(F.relu(self.linear1(x)))
+        return self.norm2(x + h).to(q_src.dtype)
 
 
 class CompositeDecoderLayer(nn.Module):
@@ -277,6 +328,7 @@ class DeformableTransformer(nn.Module):
         enc_msda_q_chunk: int = 16384,
         enc_topk: int = 0,
         use_checkpoint: bool = False,
+        enc_sp_axis: Optional[str] = None,
     ):
         super().__init__()
         if enc_topk < 0:
@@ -305,7 +357,7 @@ class DeformableTransformer(nn.Module):
         for i in range(num_encoder_layers):
             setattr(self, f"enc_{i}",
                     EncoderLayer(d_model, d_ffn, n_levels, n_heads, enc_n_points,
-                                 msda_q_chunk=enc_msda_q_chunk))
+                                 msda_q_chunk=enc_msda_q_chunk, sp_axis=enc_sp_axis))
         for i in range(num_decoder_layers):
             setattr(self, f"dec_{i}",
                     CompositeDecoderLayer(d_model, d_ffn, n_levels, n_heads, dec_n_points))

@@ -157,9 +157,11 @@ def gaussian_window(patch: int, var: float = 0.01) -> np.ndarray:
     return np.outer(g, g).astype(np.float32)
 
 
-def make_tiled_fn(fn: Callable, size: int, stride: int):
+def make_tiled_fn(fn: Callable, size: int, stride: int, window: str = "gaussian"):
     """Gaussian-blended sliding-window application of a function that keeps
-    the spatial size (DiffBIR's make_tiled_fn, used for tiled latent sampling).
+    the spatial size (DiffBIR's make_tiled_fn, used for tiled latent sampling);
+    `window="fade"` blends with `fade_window` instead, its linear ramps as wide
+    as the tiles' overlap (at least 1; none with a stride of 0).
 
     `fn(x_tile, *extra_tiles, **kwargs)` maps [n_tiles * B, size, size, C] (the
     tiles in row-major order, each tile's B rows together; any extra arrays
@@ -168,10 +170,12 @@ def make_tiled_fn(fn: Callable, size: int, stride: int):
     snap to the edge; an axis smaller than the tile is edge-padded and cropped
     back; an input no larger than one tile goes to `fn` whole. The blend sums
     in float32 with a 1e-12 floor on the weights and returns the tiles' dtype.
-    The window and the weight map are made once per grid and device (the JAX
-    function's `window="fade"` has no caller in either package and is not
-    ported)."""
-    win_np = gaussian_window(size)
+    The window and the weight map are made once per grid and device."""
+    if window == "gaussian":
+        win_np, win_key = gaussian_window(size), ("gaussian_window", size)
+    else:
+        overlap = stride and max(size - stride, 1)
+        win_np, win_key = fade_window(size, overlap), ("fade_window", size, overlap)
     grids = {}  # (padded h, padded w, device) -> (tile positions, window, 1 / weights)
 
     def starts(extent: int):
@@ -184,7 +188,7 @@ def make_tiled_fn(fn: Callable, size: int, stride: int):
         key = (h, w, device)
         if key not in grids:
             pos = [(i, j) for i in starts(h) for j in starts(w)]
-            win = cached(("gaussian_window", size), device, lambda: win_np)[..., None]
+            win = cached(win_key, device, lambda: win_np)[..., None]
             weights = torch.zeros((1, h, w, 1), dtype=torch.float32, device=device)
             for i, j in pos:
                 weights[:, i : i + size, j : j + size] += win

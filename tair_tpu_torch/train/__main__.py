@@ -98,6 +98,12 @@ def main(argv=None) -> None:
     max_steps = args.max_steps or tc.train_steps
     device = init_distributed(_resolve_device(args.device).type, group_of_one=tc.fsdp)
     n_data = tc.n_data_devices or world_size()
+    if world_size() > n_data and world_size() % n_data == 0:
+        raise ValueError(
+            f"{world_size()} processes over {n_data} data devices leave a model axis of "
+            f"{world_size() // n_data}: tensor parallelism in training is not ported "
+            "(ROADMAP.md, queue 1: TP in training)"
+        )
     # a mesh wherever more than one process or FSDP is asked for; one the
     # group cannot hold raises
     mesh = create_mesh(n_data, device_type=device.type) if (

@@ -61,13 +61,19 @@ def test_reader_raises_outside_its_subset(text):
 
 
 def test_unknown_spotter_override_raises():
-    """A TESTRConfig field the port lacks (the JAX package's sequence-parallel
-    axis) raises, for either preset, before any model is built."""
+    """A TESTRConfig field the port lacks raises, for either preset, before
+    any model is built; the JAX package's sequence-parallel axis, which the
+    port now has, reaches the encoder layers."""
     for preset in ("default", "tiny"):
         cfg = torch_config.ExperimentConfig(
-            model_preset=preset, testr_overrides={"enc_sp_axis": "sp"})
-        with pytest.raises(ValueError, match="enc_sp_axis"):
+            model_preset=preset, testr_overrides={"enc_sp_mesh": "sp"})
+        with pytest.raises(ValueError, match="enc_sp_mesh"):
             torch_config.build_model(cfg, device="cpu")
+    cfg = torch_config.ExperimentConfig(model_preset="tiny",
+                                        testr_overrides={"enc_sp_axis": "sp"})
+    model = torch_config.build_model(cfg, device="cpu")
+    assert model.testr.cfg.enc_sp_axis == "sp"
+    assert model.testr.transformer.enc_0.sp_axis == "sp"
 
 
 def _tiny(seed=0):

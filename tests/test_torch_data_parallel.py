@@ -23,8 +23,8 @@ criteria normalise by counts that differ from their own:
 - the trainer runs ``configs/train_smoke_fsdp.yaml`` on two ranks with the
   losses of a one-process run of its global batch, and ``val_patches`` with
   the patch batch sharded writes one process's image;
-- a mesh the group cannot hold raises, on two ranks and in one process, and
-  so does a model axis (tensor parallelism is not ported);
+- a mesh the group cannot hold raises, on two ranks and in one process (a
+  model axis too: `test_torch_tensor_parallel.py` runs one);
 - the FSDP placement rule equals JAX's ``fsdp_specs`` / ``fraction_for`` leaf
   for leaf and byte for byte on the tiny bundle's shapes (no mesh, no init).
 """
@@ -198,7 +198,7 @@ def test_a_mesh_the_group_cannot_hold_raises(runs):
     assert runs[0]["larger_mesh_raised"] and runs[1]["larger_mesh_raised"]
     with pytest.raises(ValueError, match="impossible with 1 devices"):
         create_mesh(2, device_type="cpu")
-    with pytest.raises(ValueError, match="tensor parallelism is not ported"):
+    with pytest.raises(ValueError, match="mesh 1x2 impossible with 1 devices"):
         create_mesh(1, 2, device_type="cpu")
 
 

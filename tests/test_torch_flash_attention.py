@@ -82,15 +82,17 @@ def test_cpu_call_does_not_count_as_launch():
 
 def test_requires_grad_raises():
     """A tensor that requires grad is taken now (the backward has its
-    kernels); what still raises is a backward launch at a head width that has
-    no backward kernel, naming the width."""
+    kernels at every width of the forward, the autoencoder's D = 512
+    included); what still raises is a backward launch at a head width that
+    has no kernel, naming the width."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 8, 8, 1, 16))
     out, lse = fa.flash_attention(q.requires_grad_(True), k, v)
     assert out.requires_grad and not lse.requires_grad
-    wide = torch.zeros((1, 8, 1, 512))
+    assert 512 in fa.HEAD_DIMS
+    odd = torch.zeros((1, 8, 1, 96))
     stats = torch.zeros((1, 1, 8))
-    with pytest.raises(NotImplementedError, match="512"):
-        fa._launch_backward_kernel("dq", wide, wide, wide, wide, stats, stats, 1.0)
+    with pytest.raises(NotImplementedError, match="96"):
+        fa._launch_backward_kernel("dq", odd, odd, odd, odd, stats, stats, 1.0)
 
 
 @pytest.mark.parametrize(
@@ -111,13 +113,12 @@ def test_shape_mismatch_raises(shapes):
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_choice(dtype, d, kind):
-    """bfloat16 takes the tensor-core kernels: the forward at every head width
-    (its own kernel at the autoencoder's D = 512), dQ and dK/dV at D <= 128;
+    """bfloat16 takes the tensor-core kernels: the forward, dQ and dK/dV at
+    every head width (kernels of their own at the autoencoder's D = 512);
     float32 (held to 1e-4, never through TF32) takes the FMA kernels."""
-    widths = (16, 32, 64, 128, 512) if kind == "fwd" else (16, 32, 64, 128)
-    tc = dtype == torch.bfloat16 and d in widths
+    tc = dtype == torch.bfloat16 and d in (16, 32, 64, 128, 512)
     assert fa.tensor_core_kernels(dtype, d, kind) == tc
-    want = "fwd_tc_wide" if tc and d == 512 else f"{kind}_tc" if tc else kind
+    want = f"{kind}_tc_wide" if tc and d == 512 else f"{kind}_tc" if tc else kind
     assert fa.kernel_name(dtype, d, kind) == want
     assert want in fa.launches
 
@@ -130,6 +131,9 @@ def test_kernel_choice(dtype, d, kind):
         ("fwd_tc", torch.float32, 64),         # tensor cores take bfloat16 only
         ("dq_tc", torch.float32, 64),
         ("dkv_tc", torch.float32, 32),
+        ("dq_tc", torch.bfloat16, 512),        # D = 512 has a backward kernel of its own
+        ("dq_tc_wide", torch.bfloat16, 64),
+        ("dkv_tc_wide", torch.float32, 512),
     ],
 )
 def test_tensor_core_kernel_refuses_other_calls(which, dtype, d):
@@ -153,16 +157,16 @@ def _two_terms(x):
     return hi + _bf16(x - hi)
 
 
-@pytest.mark.parametrize("product", ["pv", "dv", "dk", "dq", "pv512"])
+@pytest.mark.parametrize("product", ["pv", "dv", "dk", "dq", "pv512", "dv512", "dk512", "dq512"])
 def test_bf16_probabilities_need_two_terms(product):
-    """The tensor-core kernels' arithmetic, emulated: P (forward P V, also at
-    the autoencoder's D = 512; dV = P^T dO) and dS (dK = dS^T q, dQ = dS k)
+    """The tensor-core kernels' arithmetic, emulated, also at the
+    autoencoder's D = 512: P (forward P V; dV = P^T dO) and dS (dK = dS^T q, dQ = dS k)
     enter a bf16 product after float32 softmax. Rounded to one bf16 term they
     miss the elementwise tolerances that chip_smoke.py holds the kernels to (O:
     2^-7 |O| + 1e-4; gradients: 2^-7 |g| + 1e-3 mean|g|) several times over;
     as hi + lo they keep under half of them. The result is rounded to bf16
     once, as the kernels store it."""
-    tq, tk, h, d = (128, 256, 1, 512) if product == "pv512" else (256, 77, 2, 64)
+    tq, tk, h, d = (128, 256, 1, 512) if product.endswith("512") else (256, 77, 2, 64)
     rng = np.random.default_rng(0)
     q, k, v, do = (
         _bf16(torch.from_numpy(rng.standard_normal((h, t, d), dtype=np.float32)))
@@ -174,11 +178,10 @@ def test_bf16_probabilities_need_two_terms(product):
     ds = p * (do @ v.transpose(1, 2) - (do * o).sum(-1, keepdim=True)) / math.sqrt(d)
     operand, other, ref = {
         "pv": (p, v, o),
-        "pv512": (p, v, o),
         "dv": (p.transpose(1, 2), do, p.transpose(1, 2) @ do),
         "dk": (ds.transpose(1, 2), q, ds.transpose(1, 2) @ q),
         "dq": (ds, k, ds @ k),
-    }[product]
+    }[product.removesuffix("512")]
     atol = 1e-4 if product.startswith("pv") else 1e-3 * ref.abs().mean().item()
 
     def share(rounded):

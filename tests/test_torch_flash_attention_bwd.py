@@ -24,6 +24,7 @@ CASES = [
     (2, 100, 77, 3, 64, None, False),   # cross-attention: ragged q, 77 keys
     (1, 40, 77, 2, 16, 0.5, False),     # custom scale
     (2, 45, 45, 2, 64, None, True),     # q, k, v cut out of one wider projection
+    (1, 48, 80, 1, 512, None, False),   # the autoencoder's head width, ragged tiles
 ]
 
 
@@ -114,7 +115,8 @@ def test_cpu_backward_does_not_count_as_launch():
     out, _ = fa.flash_attention(q.requires_grad_(True), k, v)
     out.backward(do)
     assert fa.launches == before
-    assert set(before) == {"fwd", "fwd_tc", "fwd_tc_wide", "dq", "dq_tc", "dkv", "dkv_tc"}
+    assert set(before) == {"fwd", "fwd_tc", "fwd_tc_wide", "dq", "dq_tc", "dq_tc_wide", "dkv",
+                           "dkv_tc", "dkv_tc_wide"}
 
 
 @pytest.mark.parametrize(

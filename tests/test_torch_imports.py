@@ -96,6 +96,12 @@ MODULES = [
     "tair_tpu_torch.parallel",
     "tair_tpu_torch.parallel.mesh",
     "tair_tpu_torch.parallel.fsdp",
+    "tair_tpu_torch.parallel.tp",
+    "tair_tpu_torch.ops.sampling",
+    "tair_tpu_torch.ops.deform_conv",
+    "tair_tpu_torch.ops.roi_align_rotated",
+    "tair_tpu_torch.ops.rotated_boxes",
+    "tair_tpu_torch.utils.structures",
 ]
 
 ENTRY_POINTS = ["tair_tpu_torch.val", "tair_tpu_torch.val_patches", "tair_tpu_torch.spotter_eval"]
@@ -255,7 +261,8 @@ def test_kernel_wrappers_do_not_build_on_import(fresh_process):
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_tc.cu",
         "flash_attention_wide_tc.cu", "flash_attention_dq_tc.cu",
-        "flash_attention_dkv_tc.cu", "msda_reduce.cu", "patchify.cu",
+        "flash_attention_dkv_tc.cu", "flash_attention_wide_bwd_tc.cu", "msda_reduce.cu",
+        "patchify.cu",
         "quant_act.cu", "int8_conv.cu", "jv_assign.cu",
         "probe_gather.cu", "probe_stream.cu", "probe_msda_lab.cu"}
     assert set(_build.KERNEL_SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
