@@ -10,7 +10,9 @@ float32; msda corner reduce forward, backward; the msda patchify kernel)
 against its plain PyTorch version at every shape the main paths give it, with
 its time beside its bound (each tensor-core kernel timed in turns with the FMA
 kernel it replaces, the patchify kernel's band design with its first design,
-by CUDA-graph replay), and
+by CUDA-graph replay), the flash wrapper's routes around its kernels' shape
+limits (a head width padded to the next of theirs, more (batch, head) pairs
+than one grid holds cut into launches) against the plain version, and
 each probe kernel (gather, stream, msda lab) against its plain version at the
 probe's shape. Then it drives the paths of the port and checks that each went
 through its kernels:
@@ -33,7 +35,11 @@ through its kernels:
             with bfloat16, after the two w8a8 kernels (Q2, the activation
             quantize, and Q1, the int8 convolution) are held bit for bit
             against their plain versions at every quantized site shape of a
-            step (phase quant); phase restore also times one spotter pass
+            step, and so are the modes of a row-parallel site under tensor
+            parallelism (Q2's amax-only pass and its quantize from a device
+            amax, Q1's int32 accumulators); then the w8a8 requests under
+            tensor parallelism, bit for bit the plain w8a8 ones, and those
+            modes timed at the row-parallel sites' shapes (phase quant); phase restore also times one spotter pass
             with the proposals picked by the stable sort and by torch.topk;
             and the same request with the parameters sharded by
             ``parallel.tp.shard_params_tp`` and the spotter encoder
@@ -76,7 +82,12 @@ through its kernels:
             and gradients with checkpointing against those without, and the
             trainer with ``fsdp: true`` and ``val_patches`` through a process
             group of one (NCCL) against their plain runs (phase
-            train_scale);
+            train_scale); the step on a ("data", "model") mesh with every
+            rule-matched dense layer tensor-parallel, the spotter encoder
+            sequence-parallel and FSDP2 over the data axis, in a NCCL group
+            of one, against the plain step: its loss, gradients (a planted
+            fault must fail their check), first update, seconds, launches,
+            AdamW's update and profile (phase tp_train);
             then the port's trainer as a user starts it, ``python -m
             tair_tpu_torch.train`` on configs/train_chip_demo.yaml (its own
             data, degradation on the card, checkpoint, resume, validation with
@@ -244,7 +255,8 @@ SERVE_STEPS = 4
 
 PHASES = ("kernels", "probes", "reference", "restore", "restore_flatpatch", "layers",
           "enc_topk", "tp_sp", "vae_grad", "quant", "matcher", "diffbir", "ckpt", "train_reference", "train",
-          "train_scale", "iqa", "train_entry", "val", "val_patches", "spotter_eval", "face", "ram")
+          "train_scale", "tp_train", "iqa", "train_entry", "val", "val_patches", "spotter_eval",
+          "face", "ram")
 # the paths on which the serving entry points run K1 and K3
 ENTRY_PHASES = ("val", "val_patches", "spotter_eval")
 
@@ -279,6 +291,15 @@ def time_ms(fn, warmup: int = 2, reps: int = 7, inner: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def device_draw(rng: np.random.Generator, shape, kind: str) -> torch.Tensor:
+    """float32 standard normals ("normal") or uniforms on [0, 1) ("uniform")
+    drawn on the card from a seed that `rng` draws: the msda checks' inputs
+    reach 2.5 GB, which numpy takes tens of seconds to draw on the host."""
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(2 ** 62)))
+    draw = torch.randn if kind == "normal" else torch.rand
+    return draw(shape, generator=gen, device="cuda", dtype=torch.float32)
 
 
 def held_error(out: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float):
@@ -600,6 +621,85 @@ def check_flash(rng: np.random.Generator, smi: str, steps: int) -> list:
     return entries
 
 
+# the flash wrapper's routes around the kernels' shape limits: head widths
+# the kernels lack (padded along D to the next of HEAD_DIMS: 80 -> 128 on the
+# tensor cores at D <= 128, 160 -> 512 on the wide ones), and more (batch,
+# head) pairs than one grid holds (cut into launches), with tiny T
+FLASH_ROUTES = [("padded_d80", 2, 1024, 1024, 4, 80), ("padded_d160", 2, 1024, 1024, 4, 160),
+                ("split_bh65540", 65540, 8, 8, 1, 16)]
+
+
+def check_flash_routes(rng: np.random.Generator, smi: str) -> dict:
+    """Each of FLASH_ROUTES in bfloat16 through ``flash_attention`` and its
+    autograd backward, against the plain versions on the unpadded, unsplit
+    float32 values with the kernels' own tolerances: the output (K1_TOL),
+    and dQ, dK, dV (GRAD_TOL) from the route's own O and lse. Launches: one
+    forward, one dQ and one dK/dV on the padded width's tensor-core kernels
+    for each launch that `bh_slices` cuts the call into. The route's forward
+    and forward + backward ms (CUDA events) beside the plain versions'.
+    Emits one line; returns its launches."""
+    from tair_tpu_torch.ops import flash_attention as fa
+
+    rows, launches = [], {}
+    for name, b, tq, tk, h, d in FLASH_ROUTES:
+        arrays = [rng.standard_normal((b, t, h, d), dtype=np.float32) for t in (tq, tk, tk, tq)]
+        q, k, v, do = (torch.from_numpy(a).cuda().to(torch.bfloat16) for a in arrays)
+        scale = 1.0 / d ** 0.5
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        fa.reset_launches()
+        out, lse = fa.flash_attention(*leaves, scale)
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        got = {key: n for key, n in fa.launches.items() if n}
+        width, cuts = fa.padded_head_dim(d), len(fa.bh_slices(b, h))
+        want = {fa.kernel_name(torch.bfloat16, width, kind): cuts for kind in ("fwd", "dq", "dkv")}
+        if got != want or (width == d) == name.startswith("padded") or \
+                (cuts > 1) != name.startswith("split"):
+            raise AssertionError(f"flash route {name}: launches {got}, expected {want}")
+        launches[name] = got
+        qf, kf, vf = q.float(), k.float(), v.float()
+        ref_out, ref_lse = fa.flash_attention_plain(qf, kf, vf, scale)
+        # the backward from the route's own O and lse, as check_flash_bwd holds
+        # the backward kernels (delta = rowsum(dO * O) of the stored O)
+        refs = fa.flash_attention_bwd_plain(qf, kf, vf, out.detach().float(), lse, do.float(),
+                                            scale)
+        held = {}
+        err, share = held_error(out, ref_out, *K1_TOL[torch.bfloat16])
+        held["out"] = dict(max_abs_err=err, max_share_of_tol=share)
+        for gname, g, ref in zip(("dq", "dk", "dv"), grads, refs):
+            err, share, mean = held_grad_error(g, ref, torch.bfloat16)
+            held[gname] = dict(max_abs_err=err, max_share_of_tol=share, mean_abs_plain=mean)
+        if out.shape != (b, tq, h, d) or any(r["max_share_of_tol"] > 1.0 for r in held.values()):
+            raise AssertionError(f"flash route {name}: {tuple(out.shape)}, {held}")
+        del refs, ref_out, ref_lse, grads, out
+
+        def fwd():
+            return fa.flash_attention(q, k, v, scale)
+
+        def fwd_bwd():
+            o, _ = fa.flash_attention(*leaves, scale)
+            return torch.autograd.grad(o, leaves, do)
+
+        def plain():
+            return fa.flash_attention_plain(q, k, v, scale)
+
+        rows.append(dict(
+            route=name, shape=dict(b=b, tq=tq, tk=tk, h=h, d=d), kernel_width=width,
+            launches_per_call=cuts, launches=got, held=held,
+            ms=time_ms(fwd), fwd_bwd_ms=time_ms(fwd_bwd, warmup=1, reps=3, inner=1),
+            plain_ms=time_ms(plain, warmup=1, reps=3, inner=1),
+        ))
+        del q, k, v, do, leaves
+    emit("flash_routes", card=smi, routes=rows,
+         tolerance="out: K1_TOL bf16 (2^-7 |plain| + 1e-4) against the plain forward; dq, "
+                   "dk, dv: GRAD_TOL bf16 (2^-7 |g| + 1e-3 mean|g|) against the plain backward "
+                   "from the route's O and lse; both in float32 on the unpadded, unsplit "
+                   "values",
+         note="ms: CUDA events around wrapper calls (2 warm-ups, median of 7 x 3); "
+              "fwd_bwd_ms and plain_ms: median of 3 single calls")
+    return launches
+
+
 def check_msda(rng: np.random.Generator, smi: str, steps: int) -> list:
     """K3 at every shape of K3_SHAPES and at the sparse encoder's NQ; two
     entries of the kernels line: the dense paths' (NQ = 9472) and the sparse
@@ -610,13 +710,8 @@ def check_msda(rng: np.random.Generator, smi: str, steps: int) -> list:
     rows = []
     for name, nq, per_pass in [*K3_SHAPES, K3_ENC_TOPK_SHAPE]:
         for dtype in (torch.bfloat16, torch.float32):
-            g = torch.from_numpy(
-                rng.standard_normal((nq * lanes, 4 * d), dtype=np.float32)
-            ).cuda().to(dtype)
-            ws = [
-                torch.from_numpy(rng.random((nq, lanes), dtype=np.float32)).cuda()
-                for _ in range(4)
-            ]
+            g = device_draw(rng, (nq * lanes, 4 * d), "normal").to(dtype)
+            ws = [device_draw(rng, (nq, lanes), "uniform") for _ in range(4)]
             out = mr.msda_corner_reduce(g, *ws, k)
             torch.cuda.synchronize()
             ref = mr.msda_corner_reduce_plain(g, *ws, k)
@@ -848,16 +943,9 @@ def check_msda_bwd(rng: np.random.Generator, smi: str) -> dict:
     rows = []
     for name, nq, per_pass in K3_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            g = torch.from_numpy(
-                rng.standard_normal((nq * lanes, 4 * d), dtype=np.float32)
-            ).cuda().to(dtype)
-            ws = [
-                torch.from_numpy(rng.random((nq, lanes), dtype=np.float32)).cuda()
-                for _ in range(4)
-            ]
-            dout = torch.from_numpy(
-                rng.standard_normal((nq * (lanes // k), d), dtype=np.float32)
-            ).cuda()
+            g = device_draw(rng, (nq * lanes, 4 * d), "normal").to(dtype)
+            ws = [device_draw(rng, (nq, lanes), "uniform") for _ in range(4)]
+            dout = device_draw(rng, (nq * (lanes // k), d), "normal")
             grads = mr._launch_bwd(g, ws, dout, k)
             torch.cuda.synchronize()
             refs = mr.msda_corner_reduce_bwd_plain(g.float(), *ws, dout, k)
@@ -1972,6 +2060,396 @@ def phase_train_scale(seed: int) -> dict:
             dist.destroy_process_group()
         shutil.rmtree(work, ignore_errors=True)
     return last
+
+
+# phase tp_train: the FSDP placement of this mesh's shape (the JAX rule on the
+# global shapes), held on the one card's 1 x 1 mesh, and the full steps' order
+TP_TRAIN_PLACEMENT = (2, 2)  # (n_data, n_model)
+TP_TRAIN_ORDER = ("plain", "tp", "tp", "plain")
+TP_TRAIN_SOLID = 2.0 ** -4  # of a tensor's gradient rms: an element whose sign is not noise
+# an attention's query or key tensor whose plain gradient is below this share
+# of the same attention's value tensor's is rounding noise (the softmax is
+# unchanged by a shift of a query's logits: a key bias's gradient is 0, and so
+# are the query's and key's where a layer's keys coincide)
+TP_TRAIN_NOISE = 2.0 ** -6
+# the plain backward again from this multiple of the loss, its gradients
+# divided by it: every rounding of the backward falls otherwise (3 is no
+# power of two) while the forward stays bit for bit, as under TP, whose graph
+# sums in other orders. The spread against which TP's gradients and first
+# update are held is the larger of this one and the plain backward's
+# run-to-run spread, which is 0 on a card that picks the same algorithms
+# every time
+TP_TRAIN_RESCALE = 3.0
+# the second step's OCR loss is held to this share of the first update's move
+# of it: its set matching flips at a near tie under a re-rounding of that
+# update (the plain copy's own first update from TP_TRAIN_RESCALE_OTHER x the
+# loss can move it by a few percent of the step's move, and its diffusion
+# loss by a few millionths), so it is no smooth function of the rounding; the
+# diffusion loss is (TRAIN_SCALE_LOSS_RTOL)
+TP_TRAIN_OCR_SHARE = 0.1
+TP_TRAIN_RESCALE_OTHER = 7.0  # a second re-rounding, whose second-step terms are shown
+# kernels of a step whose device time the profile reports by name: NCCL's
+# collectives, FSDP's copies in and out of its flat buffers, the multi-tensor
+# updates
+TP_TRAIN_WATCH = ("nccl", "chunk_cat", "split_with_sizes", "multi_tensor_apply")
+
+
+def phase_tp_train(seed: int) -> dict:
+    """Tensor parallelism in training at full width: ``make_train_step`` on a
+    ("data", "model") mesh, as on n_data x n_model cards, here 1 x 1 in a NCCL
+    group of one on one card. The stage-3 training
+    bundle with the spotter encoder sequence-parallel (``enc_sp_axis``),
+    holding an unsharded copy's parameters; ``shard_params_tp`` (every
+    rule-matched dense layer an autograd ``ParallelLinear``, the SP encoder
+    bound), the trainable mask, then FSDP2 over the data axis with the
+    placement the JAX rule gives a TP_TRAIN_PLACEMENT mesh (``shard_dims`` on
+    the global shapes, read before the cut), and ``GradientSync`` summing the
+    partial gradients (``partial_grad_params``) over the model axis on
+    FSDP's shards. Against the plain step of the unsharded copy, 512 x 512,
+    batch 1, one batch and one set of draws:
+
+    - the loss of one forward and backward, plain, TP, plain again: equal
+      bit for bit; the trained gradients (TP's gathered) within the plain
+      backward's run-to-run spread and bfloat16's rounding: |TP - plain| /
+      |plain| over all trained tensors at once, its median and its largest
+      over the tensors within TRAIN_SCALE_GRAD_SPREAD x the plain-again run's
+      + TRAIN_SCALE_GRAD_RTOL (the TP graph sums in other orders), where the
+      spread is the larger of the plain-again run's and that of the plain
+      backward from TP_TRAIN_RESCALE x the loss (every rounding otherwise),
+      but for the tensors whose plain gradient is rounding noise;
+    - two full steps each, in turns (TP_TRAIN_ORDER): seconds, peak memory,
+      launches (the TP step's equal to the plain step's), the first steps'
+      losses equal; the second steps' diffusion loss within
+      TRAIN_SCALE_LOSS_RTOL and their OCR loss within TP_TRAIN_OCR_SHARE of
+      the first update's move of it (AdamW moves an element by +-lr on the
+      sign of its gradient, so an element whose gradient is noise moves
+      either way, and the OCR criterion's matching may flip); then the plain
+      copy reset to the same parameters and one step again: the first update of each
+      trained tensor, TP's against plain's at the elements whose gradient
+      stands clear of the noise (TP_TRAIN_SOLID), within the same spread of
+      the larger of the plain-again run's and the first update that AdamW
+      makes from the rescaled backward's gradients; both checks leave out
+      the tensors whose plain
+      gradient is rounding noise (TP_TRAIN_NOISE), and the gradient check
+      must fail on a planted fault (the partial biases' gradients zero);
+    - one more step of each under torch.profiler, the device alone: busy
+      seconds, idle share, launches, top kernels, TP_TRAIN_WATCH's kernels.
+
+    Returns the launches of the first TP step."""
+    import torch.distributed as dist
+
+    from tair_tpu_torch.parallel.fsdp import (
+        GradientSync, apply_fsdp, fsdp_units, full_tensor, local_bytes, shard_dims,
+    )
+    from tair_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, create_mesh, init_distributed
+    from tair_tpu_torch.parallel.tp import ParallelLinear, partial_grad_params, shard_params_tp
+    from tair_tpu_torch.pipeline import build_default_model
+    from tair_tpu_torch.train.stages import apply_trainable_mask
+    from tair_tpu_torch.train.step import create_train_state, make_draws
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    plain = build_default_model(dtype=torch.float32, device=dev, training=True)
+    plain.init_parameters(torch.Generator(device=dev).manual_seed(seed))
+    # the starting state stays on the card (about 7 GB): both models load it
+    start = {k: v.detach().clone() for k, v in plain.state_dict().items()}
+    plain_state, plain_step = make_trainer(plain, torch.bfloat16)
+    tp = build_default_model(dtype=torch.float32, device=dev, training=True,
+                             testr_overrides={"enc_sp_axis": MODEL_AXIS})
+    tp.load_state_dict(start, strict=True)
+    dims = shard_dims(tp, *TP_TRAIN_PLACEMENT)
+    init_distributed("cuda", group_of_one=True)
+    try:
+        mesh = create_mesh(1, 1, device_type="cuda")
+        layers, _ = shard_params_tp(mesh, tp)
+        kinds = [m.kind for m in tp.modules() if isinstance(m, ParallelLinear)]
+        apply_trainable_mask(tp, "stage3")
+        replicated = apply_fsdp(tp, mesh, dims)
+        units = fsdp_units(tp)
+        partial = partial_grad_params(tp)
+        tp_state, tp_step = make_trainer(tp, torch.bfloat16)
+        tp_state.sync = GradientSync(replicated, units, mesh.get_group(DATA_AXIS), partial,
+                                     mesh.get_group(MODEL_AXIS))
+        torch.cuda.synchronize()
+        build_seconds = time.perf_counter() - t0
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in train_batch(
+            np.random.default_rng(seed), batch=1, size=512, max_inst=8, n_inst=5).items()}
+        draws = make_draws(torch.Generator(device=dev).manual_seed(seed + 2), 1, (64, 64),
+                           plain.schedule.num_timesteps, dev, vae_dtype=torch.bfloat16)
+        trained = [n for n, p in plain.named_parameters() if p.requires_grad]
+        models = {"plain": (plain, plain_state, plain_step), "tp": (tp, tp_state, tp_step)}
+
+        def loss_and_grads(name: str, scale: float = 1.0):
+            from tair_tpu_torch.diffusion.diffusion import Diffusion
+            from tair_tpu_torch.train.step import diffusion_loss_fn
+
+            model, state, _ = models[name]
+            state.optimizer.zero_grad(set_to_none=True)
+            if state.sync is not None:
+                state.sync.before_backward(True)
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                loss, _ = diffusion_loss_fn(
+                    model, Diffusion(model.schedule, parameterization="v"), batch, draws=draws,
+                    spotter_loss_fn=model.spotter_loss_fn(), ocr_loss_weight=TRAIN_OCR_WEIGHT)
+            (loss * scale if scale != 1.0 else loss).backward()
+            if state.sync is not None:
+                state.sync.after_backward(True)
+            params = dict(model.named_parameters())
+            grads = {n: full_tensor(params[n].grad.detach()) / scale if scale != 1.0
+                     else full_tensor(params[n].grad.detach()).clone() for n in trained}
+            state.optimizer.zero_grad(set_to_none=True)
+            return loss.item(), grads
+
+        def rel(a: torch.Tensor, b: torch.Tensor, by: torch.Tensor) -> float:
+            return ((a.float() - b.float()).norm() / by.float().norm().clamp_min(1e-30)).item()
+
+        def spread(got: dict, want: dict, scale: dict, skip=()) -> dict:
+            names = [n for n in want if n not in skip]
+            per = {n: rel(got[n], want[n], scale[n]) for n in names}
+            diff = sum((got[n].float() - want[n].float()).square().sum() for n in names)
+            norm = sum(scale[n].float().square().sum() for n in names)
+            return dict(overall=(diff / norm.clamp_min(1e-30)).sqrt().item(),
+                        median=statistics.median(per.values()), max=max(per.values()),
+                        largest=sorted(per.items(), key=lambda kv: -kv[1])[:5], per=per)
+
+        keys = ("overall", "median", "max")
+
+        def larger(*spreads: dict) -> dict:
+            return {k: max(d[k] for d in spreads) for k in keys}
+
+        def within(got: dict, ref: dict) -> bool:
+            # over all the tensors at once, their median and the largest one
+            return all(got[k] <= TRAIN_SCALE_GRAD_SPREAD * ref[k] + TRAIN_SCALE_GRAD_RTOL
+                       for k in keys)
+
+        loss_plain, grads_plain = loss_and_grads("plain")
+        loss_tp, grads_tp = loss_and_grads("tp")
+        loss_again, grads_again = loss_and_grads("plain")
+        # the tensors whose gradient is rounding noise, read on the plain
+        # gradient alone (TP_TRAIN_NOISE); any other order of the sums may
+        # move such a gradient by all of its size
+        noise_share = {}
+        for n in trained:
+            head, _, leaf = n.rpartition(".")
+            lane = head.rpartition(".")
+            sibling = f"{lane[0]}.value.{leaf}"
+            if lane[2] in ("query", "key") and sibling in grads_plain:
+                noise_share[n] = (grads_plain[n].float().norm()
+                                  / grads_plain[sibling].float().norm().clamp_min(1e-30)).item()
+        noise = sorted(n for n, r in noise_share.items() if r < TP_TRAIN_NOISE)
+        grad_tp = spread(grads_tp, grads_plain, grads_plain, noise)
+        grad_again = spread(grads_again, grads_plain, grads_plain, noise)
+        del grads_again
+        loss_rescaled, grads_rescaled = loss_and_grads("plain", TP_TRAIN_RESCALE)
+        grad_rescaled = spread(grads_rescaled, grads_plain, grads_plain, noise)
+        # kept on the host for the first update that AdamW makes from them
+        grads_rescaled = {n: g.cpu() for n, g in grads_rescaled.items()}
+        grad_ref = larger(grad_again, grad_rescaled)
+        # the check against a planted fault: the gradients of the biases
+        # that TP leaves partial (a row layer adds its bias on one process,
+        # a column layer's is sliced) not summed, i.e. zero
+        planted = [n for n, p in tp.named_parameters()
+                   if n.endswith(".bias") and n in grads_tp and any(p is q for q in partial)]
+        grad_fault = spread({**grads_tp, **{n: torch.zeros_like(grads_tp[n]) for n in planted}},
+                            grads_plain, grads_plain, noise)
+        for d in (grad_tp, grad_again, grad_rescaled, grad_fault):
+            d.pop("per")
+        del grads_tp
+        if not (loss_tp == loss_plain == loss_again == loss_rescaled
+                and within(grad_tp, grad_ref)):
+            raise AssertionError(
+                f"tp_train: losses plain {loss_plain}, TP {loss_tp}, plain again {loss_again}, "
+                f"rescaled {loss_rescaled}; "
+                f"gradients TP {grad_tp}, plain again {grad_again}, plain from "
+                f"{TP_TRAIN_RESCALE} x the loss {grad_rescaled}")
+        if not planted or within(grad_fault, grad_ref):
+            raise AssertionError(f"tp_train: the gradient check passes a planted fault (the "
+                                 f"{len(planted)} partial biases' gradients zero): {grad_fault}")
+        # the elements whose gradient's sign no order of the sums changes: at
+        # least TP_TRAIN_SOLID of their tensor's root-mean-square (bfloat16
+        # rounds a sum by about 2^-8 of its terms); AdamW's first move of every
+        # other element is +-lr on its noise
+        solid = {n: g.abs() >= TP_TRAIN_SOLID * g.float().square().mean().sqrt()
+                 for n, g in grads_plain.items()}
+        del grads_plain
+        release_device_memory()
+
+        def full_step(name: str) -> dict:
+            model, state, step = models[name]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t = time.perf_counter()
+            _, aux = step(state, batch, draws=draws)
+            torch.cuda.synchronize()
+            return dict(seconds=time.perf_counter() - t, loss=aux["loss_total"].item(),
+                        aux={k: float(v) for k, v in aux.items()},
+                        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                        launches=launch_counts())
+
+        def forward_aux(name: str) -> dict:
+            """The step's loss terms at the model's parameters now, no update."""
+            from tair_tpu_torch.diffusion.diffusion import Diffusion
+            from tair_tpu_torch.train.step import diffusion_loss_fn
+
+            model = models[name][0]
+            with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+                _, aux = diffusion_loss_fn(
+                    model, Diffusion(model.schedule, parameterization="v"), batch, draws=draws,
+                    spotter_loss_fn=model.spotter_loss_fn(), ocr_loss_weight=TRAIN_OCR_WEIGHT)
+            return {k: float(v) for k, v in aux.items()}
+
+        def moved_now(name: str) -> dict:
+            """Each trained tensor's solid elements' move since the start."""
+            params = dict(models[name][0].named_parameters())
+            return {n: (full_tensor(params[n].detach()) - start[n])[solid[n]] for n in trained}
+
+        steps, moved = {"plain": [], "tp": []}, {}
+        for name in TP_TRAIN_ORDER:
+            steps[name].append(full_step(name))
+            if len(steps[name]) == 1:  # the first step's update
+                moved[name] = moved_now(name)
+        plain.load_state_dict(start, strict=True)  # the plain copy again, from the start
+        models["plain"] = plain_state = plain_step = None
+        release_device_memory()
+        again_state, again_step = make_trainer(plain, torch.bfloat16)
+        models["plain"] = (plain, again_state, again_step)
+        again_steps = [full_step("plain")]
+        moved["again"] = moved_now("plain")
+        # the plain copy's second-step loss terms after its other first updates
+        second_aux = {"again": forward_aux("plain")}
+
+        def first_update_from(grads: dict) -> None:
+            """AdamW's first update from `grads` on the plain copy from the start."""
+            plain.load_state_dict(start, strict=True)
+            optimizer = create_train_state(plain, "stage3", TRAIN_LR).optimizer
+            params = dict(plain.named_parameters())
+            for n in trained:
+                params[n].grad = grads[n].to(dev)
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+
+        first_update_from(grads_rescaled)
+        del grads_rescaled
+        moved["rescaled"] = moved_now("plain")
+        second_aux["rescaled"] = forward_aux("plain")
+        plain.load_state_dict(start, strict=True)
+        first_update_from(loss_and_grads("plain", TP_TRAIN_RESCALE_OTHER)[1])
+        second_aux[f"rescaled_{TP_TRAIN_RESCALE_OTHER:g}"] = forward_aux("plain")
+        param_tp, param_again, param_rescaled = (
+            spread(moved[n], moved["plain"], moved["plain"], noise)
+            for n in ("tp", "again", "rescaled"))
+        for d in (param_tp, param_again, param_rescaled):
+            d.pop("per")
+        solid_share = (sum(int(m.sum()) for m in solid.values())
+                       / sum(m.numel() for m in solid.values()))
+        # where the TP step's time goes: one step of each on the device alone
+        profiles = {name: profiled(lambda name=name: full_step(name)["seconds"],
+                                   watch=TP_TRAIN_WATCH, cpu=False)
+                    for name in ("plain", "tp")}
+
+        def update_ms(optimizer) -> float:
+            """ms of one AdamW update (zero gradients), median of 3 after one."""
+            params = [p for g in optimizer.param_groups for p in g["params"]]
+            for p in params:
+                p.grad = torch.zeros_like(p)
+            times = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                optimizer.step()
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t))
+            optimizer.zero_grad(set_to_none=True)
+            return statistics.median(times[1:])
+
+        # AdamW's update where FSDP's DTensors and plain tensors mix: two
+        # multi-tensor passes (``train.step.make_optimizer``), against one on
+        # the plain model's tensors and a tensor-by-tensor update there
+        plain_params = [p for g in again_state.optimizer.param_groups for p in g["params"]]
+        adamw_ms = dict(plain_multi_tensor=update_ms(again_state.optimizer),
+                        plain_tensor_by_tensor=update_ms(torch.optim.AdamW(
+                            plain_params, lr=1e-12, foreach=False)),
+                        tp_fsdp_two_passes=update_ms(tp_state.optimizer),
+                        tensors=len(plain_params))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    held_tp = local_bytes(tp.parameters())
+    del moved, solid
+    p0, t0_ = steps["plain"][0], steps["tp"][0]
+    losses = {n: [r["loss"] for r in rs] for n, rs in steps.items()}
+    losses["plain_again"] = [r["loss"] for r in again_steps]
+    # the first steps start from the same parameters; the second TP step from
+    # an update that noise-level gradients moved by +-lr
+    second = abs(losses["tp"][1] - losses["plain"][1]) / abs(losses["plain"][1])
+    terms = {n: steps[n][1]["aux"] for n in ("plain", "tp")}
+    diffusion_rel = (abs(terms["tp"]["loss_diffusion"] - terms["plain"]["loss_diffusion"])
+                     / abs(terms["plain"]["loss_diffusion"]))
+    ocr_move = abs(p0["aux"]["loss_ocr"] - terms["plain"]["loss_ocr"])
+    ocr_share = abs(terms["tp"]["loss_ocr"] - terms["plain"]["loss_ocr"]) / max(ocr_move, 1e-30)
+    second_check = dict(
+        loss_total_rel_diff=second, loss_diffusion_rel_diff=diffusion_rel,
+        loss_ocr_share_of_first_move=ocr_share, first_move_of_loss_ocr=ocr_move,
+        terms={**terms, **{f"plain_{k}": v for k, v in second_aux.items()}})
+    if not (within(param_tp, larger(param_again, param_rescaled))
+            and losses["tp"][0] == losses["plain"][0] == losses["plain_again"][0]
+            and diffusion_rel <= TRAIN_SCALE_LOSS_RTOL and ocr_share <= TP_TRAIN_OCR_SHARE
+            and t0_["launches"] == p0["launches"]):
+        raise AssertionError(
+            f"tp_train: the first update TP {param_tp}, plain again {param_again}, from the "
+            f"rescaled backward {param_rescaled}; losses {losses}, the second step "
+            f"{second_check}; launches TP {t0_['launches']}, plain {p0['launches']}")
+    emit("tp_train", card=torch.cuda.get_device_name(0), stage="stage3",
+         geometry="build_default_model, 512x512, batch 1, 8 padded target instances (5 real)",
+         master_dtype="float32", compute_dtype="bfloat16",
+         group="NCCL, world size 1, in-process store", mesh=dict(data=1, model=1),
+         fsdp_placement_of=dict(zip(("n_data", "n_model"), TP_TRAIN_PLACEMENT)),
+         sharded_layers=layers, column_parallel=kinds.count("column"),
+         row_parallel=kinds.count("row"), partial_gradient_params=len(partial),
+         fsdp_units=len(units), fsdp_sharded_params=sum(d is not None for d in dims.values()),
+         model_build_seconds=build_seconds, param_bytes_held=held_tp,
+         loss=dict(plain=loss_plain, tp=loss_tp, plain_again=loss_again),
+         grad_rel_norm_diff=dict(tp=grad_tp, plain_again=grad_again,
+                                 plain_rescaled=grad_rescaled, rescale=TP_TRAIN_RESCALE),
+         first_update_rel_norm_diff=dict(tp=param_tp, plain_again=param_again,
+                                         plain_rescaled=param_rescaled,
+                                         solid_share=solid_share, solid=TP_TRAIN_SOLID),
+         noise_gradient_tensors=dict(
+            count=len(noise), names=noise, threshold=TP_TRAIN_NOISE,
+            share_of_value_gradient={n: noise_share[n] for n in noise},
+            least_share_kept=min((r for n, r in noise_share.items() if n not in noise),
+                                 default=None)),
+        planted_fault=dict(zeroed_partial_bias_gradients=len(planted), gradients=grad_fault,
+                           caught=True),
+        adamw_update_ms=adamw_ms,
+         order=list(TP_TRAIN_ORDER),
+         step_seconds={n: [r["seconds"] for r in rs] for n, rs in steps.items()},
+         again_step_seconds=[r["seconds"] for r in again_steps],
+         peak_memory_bytes={n: [r["peak_memory_bytes"] for r in rs] for n, rs in steps.items()},
+         step_losses=losses, second_step=second_check,
+         profile={name: {k: p[k] for k in ("wall_seconds", "wall_seconds_under_profiler",
+                                           "device_busy_seconds", "device_idle_share",
+                                           "kernel_launches", "watched")}
+                  for name, p in profiles.items()},
+         top_kernels={name: p["top_kernels"][:12] for name, p in profiles.items()},
+         launches={k: n for k, n in t0_["launches"].items() if n}, launches_equal_plain=True,
+         tolerance=f"the first steps' losses equal, the second's diffusion loss within "
+                   f"{TRAIN_SCALE_LOSS_RTOL} and OCR loss within {TP_TRAIN_OCR_SHARE} of the "
+                   f"first update's move of it; |TP - plain| / |plain| over all trained tensors "
+                   f"at once, its median and its largest over the tensors, of the gradients "
+                   f"and of the first update at the elements whose gradient is at least "
+                   f"{TP_TRAIN_SOLID} of its tensor's rms, within {TRAIN_SCALE_GRAD_SPREAD} x "
+                   f"the larger of the plain-again run's and the plain backward's from "
+                   f"{TP_TRAIN_RESCALE} x the loss + {TRAIN_SCALE_GRAD_RTOL} (Frobenius "
+                   f"norms), but for "
+                   f"an attention's query and key tensors whose plain gradient is below "
+                   f"{TP_TRAIN_NOISE} of its value tensor's",
+         note="a group of one runs every collective on one card (a copy); the FSDP "
+              "placement is the one a 2 x 2 mesh's data axis gets, held on one card")
+    del plain, tp, models, tp_state, again_state, start
+    release_device_memory()
+    return t0_["launches"]
 
 
 def matcher_step_turns(model, state, batch, gen, matchings: int) -> dict:
@@ -3926,6 +4404,27 @@ def check_quant_kernels(sites: list, smi: str, rng: np.random.Generator) -> list
         torch.cuda.synchronize()
         if not torch.equal(got2, want):
             raise AssertionError(f"int8_conv {xs} x {ws} s{stride}: a second call differs")
+        # a row-parallel site's modes under tensor parallelism: Q2's amax-only
+        # pass, Q2 from that amax on the device (the dynamic path's bits at
+        # equal amax), Q1's int32 accumulators (the fused epilogue's bits
+        # after `_rescale`), each against its plain version
+        amax = quant.activation_amax(x2d)
+        x8_dev, stats_dev = quant.quantize_activation(x2d, amax.clone())
+        acc = quant.int8_conv(x8v, w8, wscale, stats, None, torch.int32, stride, pad)
+        amax_plain = quant.activation_amax_plain(x2d)
+        dev_plain = quant.quantize_activation_plain(x2d, amax_plain)
+        acc_plain = quant.int8_conv_plain(x8v, w8, stats, wscale, None, torch.int32, stride, pad)
+        rescaled = quant._rescale(acc, wscale, stats[1], bias, torch.bfloat16)
+        torch.cuda.synchronize()
+        if not (torch.equal(amax, amax_plain) and torch.equal(x8_dev, dev_plain[0])
+                and torch.equal(stats_dev, dev_plain[1]) and torch.equal(x8_dev, x8)
+                and torch.equal(stats_dev, stats)):
+            raise AssertionError(f"quant_act {xs}: the amax-only or device-amax mode differs "
+                                 "from its plain version or from the dynamic path")
+        if not (torch.equal(acc, acc_plain) and torch.equal(rescaled, got)):
+            raise AssertionError(f"int8_conv {xs} x {ws} s{stride}: the int32 mode differs from "
+                                 "its plain version, or its rescale from the fused epilogue")
+        del acc_plain, rescaled, dev_plain
 
         if dense:
             w2d = weight.reshape(o, c)
@@ -3988,7 +4487,7 @@ def check_quant_kernels(sites: list, smi: str, rng: np.random.Generator) -> list
                                      warmup=1, reps=3, inner=1),
                 act_host_ms_per_call=host_ms(lambda: quant.quantize_activation(x2d, None), n=200),
             )
-        del x, weight, x8, x8v, w8, got, got2, want
+        del x, weight, x8, x8v, w8, got, got2, want, acc, amax, x8_dev
     per_step = {
         key: sum(r[key] * r["sites_per_step"] for r in rows if r[key] is not None)
         for key in ("ms", "bound_ms", "bf16_library_ms", "int8_route_ms", "act_ms",
@@ -4009,7 +4508,11 @@ def check_quant_kernels(sites: list, smi: str, rng: np.random.Generator) -> list
               "bfloat16 at the shape; int8_route_ms: pad + unfold + torch._int_mm + the "
               "epilogue in tensor ops; schedule: Q1's (tile width, splits of K, steps a "
               "split); per_step: each shape's time times its sites in one ControlNet + "
-              "UNet step")
+              "UNet step; the modes of a row-parallel site under tensor parallelism (Q1's "
+              "int32 accumulators, Q2's amax-only and device-amax passes) are held bit for "
+              "bit against their plain versions at every shape here (the device amax to "
+              "the dynamic path, the accumulators' rescale to Q1's epilogue) and timed at "
+              "the row-parallel sites' shapes (check_row_modes)")
     head = next(r for r in rows if r["head"])
     common = dict(route="cuda", shape=head["shape"], library_ms=None, paths=("quant",),
                   sites_per_step=len(sites), distinct_shapes=len(rows))
@@ -4038,6 +4541,115 @@ def check_quant_kernels(sites: list, smi: str, rng: np.random.Generator) -> list
     ]
 
 
+def check_row_modes(row_sites: list, smi: str, rng: np.random.Generator) -> list:
+    """The modes that a row-parallel quantized site of w8a8 under tensor
+    parallelism runs (``quant.w8a8_linear_row``: Q2's amax-only pass, Q2
+    from the reduced amax on the device, Q1's int32 accumulators), at each
+    distinct shape of the row-parallel sites of one ControlNet + UNet step
+    (`row_sites`: (rows, in features, out features) of each call), on seeded
+    bfloat16 values: each held bit for bit against its plain version, device
+    ms of one call by CUDA-graph replay, its bound, and the library
+    yardsticks (``torch._int_mm`` for the accumulators, the inf-norm for the
+    amax); per step, each shape's time times its sites; the plain versions'
+    ms at the head shape, the one whose sites do the most operations in a
+    step. Returns the three modes' entries of the kernels line."""
+    from tair_tpu_torch.ops import quant
+
+    shapes = {}
+    for key in row_sites:
+        shapes[key] = shapes.get(key, 0) + 1
+    head_key = max(shapes, key=lambda k: k[0] * k[1] * k[2] * shapes[k])
+    rows = []
+    for (m, c, o), n_sites in shapes.items():
+        x2d = torch.from_numpy(rng.standard_normal((m, c), dtype=np.float32)).cuda().to(
+            torch.bfloat16)
+        weight = torch.from_numpy(rng.standard_normal((o, c, 1, 1), dtype=np.float32)
+                                  / np.sqrt(c)).cuda().to(torch.bfloat16)
+        w8, wscale = quant._prepare_weight(weight)
+        cp = w8.shape[3]
+        amax = quant.activation_amax(x2d)
+        x8, stats = quant.quantize_activation(x2d, amax.clone())
+        x8v = x8.view(m, 1, 1, cp)
+        acc = quant.int8_conv(x8v, w8, wscale, stats, None, torch.int32, 1, 0)
+        plain_amax = quant.activation_amax_plain(x2d)
+        plain_x8, plain_stats = quant.quantize_activation_plain(x2d, plain_amax)
+        plain_acc = quant.int8_conv_plain(x8v, w8, stats, wscale, None, torch.int32, 1, 0)
+        w8t = w8.view(o, cp).t()
+        try:  # a yardstick only: _int_mm refuses some shapes
+            lib_ms = graph_ms(lambda: torch._int_mm(x8, w8t))
+            lib_equal = torch.equal(torch._int_mm(x8, w8t).view(acc.shape), acc)
+        except RuntimeError:
+            lib_ms = lib_equal = None
+        torch.cuda.synchronize()
+        if not (torch.equal(amax, plain_amax) and torch.equal(x8, plain_x8)
+                and torch.equal(stats, plain_stats) and torch.equal(acc, plain_acc)
+                and lib_equal is not False):
+            raise AssertionError(f"row-parallel site modes at rows {m}, in {c}, out {o}: not "
+                                 f"equal to their plain versions or to torch._int_mm")
+        ops = 2.0 * m * o * cp
+        acc_bound = bound_of(ops, x8.numel() + w8.numel() + 4 * m * o, torch.int8)
+        amax_bound = bound_of(0.0, 2 * x2d.numel() + 8, torch.bfloat16)
+        dev_bound = bound_of(0.0, 2 * x2d.numel() + x8.numel() + 8, torch.bfloat16)
+        row = dict(
+            shape=f"dense x[{m},{c}] w[{o},1,1,{cp}]", sites_per_step=n_sites,
+            m=m, n=o, k=cp, head=(m, c, o) == head_key,
+            conv_acc_ms=graph_ms(lambda: quant.int8_conv(x8v, w8, wscale, stats, None,
+                                                         torch.int32, 1, 0)),
+            conv_acc_bound_ms=acc_bound["bound_ms"], conv_acc_bound_by=acc_bound["bound_by"],
+            conv_acc_library_ms=lib_ms,
+            act_amax_ms=graph_ms(lambda: quant.activation_amax(x2d)),
+            act_amax_bound_ms=amax_bound["bound_ms"], act_amax_bound_by=amax_bound["bound_by"],
+            act_amax_library_ms=graph_ms(lambda: torch.linalg.vector_norm(x2d, float("inf"))),
+            act_device_ms=graph_ms(lambda: quant.quantize_activation(x2d, amax)),
+            act_device_bound_ms=dev_bound["bound_ms"], act_device_bound_by=dev_bound["bound_by"],
+        )
+        if row["head"]:
+            row.update(
+                conv_acc_plain_ms=time_ms(lambda: quant.int8_conv_plain(
+                    x8v, w8, stats, wscale, None, torch.int32, 1, 0), warmup=1, reps=3, inner=1),
+                act_amax_plain_ms=time_ms(lambda: quant.activation_amax_plain(x2d),
+                                          warmup=1, reps=3, inner=1),
+                act_device_plain_ms=time_ms(lambda: quant.quantize_activation_plain(x2d, amax),
+                                            warmup=1, reps=3, inner=1),
+            )
+        rows.append(row)
+        del x2d, weight, w8, x8, x8v, acc, plain_acc, amax
+    per_step = {key: sum(r[key] * r["sites_per_step"] for r in rows if r[key] is not None)
+                for mode in ("conv_acc", "act_amax", "act_device")
+                for key in (f"{mode}_ms", f"{mode}_bound_ms")
+                + ((f"{mode}_library_ms",) if mode != "act_device" else ())}
+    emit("kernels", kernel="w8a8_row_parallel_modes", card=smi, sites_per_step=len(row_sites),
+         shapes=rows, per_step=per_step,
+         note="the row-parallel sites of one ControlNet + UNet step of the full-width model "
+              "under tensor parallelism (a NCCL group of one: each rank's shapes at n_model "
+              "1); ms: device ms of one call by CUDA events around the replay of a CUDA "
+              "graph of 20 calls; conv_acc_library_ms: torch._int_mm(x8, w8^T), the same "
+              "int32 accumulators; act_amax_library_ms: torch.linalg.vector_norm(x, inf); "
+              "plain: CUDA events around eager calls, at the head shape; per_step: each "
+              "shape's time times its sites in a step")
+    head = next(r for r in rows if r["head"])
+    common = dict(route="cuda", shape=head["shape"], paths=("quant_tp",),
+                  row_sites_per_step=len(row_sites), distinct_shapes=len(rows))
+    entries = []
+    for name, mode, source, replaces in (
+            ("w8a8_conv_acc", "conv_acc", "tair_tpu_torch/ops/csrc/int8_conv.cu",
+             "tair_tpu/ops/quant.py:217 (w8a8_dot_general's s8 x s8 -> s32 dot, before "
+             ":219's rescale; XLA, no Pallas kernel)"),
+            ("w8a8_act_amax", "act_amax", "tair_tpu_torch/ops/csrc/quant_act.cu",
+             "tair_tpu/ops/quant.py:179 (_quant_act's abs-max; XLA, no Pallas kernel)"),
+            ("w8a8_act_device", "act_device", "tair_tpu_torch/ops/csrc/quant_act.cu",
+             "tair_tpu/ops/quant.py:177 (_quant_act's quantize with its clip; XLA, no "
+             "Pallas kernel)")):
+        entries.append(dict(
+            name=name, source=source, replaces=replaces, max_abs_err=0.0,
+            ms=head[f"{mode}_ms"], plain_ms=head[f"{mode}_plain_ms"],
+            bound_ms=head[f"{mode}_bound_ms"], bound_by=head[f"{mode}_bound_by"],
+            library_ms=head.get(f"{mode}_library_ms"),
+            ms_per_step=per_step[f"{mode}_ms"], bound_ms_per_step=per_step[f"{mode}_bound_ms"],
+            library_ms_per_step=per_step.get(f"{mode}_library_ms"), **common))
+    return entries
+
+
 def set_quant(cldm, setting: str, record, sites, sites_sel) -> int:
     """Sets ControlLDM's w8a8 fields for a setting of phase quant; returns its
     quantized sites a step."""
@@ -4045,6 +4657,97 @@ def set_quant(cldm, setting: str, record, sites, sites_sel) -> int:
     cldm.quant_static_amax = tuple(record) if setting == "static" else None
     cldm.quant_min_ratio = QUANT_SELECTIVE_RATIO if setting == "selective" else None
     return len({"bf16": [], "selective": sites_sel}.get(setting, sites))
+
+
+QUANT_TP_ORDER = ("dynamic", "static", "selective")
+
+
+def quant_under_tp(model, lq, seed: int, steps: int, record, sites, sites_sel,
+                   runs: dict, step_inputs: tuple) -> tuple:
+    """w8a8 under tensor parallelism: the full-width model as phase tp_sp
+    builds it (``shard_params_tp`` on a 1 x 1 mesh of a NCCL group of one,
+    the spotter encoder sequence-parallel) in the settings of QUANT_TP_ORDER.
+    Gates: each request bit-equal to the plain w8a8 request of its setting
+    (`runs`); its launches the plain request's, but for each row-parallel
+    quantized site of a step Q1's int32 mode in place of Q1 and, dynamic,
+    Q2's amax-only and device-amax passes in place of Q2's dynamic one
+    (static: its static pass); the row-parallel sites those of the model's
+    quantizable row-parallel layers (all of them unless selective). Also
+    logs, in one dynamic calibration step on `step_inputs` (x, t, cond), the
+    (rows, in features, out features) of each row-parallel site. Returns
+    (the phase line's fields, the first dynamic request's launches, the row
+    sites of a step)."""
+    import torch.distributed as dist
+
+    from tair_tpu_torch.ops import quant
+    from tair_tpu_torch.parallel.mesh import create_mesh, init_distributed
+    from tair_tpu_torch.parallel.tp import ParallelLinear, shard_params_tp
+    from tair_tpu_torch.pipeline import build_default_model
+
+    served = build_default_model(dtype=torch.bfloat16, device=lq.device,
+                                 testr_overrides={"enc_sp_axis": "model"})
+    served.load_state_dict(model.state_dict(), strict=True)
+    init_distributed("cuda", group_of_one=True)
+    done = {name: [] for name in QUANT_TP_ORDER}
+    try:
+        mesh = create_mesh(1, 1, device_type="cuda")
+        layers, _ = shard_params_tp(mesh, served)
+        row_layers = sum(isinstance(m, ParallelLinear) and m.kind == "row" and m.quantizable
+                         for m in served.modules())
+        set_quant(served.cldm, "dynamic", record, sites, sites_sel)
+        row_sites, linear_row = [], quant.w8a8_linear_row
+
+        def logged(x, weight, bias, group, cache=None):
+            row_sites.append((x.numel() // x.shape[-1], x.shape[-1], weight.shape[0]))
+            return linear_row(x, weight, bias, group, cache)
+
+        quant.w8a8_linear_row = logged
+        try:
+            served.cldm.calibrate_quant(*step_inputs)
+        finally:
+            quant.w8a8_linear_row = linear_row
+        if len(row_sites) != row_layers:
+            raise AssertionError(f"quant under TP: {len(row_sites)} row-parallel sites a step, "
+                                 f"{row_layers} row-parallel quantizable layers")
+        for name in QUANT_TP_ORDER:
+            set_quant(served.cldm, name, record, sites, sites_sel)
+            reset_launch_counts()
+            image, tokens, seconds = restore_request(served, lq, seed, steps)
+            got = launch_counts()
+            plain = runs[name][0]
+            check_restored(image, tokens)
+            if not (torch.equal(image, plain["image"]) and torch.equal(tokens, plain["tokens"])):
+                raise AssertionError(
+                    f"quant under TP {name}: the request differs from the plain w8a8 one: max "
+                    f"|d| {(image.float() - plain['image'].float()).abs().max().item()}")
+            want, rows = plain["counts"], got["w8a8_conv_acc"]
+            amax_passes = rows if name != "static" else 0
+            others = [k for k in got if not k.startswith("w8a8_") and got[k] != want[k]]
+            if (others or rows < 1 or got["w8a8_conv"] + rows != want["w8a8_conv"]
+                    or got["w8a8_act_amax"] != amax_passes
+                    or got["w8a8_act_device"] != amax_passes
+                    or got["w8a8_act_dynamic"] + amax_passes != want["w8a8_act_dynamic"]
+                    or got["w8a8_act_static"] != want["w8a8_act_static"]
+                    or (name != "selective" and rows != steps * row_layers)):
+                raise AssertionError(f"quant under TP {name}: launches {got}, plain {want}, "
+                                     f"{row_layers} row-parallel quantizable layers")
+            done[name].append(dict(seconds=seconds, counts=got))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    del served
+    release_device_memory()
+    fields = dict(
+        order=list(QUANT_TP_ORDER), group="NCCL, world size 1, in-process store",
+        sharded_layers=layers, row_parallel_quantizable_layers=row_layers,
+        bit_equal_to_plain_w8a8=True,
+        seconds={name: [r["seconds"] for r in rs] for name, rs in done.items()},
+        launches_per_request={name: {k: v for k, v in rs[0]["counts"].items() if v}
+                              for name, rs in done.items()},
+        row_parallel_site_calls_per_request={name: rs[0]["counts"]["w8a8_conv_acc"]
+                                             for name, rs in done.items()},
+    )
+    return fields, done["dynamic"][0]["counts"], row_sites
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -4063,11 +4766,13 @@ def phase_quant(model, lq, seed: int, steps: int, smi: str) -> tuple:
     quantized site and step, two: one Q2 (dynamic, or static in the static
     setting) and one Q1, split K or not, and no other w8a8 kernel; a
     quantized image differs from the bf16 one; host
-    synchronisations per step equal bf16's. Measures s/request, peak, one
-    profiled request per setting (device busy s, idle share, launches) and
-    the image's max |d| and PSNR against bf16, and the seconds of each part
-    of the phase. Returns (the kernel entries, the first dynamic request's
-    launches)."""
+    synchronisations per step equal bf16's. Then the same requests under
+    tensor parallelism (`quant_under_tp`), bit-equal to these. Measures
+    s/request, peak, one profiled request per setting (device busy s, idle
+    share, launches) and the image's max |d| and PSNR against bf16, and the
+    seconds of each part of the phase. Returns (the kernel entries, the
+    first dynamic request's launches, the first dynamic request's launches
+    under tensor parallelism)."""
     t_phase = time.perf_counter()
     seconds_of, t_part = {}, time.perf_counter()
 
@@ -4118,6 +4823,11 @@ def phase_quant(model, lq, seed: int, steps: int, smi: str) -> tuple:
             if name != "bf16" and torch.equal(rs[0]["image"], runs["bf16"][0]["image"]):
                 raise AssertionError(f"quant {name}: the image is the bf16 one")
         part_done("requests")
+        tp_fields, tp_counts, row_sites = quant_under_tp(
+            model, lq, seed, steps, record, sites, sites_sel, runs, (x, t, cond))
+        part_done("tensor_parallel")
+        kernels += check_row_modes(row_sites, smi, np.random.default_rng(seed + 12))
+        part_done("row_parallel_modes")
         profiles, syncs = {}, {}
         for name in QUANT_SETTINGS:
             set_quant(cldm, name, record, sites, sites_sel)
@@ -4165,9 +4875,10 @@ def phase_quant(model, lq, seed: int, steps: int, smi: str) -> tuple:
             for name, rs in runs.items()
             for n_sites in [{"dynamic": len(record), "static": len(record),
                              "selective": len(record_sel)}.get(name, 0)] if n_sites},
+        tensor_parallel=tp_fields,
         seconds_of=seconds_of, phase_seconds=time.perf_counter() - t_phase,
     )
-    return kernels, runs["dynamic"][0]["counts"]
+    return kernels, runs["dynamic"][0]["counts"], tp_counts
 
 
 def proposal_topk_turns(model, lq) -> dict:
@@ -4604,6 +5315,7 @@ def main() -> None:
             check_msda_bwd(rng, smi),
             check_patchify(rng, smi, args.steps),
         ]
+        check_flash_routes(rng, smi)
     if "probes" in phases:
         probe_kernels, path_launches["probes"] = phase_probes(smi, PROBE_REPS)
         kernels += probe_kernels
@@ -4630,7 +5342,7 @@ def main() -> None:
         if "vae_grad" in phases:
             path_launches["vae_grad"] = phase_vae_grad(model, args.seed)
         if "quant" in phases:
-            quant_kernels, path_launches["quant"] = phase_quant(
+            quant_kernels, path_launches["quant"], path_launches["quant_tp"] = phase_quant(
                 model, lq, args.seed, SERVE_STEPS, smi)
             kernels += quant_kernels
         if "matcher" in phases:
@@ -4660,6 +5372,11 @@ def main() -> None:
         for entry in kernels:
             if "train" in entry["paths"]:  # every kernel of the train step
                 entry["paths"] = (*entry["paths"], "train_scale")
+    if "tp_train" in phases:
+        path_launches["tp_train"] = phase_tp_train(args.seed)
+        for entry in kernels:
+            if "train" in entry["paths"]:  # every kernel of the train step, under TP
+                entry["paths"] = (*entry["paths"], "tp_train")
     iqa_weights = {}
     if phases & {"iqa", "train_entry", "val"}:
         import shutil

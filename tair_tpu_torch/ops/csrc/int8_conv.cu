@@ -11,6 +11,10 @@
 //                       (zero outside the image), in int32
 //   out[b, oy, ox, o] = T(float(acc) * (wscale[o] * xscale))        T = float or bf16
 //   out += bias[o]     in T, after the rounding to T (Flax adds the bias after the product)
+// or, with T = int32 (out_dtype 2), out = acc: the accumulators without the
+// epilogue, which a row-parallel site under tensor parallelism (parallel/tp.py)
+// sums over the model axis before it rescales them (ops/quant.py::_rescale,
+// bit-equal to this epilogue).
 // with xscale = stats[1], read on the device. A dense layer is the 1 x 1 case
 // over its tokens (B = tokens, H = W = 1).
 //
@@ -180,6 +184,7 @@ __device__ inline void named_sync(int id, int threads) {
 
 __device__ inline float to_float(float x) { return x; }
 __device__ inline float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ inline float to_float(int x) { return static_cast<float>(x); }  // no bias in int32 mode
 template <typename T>
 __device__ inline T round_to(float x);
 template <>
@@ -195,12 +200,18 @@ __device__ inline T rescale(int acc, float scale, float bias, bool has_bias) {
   if (has_bias) v = round_to<T>(__fadd_rn(to_float(v), bias));
   return v;
 }
+// int32 mode: the sum itself
+template <>
+__device__ inline int rescale<int>(int acc, float, float, bool) { return acc; }
 
 __device__ inline void store_pair(uint8_t* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 __device__ inline void store_pair(uint8_t* p, __nv_bfloat16 a, __nv_bfloat16 b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __halves2bfloat162(a, b);
+}
+__device__ inline void store_pair(uint8_t* p, int a, int b) {
+  *reinterpret_cast<int2*>(p) = make_int2(a, b);
 }
 
 template <typename T, int BN>
@@ -315,7 +326,7 @@ int8_conv_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
     const int warp = (tid >> 5) & 3, lane = tid & 31;
     if (tid < BN) {  // the epilogue's factors of each column, read before the epilogue's barrier
       const int n = n0 + tid;
-      col_scale[tid] = n < g.O ? __fmul_rn(wscale[n], stats[1]) : 0.f;
+      col_scale[tid] = n < g.O && wscale != nullptr ? __fmul_rn(wscale[n], stats[1]) : 0.f;
       col_bias[tid] = n < g.O && bias != nullptr ? to_float(bias[n]) : 0.f;
     }
     int acc[BN / 2];
@@ -523,7 +534,8 @@ int launch(const int8_t* x8, const int8_t* w8, const float* wscale, const float*
 
 // x8 [B, H, W, Cp], w8 [O, KH, KW, Cp] int8 (16-byte aligned, Cp % 16 == 0);
 // stats [2] float32 (xscale at [1]); wscale [O] float32; bias [O] in the output
-// type when has_bias; out [B, Ho, Wo, O] float32 (out_dtype 0) or bfloat16 (1).
+// type when has_bias; out [B, Ho, Wo, O] float32 (out_dtype 0) or bfloat16 (1),
+// or int32 (2): the accumulators, with no bias, wscale and stats unread.
 // The tile width bn (32, 160 or 256), the splits of K (at most 8: one cluster)
 // and the 128-byte K steps of a split (kb_per) are
 // ops/quant.py::conv_schedule's: every split holds at least one step. Returns
@@ -563,6 +575,9 @@ extern "C" int int8_conv_s8(const void* x8, const void* stats, const void* w8,
   if (out_dtype == 1)
     return launch(x, w, ws, st, has_bias ? static_cast<const __nv_bfloat16*>(bias) : nullptr,
                   static_cast<__nv_bfloat16*>(out), bn, splits, kb_per, g, s);
+  if (out_dtype == 2 && !has_bias)
+    return launch<int>(x, w, nullptr, nullptr, nullptr, static_cast<int*>(out), bn, splits,
+                       kb_per, g, s);
   return -1;
 }
 

@@ -4,13 +4,22 @@
 // No Pallas kernel stands behind it: it is tair_tpu/ops/quant.py::_quant_act,
 // which XLA fuses in front of the s8 x s8 -> s32 product there. Function, for
 // x [rows, C] (float32 or bfloat16, contiguous):
-//   amax     = max |x|                    (dynamic; NaN if x holds one) or the
-//                                          caller's amax (static)
+//   amax     = max |x|                    (dynamic; NaN if x holds one), the
+//                                          caller's amax (static), or the amax
+//                                          that stats[0] holds on the device
+//                                          (device amax)
 //   scale    = amax <= 0 ? 1 : amax / 127 (IEEE division, as the JAX package;
 //                                          a NaN amax gives a NaN scale)
 //   x8[r, c] = rint(x[r, c] / scale)      (half to even; clipped to +-127 on the
-//                                          static path) for c < C, 0 for C <= c < Cp
+//                                          static and device-amax paths) for c < C,
+//                                          0 for C <= c < Cp
 //   stats    = (amax, scale)
+// and a fourth mode, amax only: stats = (max |x|, 0), no x8. The last two serve
+// a row-parallel site under tensor parallelism (parallel/tp.py): its amax-only
+// pass gives this process's abs-max, which the caller all-reduces (MAX over
+// the model axis, on the device) into stats[0] before the device-amax pass
+// quantizes with the axis' scale; at equal amax the device-amax path gives
+// the dynamic path's bits.
 // x8 is [rows, Cp] with Cp a multiple of 16: channels innermost, padded, the
 // layout the int8 convolution (int8_conv.cu) reads in 16-byte pieces.
 //
@@ -25,8 +34,9 @@
 // device scratch and left ready for the next call), so the scale never leaves
 // the device and the host never waits; then each thread writes 8 int8 values
 // at a time as one 8-byte store, reading x a second time (from L2) only for
-// groups beyond the four it holds. Static: the quantize pass
-// alone. The division stays a division (no reciprocal), so the kernel equals
+// groups beyond the four it holds. Static and device amax: the quantize pass
+// alone. Amax only: the first pass alone, each block folding into one
+// atomicMax on the bits of stats[0] (zeroed before the launch). The division stays a division (no reciprocal), so the kernel equals
 // its plain version bit for bit.
 
 #include <cuda_bf16.h>
@@ -115,7 +125,35 @@ __device__ inline void load8(const T* p, bool vec, int valid, float (&v)[8]) {
   }
 }
 
-template <typename T, bool kStatic>
+// the modes of quant_act_s8's is_static argument
+constexpr int kDynamic = 0, kStaticAmax = 1, kDeviceAmax = 2, kAmaxOnly = 3;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+act_amax_kernel(const T* __restrict__ x, int64_t rows, int C, int Cp, int vec_rows,
+                unsigned* __restrict__ amax_bits) {
+  __shared__ float warp_maxima[kThreads / 32];
+  const int groups = Cp / 8;
+  const int total = static_cast<int>(rows) * groups;
+  float m = 0.f;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < total; i += gridDim.x * kThreads) {
+    const int r = i / groups;
+    const int c0 = (i - r * groups) * 8;
+    float v[8];
+    load8(x + static_cast<int64_t>(r) * C + c0, vec_rows, C - c0, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) m = max_nan(m, fabsf(v[e]));
+  }
+  m = warp_max(m);
+  if ((threadIdx.x & 31) == 0) warp_maxima[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kThreads / 32; ++w) m = max_nan(m, warp_maxima[w]);
+    atomicMax(amax_bits, __float_as_uint(m));  // |x| or a NaN with its sign cleared: bits order
+  }
+}
+
+template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads)
 quant_act_kernel(const T* __restrict__ x, int64_t rows, int C, int Cp, int vec_rows,
                  unsigned* __restrict__ barrier, float static_amax, int8_t* __restrict__ x8,
@@ -123,6 +161,7 @@ quant_act_kernel(const T* __restrict__ x, int64_t rows, int C, int Cp, int vec_r
   __shared__ float s_scale;
   __shared__ float warp_maxima[kThreads / 32];
   const int gtid = blockIdx.x * kThreads + threadIdx.x;  // rows * Cp < 2^31: int indices
+  constexpr bool kStatic = kMode != kDynamic;  // the clip of the given amax's paths
   const int nth = gridDim.x * kThreads;
   const int groups = Cp / 8;
   const int total = static_cast<int>(rows) * groups;
@@ -181,10 +220,12 @@ quant_act_kernel(const T* __restrict__ x, int64_t rows, int C, int Cp, int vec_r
       s_scale = grid_scale(barrier, m, stats);
     }
   } else if (threadIdx.x == 0) {
-    const float scale = static_amax <= 0.f ? 1.f : __fdiv_rn(static_amax, 127.f);
+    // device amax: stats[0] as the caller left it (read by every block, never written)
+    const float amax = kMode == kDeviceAmax ? stats[0] : static_amax;
+    const float scale = amax <= 0.f ? 1.f : __fdiv_rn(amax, 127.f);
     s_scale = scale;
     if (blockIdx.x == 0) {
-      stats[0] = static_amax;
+      if (kMode != kDeviceAmax) stats[0] = amax;
       stats[1] = scale;
     }
   }
@@ -216,7 +257,7 @@ int resident_blocks() {
   if (cached[dev] == 0) {
     int sms = 0, per_sm = 0;
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, quant_act_kernel<T, false>,
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, quant_act_kernel<T, kDynamic>,
                                                       kThreads, 0) != cudaSuccess)
       return 0;
     cached[dev] = sms * (per_sm < kBlocksPerSm ? per_sm : kBlocksPerSm);
@@ -226,32 +267,44 @@ int resident_blocks() {
 
 template <typename T>
 int launch(const T* x, int64_t rows, int C, int Cp, int8_t* x8, unsigned* barrier,
-           float* stats, bool is_static, float static_amax, cudaStream_t stream) {
+           float* stats, int mode, float static_amax, cudaStream_t stream) {
   // 16-byte loads need every row of x on a 16-byte boundary
   const int per16 = 16 / static_cast<int>(sizeof(T));
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int vec_rows = aligned && C % per16 == 0;
   const int64_t want = rows * (Cp / 8) / kThreads + 1;
-  if (is_static) {
-    const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-    quant_act_kernel<T, true><<<blocks, kThreads, 0, stream>>>(x, rows, C, Cp, vec_rows, nullptr,
-                                                               static_amax, x8, stats);
+  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  if (mode == kAmaxOnly) {
+    const cudaError_t err = cudaMemsetAsync(stats, 0, 2 * sizeof(float), stream);
+    if (err != cudaSuccess) return err;
+    act_amax_kernel<T><<<blocks, kThreads, 0, stream>>>(x, rows, C, Cp, vec_rows,
+                                                        reinterpret_cast<unsigned*>(stats));
+    return cudaGetLastError();
+  }
+  if (mode == kStaticAmax) {
+    quant_act_kernel<T, kStaticAmax><<<blocks, kThreads, 0, stream>>>(
+        x, rows, C, Cp, vec_rows, nullptr, static_amax, x8, stats);
+    return cudaGetLastError();
+  }
+  if (mode == kDeviceAmax) {
+    quant_act_kernel<T, kDeviceAmax><<<blocks, kThreads, 0, stream>>>(
+        x, rows, C, Cp, vec_rows, nullptr, 0.f, x8, stats);
     return cudaGetLastError();
   }
   const int resident = resident_blocks<T>();
   if (resident < 1) return cudaErrorInvalidConfiguration;
-  const int blocks = static_cast<int>(want < resident ? want : resident);
+  const int grid = static_cast<int>(want < resident ? want : resident);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
+  cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, quant_act_kernel<T, false>, x, rows, C, Cp,
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, quant_act_kernel<T, kDynamic>, x, rows, C, Cp,
                                              vec_rows, barrier, 0.f, x8, stats);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -260,7 +313,10 @@ int launch(const T* x, int64_t rows, int C, int Cp, int8_t* x8, unsigned* barrie
 }  // namespace
 
 // x: [rows, C] float32 (dtype 0) or bfloat16 (dtype 1), contiguous; x8: [rows,
-// Cp] int8, 8-byte aligned, rows * Cp < 2^31; stats: 2 floats out. The dynamic path's scratch:
+// Cp] int8, 8-byte aligned, rows * Cp < 2^31 (unused by the amax-only mode);
+// stats: 2 floats out (the device-amax mode reads the amax at [0] and writes
+// the scale at [1]). is_static: 0 dynamic, 1 static (static_amax), 2 device
+// amax, 3 amax only. The dynamic path's scratch:
 // barrier, 4 uint32 (8-byte aligned) that hold zeros before the first call
 // and are left ready for the next (one scratch per stream: two launches must
 // not share it at once). Returns 0, -1 for arguments the kernel does not
@@ -268,9 +324,12 @@ int launch(const T* x, int64_t rows, int C, int Cp, int8_t* x8, unsigned* barrie
 extern "C" int quant_act_s8(const void* x, int dtype, int64_t rows, int C, int Cp, void* x8,
                             void* barrier, void* stats, int is_static, float static_amax,
                             void* stream) {
-  if (rows < 1 || C < 1 || Cp < C || Cp % 16 || reinterpret_cast<uintptr_t>(x8) % 8) return -1;
+  if (is_static < kDynamic || is_static > kAmaxOnly) return -1;
+  if (rows < 1 || C < 1 || Cp < C || Cp % 16) return -1;
+  if (is_static != kAmaxOnly && (x8 == nullptr || reinterpret_cast<uintptr_t>(x8) % 8)) return -1;
   if (rows * Cp > 0x7fffffffLL) return -1;  // int indices
-  if (!is_static && (barrier == nullptr || reinterpret_cast<uintptr_t>(barrier) % 8)) return -1;
+  if (is_static == kDynamic &&
+      (barrier == nullptr || reinterpret_cast<uintptr_t>(barrier) % 8)) return -1;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int8_t* q = static_cast<int8_t*>(x8);
   unsigned* b = static_cast<unsigned*>(barrier);

@@ -16,8 +16,15 @@ dQ and dK/dV in ``csrc/flash_attention_dq_tc.cu`` and
 kernels (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``).
 ``delta = rowsum(dO * O)`` is formed here in float32, outside the kernels, as
 the JAX package does. The plain versions are taken only for tensors that lie
-on the CPU. Every kernel has the head widths ``HEAD_DIMS``: another width
-raises on a CUDA device.
+on the CPU. Every kernel has the head widths ``HEAD_DIMS``; `flash_attention`
+takes any other width up to 512 by padding q, k and v with zeros along D to
+the next of them (`padded_head_dim`) and slicing the output (autograd slices
+dQ, dK and dV back): the scale is the caller's, so the zeros change no logit.
+A width above 512 raises (the JAX kernel, which holds a head's whole K and V
+in VMEM, is bounded there by VMEM instead). A grid holds at
+most `MAX_BH_PAIRS` (batch, head) pairs, so a call with more is cut into
+launches over batch slices, or over heads where H alone passes it
+(`bh_slices`), forward and backward.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -37,6 +45,7 @@ HEAD_DIMS = (16, 32, 64, 128, 512)
 WIDE_HEAD_DIM = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 DKV_QUERY_TILE = 64  # a chunk of the dK/dV query split is a multiple of this
+MAX_BH_PAIRS = 65535  # (batch, head) pairs of one launch: the grid's y extent
 SMS = 132            # streaming multiprocessors of an H100 SXM
 
 # kernel launches made by the wrapper, one count per kernel (never raised by a
@@ -119,6 +128,31 @@ def dkv_chunk_queries(tq: int, splits: int) -> int:
     """Queries per chunk of a split into `splits` chunks: a multiple of 64."""
     tiles = -(-tq // DKV_QUERY_TILE)
     return DKV_QUERY_TILE * -(-tiles // splits)
+
+
+def padded_head_dim(d: int) -> int:
+    """The kernels' head width that a call of width `d` runs at: `d` itself
+    when the kernels have it, else the next wider (zero padding); above the
+    widest, ValueError."""
+    for width in HEAD_DIMS:
+        if width >= d:
+            return width
+    raise ValueError(
+        f"flash_attention takes head widths up to {HEAD_DIMS[-1]} (its widest kernels'), "
+        f"got {d}"
+    )
+
+
+def bh_slices(b: int, h: int, limit: int = MAX_BH_PAIRS):
+    """The launches of a call of `b` x `h` (batch, head) pairs, each at most
+    `limit` pairs, in order: [(batch slice, head slice)]. Slices of whole
+    batch rows where `h` <= `limit`; else each row's heads cut into slices
+    of `limit`. One launch of everything when the pairs fit."""
+    if h <= limit:
+        rows = limit // h
+        return [(slice(b0, min(b, b0 + rows)), slice(0, h)) for b0 in range(0, b, rows)]
+    return [(slice(bi, bi + 1), slice(h0, min(h, h0 + limit)))
+            for bi in range(b) for h0 in range(0, h, limit)]
 
 
 def flash_attention_plain(
@@ -223,8 +257,9 @@ def _launch(
         which = chosen
     if which != "fwd" and which != chosen:
         raise ValueError(f"flash_attention_{which} does not take {q.dtype} at D = {d}")
-    if b * h > 65535:
-        raise ValueError("flash_attention kernel takes at most 65535 (batch, head) pairs")
+    if b * h > MAX_BH_PAIRS:
+        raise ValueError(f"one flash_attention launch takes at most {MAX_BH_PAIRS} (batch, "
+                         "head) pairs: cut the call with bh_slices")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not _rows_aligned(t):
             raise ValueError(
@@ -336,6 +371,34 @@ def _launch_bwd(
     return dq, dk, dv
 
 
+def _launch_split(q, k, v, scale):
+    """`_launch` over the call's `bh_slices`, into one output."""
+    b, tq, h, d = q.shape
+    cuts = bh_slices(b, h)
+    if len(cuts) == 1:
+        return _launch(q, k, v, scale)
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    for bs, hs in cuts:
+        out[bs, :, hs], lse[bs, hs] = _launch(q[bs, :, hs], k[bs, :, hs], v[bs, :, hs], scale)
+    return out, lse
+
+
+def _launch_bwd_split(q, k, v, out, lse, do, scale):
+    """`_launch_bwd` over the call's `bh_slices`, into whole gradients."""
+    b, _, h, _ = q.shape
+    cuts = bh_slices(b, h)
+    if len(cuts) == 1:
+        return _launch_bwd(q, k, v, out, lse, do, scale)
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    for bs, hs in cuts:
+        parts = _launch_bwd(q[bs, :, hs], k[bs, :, hs], v[bs, :, hs], out[bs, :, hs],
+                            lse[bs, hs].contiguous(), do[bs, :, hs], scale)
+        for g, part in zip(grads, parts):
+            g[bs, :, hs] = part
+    return grads
+
+
 class _FlashAttention(torch.autograd.Function):
     """The forward kernel with the two backward kernels behind it; on CPU
     tensors, the plain versions of both."""
@@ -343,7 +406,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale):
         if q.device.type == "cuda":
-            out, lse = _launch(q, k, v, scale)
+            out, lse = _launch_split(q, k, v, scale)
         else:
             out, lse = flash_attention_plain(q, k, v, scale)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -355,7 +418,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         if q.device.type == "cuda":
-            dq, dk, dv = _launch_bwd(q, k, v, out, lse, do, ctx.scale)
+            dq, dk, dv = _launch_bwd_split(q, k, v, out, lse, do, ctx.scale)
         else:
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, do, ctx.scale)
         return dq, dk, dv, None
@@ -367,9 +430,16 @@ def flash_attention(
     v: torch.Tensor,
     scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """softmax(q k^T * scale) v -> (O [B, Tq, H, D], lse [B, H, Tq] float32)."""
+    """softmax(q k^T * scale) v -> (O [B, Tq, H, D], lse [B, H, Tq] float32).
+    A head width the kernels lack runs zero-padded to `padded_head_dim`."""
     _check(q, k, v)
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if q.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"flash_attention has no kernel for device {q.device}")
-    return _FlashAttention.apply(q, k, v, scale)
+    width = padded_head_dim(d)
+    if width == d:
+        return _FlashAttention.apply(q, k, v, scale)
+    pad = (0, width - d)
+    out, lse = _FlashAttention.apply(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), scale)
+    return out[..., :d], lse

@@ -40,6 +40,18 @@ a wrapper of its own:
       the card (a tile's splits one cluster, summed in its shared memory;
       ``conv_schedule``), the rescale and the bias in its epilogue.
 
+Under tensor parallelism (``parallel/tp.py``) a row-parallel dense site holds
+a slice of the input features, so it computes what the JAX package's
+global program does on the whole tensors (`w8a8_linear_row`): Q2's amax-only
+mode gives this process's abs-max, an all-reduce (MAX, on the float's bits,
+which keeps a NaN) over the model axis makes it the whole activation's, Q2's
+device-amax mode quantizes with it (the static path's rounding and clip,
+bit-equal to the dynamic path at equal amax), the weight's per-channel
+abs-max is the axis' maximum too (`WeightCache` with a group), Q1's int32
+mode writes the accumulators, which an all-reduce sums (exactly) before the
+epilogue (`_rescale`, bit-equal to Q1's). The site then equals one process's
+bit for bit. The selective gate compares the global sizes.
+
 The kernels' scratch (Q2's barrier words, a site's x8) stays on the device
 across calls, one set per stream. The weight's int8 copy and scales are made
 once per parameter version by ``WeightCache`` (tensor ops; JAX gets the same
@@ -53,9 +65,10 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import threading
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from . import _build
@@ -64,11 +77,20 @@ _state = threading.local()
 
 # kernel launches made by the wrappers (never by a plain version): Q2 on the
 # dynamic path (abs-max, grid barrier and quantize in one launch) and on the
-# static path (the quantize alone), and Q1 (split K included)
-launches = {"act_dynamic": 0, "act_static": 0, "conv": 0}
+# static path (the quantize alone), and Q1 (split K included); and the modes
+# of a row-parallel site under tensor parallelism: Q2's amax-only and
+# device-amax passes, Q1's int32 accumulators
+launches = {"act_dynamic": 0, "act_static": 0, "conv": 0, "act_amax": 0, "act_device": 0,
+            "conv_acc": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_OUT_CODES = {**_DTYPE_CODES, torch.int32: 2}  # Q1's outputs: the accumulators too
+# quant_act_s8's modes (its is_static argument)
+_Q2_DYNAMIC, _Q2_STATIC, _Q2_DEVICE_AMAX, _Q2_AMAX_ONLY = 0, 1, 2, 3
 CHANNEL_PAD = 16  # Q1 reads 16-byte pieces of one tap: channels padded to 16
+# Q2's amax: None (dynamic), a float (static) or a [2] float32 tensor on the
+# device holding it at [0] (device amax)
+Amax = Union[None, float, torch.Tensor]
 
 
 def reset_launches() -> None:
@@ -129,9 +151,13 @@ def selective(min_ratio: Optional[float]):
         _state.min_ratio = prev
 
 
-def _selective_skip(x: torch.Tensor, w: torch.Tensor) -> bool:
+def _selective_skip(x: torch.Tensor, w: torch.Tensor, sizes=None) -> bool:
+    """Whether the selective gate skips the site; `sizes`: the (activation,
+    weight) element counts of the whole tensors where `x` and `w` are one
+    process's slices (tensor parallelism)."""
     r = min_weight_act_ratio()
-    return r is not None and w.numel() < r * x.numel()
+    x_size, w_size = sizes or (x.numel(), w.numel())
+    return r is not None and w_size < r * x_size
 
 
 def _static_entry() -> Optional[float]:
@@ -173,12 +199,24 @@ def _over_127(a: torch.Tensor) -> torch.Tensor:
     return a / a.new_full((), 127.0)
 
 
-def _quant_weight(w: torch.Tensor, reduce_dims) -> Tuple[torch.Tensor, torch.Tensor]:
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """`t` (float32 abs-maxima: >= 0 or a NaN with its sign cleared) set in
+    place to its maximum over `group`, on the floats' bits: such floats
+    order as their int32 bits do, a NaN above everything, so a NaN survives
+    (a float MAX may drop it). No host synchronisation."""
+    dist.all_reduce(t.view(torch.int32), op=dist.ReduceOp.MAX, group=group)
+    return t
+
+
+def _quant_weight(w: torch.Tensor, reduce_dims, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-output-channel symmetric int8: (w8, scale[out]). The output channel
     is the one dimension not in `reduce_dims`. Zero channels get scale 1 and
-    an all-zero w8."""
+    an all-zero w8. `group`: `w` holds a slice of the input features, and
+    each channel's abs-max is the maximum over the group's slices."""
     wf = w.float()
     amax = wf.abs().amax(dim=reduce_dims, keepdim=True)
+    if group is not None:
+        all_reduce_max(amax, group)
     scale = torch.where(amax > 0, _over_127(amax), torch.ones_like(amax))
     w8 = torch.round(wf / scale).to(torch.int8)
     return w8, scale.reshape(-1)
@@ -228,19 +266,21 @@ class WeightCache:
         self.key = None
         self.value = None
 
-    def get(self, w: torch.Tensor, dtype: torch.dtype):
-        key = (w.data_ptr(), w._version, w.dtype, tuple(w.shape), w.device, dtype)
+    def get(self, w: torch.Tensor, dtype: torch.dtype, group=None):
+        """`group`: `w` is a row-parallel slice (its input features), and the
+        scales are the model axis' (one all-reduce a weight version)."""
+        key = (w.data_ptr(), w._version, w.dtype, tuple(w.shape), w.device, dtype, group)
         if key != self.key:
             self.key, self.value = None, None  # a failed build leaves no stale entry
-            self.value = _prepare_weight(w.to(dtype))
+            self.value = _prepare_weight(w.to(dtype), group)
             self.key = key
         return self.value
 
 
-def _prepare_weight(w: torch.Tensor):
+def _prepare_weight(w: torch.Tensor, group=None):
     """(w8 in the layout Q1 reads, wscale [O] float32) of an OIHW or
     [out, in] weight."""
-    w8, scale = _quant_weight(w.detach(), (1, 2, 3) if w.dim() == 4 else (1,))
+    w8, scale = _quant_weight(w.detach(), (1, 2, 3) if w.dim() == 4 else (1,), group)
     return kernel_layout(w8), scale.contiguous()
 
 
@@ -260,15 +300,54 @@ def _padded(c: int) -> int:
 
 
 def w8a8_linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                cache: Optional[WeightCache] = None) -> torch.Tensor:
+                cache: Optional[WeightCache] = None, shards: int = 1) -> torch.Tensor:
     """``F.linear`` (weight [out, in]) run w8a8, a 1 x 1 convolution over the
-    tokens; the plain product when the selective gate skips the site."""
-    if _selective_skip(x, weight):
+    tokens; the plain product when the selective gate skips the site.
+    `shards` > 1: `weight` is one of that many column-parallel slices (its
+    output features; the whole rows, so its scales are the global ones) and
+    the gate reads the whole weight's size."""
+    if _selective_skip(x, weight, (x.numel(), weight.numel() * shards)):
         return F.linear(x, weight, bias)
     dtype = torch.promote_types(x.dtype, weight.dtype)
     w8, wscale = (cache or WeightCache()).get(weight, dtype)
     lead, c = x.shape[:-1], x.shape[-1]
     out = _kernel_product(x.to(dtype).reshape(-1, 1, 1, c), w8, wscale, bias, dtype, 1, 0)
+    return out.reshape(*lead, w8.shape[0])
+
+
+def row_skipped(x: torch.Tensor, weight: torch.Tensor, shards: int) -> bool:
+    """Whether the selective gate skips a row-parallel site whose `x` and
+    `weight` hold 1/`shards` of the input features."""
+    return _selective_skip(x, weight, (x.numel() * shards, weight.numel() * shards))
+
+
+def w8a8_linear_row(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                    group, cache: Optional[WeightCache] = None) -> torch.Tensor:
+    """A row-parallel dense site run w8a8 over the model axis' `group`: x
+    [..., in/n] and weight [out, in/n] hold this process's input features
+    (serving; the caller has passed the selective gate, `row_skipped`).
+    Dynamic: Q2's amax-only pass, the axis' maximum, Q2's device-amax pass;
+    static: Q2's static pass. Then Q1's int32 accumulators, summed over the
+    axis, and the epilogue with the whole bias: the whole product, on every
+    process, bit-equal to one process's site."""
+    dtype = torch.promote_types(x.dtype, weight.dtype)
+    w8, wscale = (cache or WeightCache()).get(weight, dtype, group)
+    lead, c = x.shape[:-1], x.shape[-1]
+    if w8.shape[3] != _padded(c):
+        raise ValueError(f"weight holds {w8.shape[3]} padded input channels, the input {c}")
+    x2d = x.to(dtype).reshape(-1, c)
+    amax_const = _static_entry()
+    if amax_const is None:
+        stats = activation_amax(x2d)
+        all_reduce_max(stats[:1], group)
+        _record(stats[0])
+        x8, stats = quantize_activation(x2d, stats)
+    else:
+        x8, stats = quantize_activation(x2d, amax_const)
+    rows = x2d.shape[0]
+    acc = int8_conv(x8.view(rows, 1, 1, w8.shape[3]), w8, wscale, stats, None, torch.int32, 1, 0)
+    dist.all_reduce(acc, group=group)
+    out = _rescale(acc, wscale, stats[1], None if bias is None else bias.to(dtype), dtype)
     return out.reshape(*lead, w8.shape[0])
 
 
@@ -429,40 +508,84 @@ def _site_x8(s: dict, n: int) -> torch.Tensor:
     return s["x8"]
 
 
-def quantize_activation_plain(x2d: torch.Tensor, amax_const: Optional[float]):
+def quantize_activation_plain(x2d: torch.Tensor, amax: Amax):
     """Q2's function: x2d [rows, C] -> (x8 [rows, Cp] int8 with zero padding,
-    stats [2] float32 = (amax, scale)); static when amax_const is given."""
+    stats [2] float32 = (amax, scale)). `amax`: None (dynamic), a float
+    (static), or a float32 tensor holding the amax at [0] (device amax: the
+    static path's rounding and clip)."""
     xf = x2d.float()
-    amax, scale = _act_scale(xf, amax_const)
-    x8 = _quantize(xf, scale, amax_const is not None)
+    if isinstance(amax, torch.Tensor):
+        a = amax[0]
+        scale = torch.where(a <= 0, torch.ones_like(a), _over_127(a))
+        x8, stats = _quantize(xf, scale, True), torch.stack([a, scale])
+    else:
+        a, scale = _act_scale(xf, amax)
+        x8, stats = _quantize(xf, scale, amax is not None), torch.stack([a, scale])
     c = x2d.shape[1]
-    return F.pad(x8, (0, _padded(c) - c)), torch.stack([amax, scale])
+    return F.pad(x8, (0, _padded(c) - c)), stats
 
 
-def _q2_args(x2d: torch.Tensor, amax_const: Optional[float]) -> list:
+def activation_amax_plain(x2d: torch.Tensor) -> torch.Tensor:
+    """Q2's amax-only function: stats [2] float32 = (max |x2d|, 0)."""
+    amax = x2d.float().abs().amax()
+    return torch.stack([amax, torch.zeros_like(amax)])
+
+
+def activation_amax(x2d: torch.Tensor) -> torch.Tensor:
+    """Q2's amax-only mode on CUDA tensors (one launch), its plain version on
+    CPU tensors: stats [2] float32 = (max |x2d| (NaN if it holds one), 0),
+    on the device."""
+    if x2d.device.type != "cuda":
+        _check_device(x2d)
+        return activation_amax_plain(x2d)
+    x2d = x2d.contiguous()
+    head = _q2_args(x2d)
+    rows, c = x2d.shape
+    dev = x2d.device
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    stats = torch.empty(2, dtype=torch.float32, device=dev)
+    err = _call(_entry("quant_act_s8", _QUANT_ARGTYPES), dev, stream, *head, rows, c,
+                _padded(c), None, None, stats.data_ptr(), _Q2_AMAX_ONLY, 0.0)
+    _raise_for(err, "quant_act_s8 (amax only)")
+    launches["act_amax"] += 1
+    return stats
+
+
+def _q2_args(x2d: torch.Tensor) -> list:
     if x2d.dtype not in _DTYPE_CODES:
         raise TypeError(f"quantize_activation takes float32 or bfloat16, got {x2d.dtype}")
     return [x2d.data_ptr(), _DTYPE_CODES[x2d.dtype]]
 
 
-def quantize_activation(x2d: torch.Tensor, amax_const: Optional[float]):
-    """Q2 on CUDA tensors (one launch), its plain version on CPU tensors."""
+def quantize_activation(x2d: torch.Tensor, amax: Amax):
+    """Q2 on CUDA tensors (one launch), its plain version on CPU tensors.
+    `amax` as `quantize_activation_plain`'s; a device amax is a [2] float32
+    tensor on x2d's device whose [0] holds it (`activation_amax`'s, reduced):
+    the scale is written to its [1] and it is returned as the stats."""
     if x2d.device.type != "cuda":
         _check_device(x2d)
-        return quantize_activation_plain(x2d, amax_const)
+        return quantize_activation_plain(x2d, amax)
     x2d = x2d.contiguous()
-    head = _q2_args(x2d, amax_const)
+    head = _q2_args(x2d)
     rows, c = x2d.shape
     dev = x2d.device
     stream, s = _scratch(dev)
     x8 = torch.empty((rows, _padded(c)), dtype=torch.int8, device=dev)
-    stats = torch.empty(2, dtype=torch.float32, device=dev)
-    static = amax_const is not None
+    static = amax if isinstance(amax, (int, float)) else None
+    if isinstance(amax, torch.Tensor):
+        if amax.dtype != torch.float32 or amax.numel() != 2 or amax.device != dev \
+                or not amax.is_contiguous():
+            raise ValueError("amax must be a contiguous [2] float32 tensor on x2d's device")
+        stats, mode = amax, _Q2_DEVICE_AMAX
+    else:
+        stats = torch.empty(2, dtype=torch.float32, device=dev)
+        mode = _Q2_DYNAMIC if amax is None else _Q2_STATIC
     err = _call(_entry("quant_act_s8", _QUANT_ARGTYPES), dev, stream, *head, rows, c,
-                _padded(c), x8.data_ptr(), s["barrier"].data_ptr(), stats.data_ptr(), int(static),
-                float(amax_const) if static else 0.0)
+                _padded(c), x8.data_ptr(), s["barrier"].data_ptr(), stats.data_ptr(), mode,
+                0.0 if static is None else float(static))
     _raise_for(err, "quant_act_s8")
-    launches["act_static" if static else "act_dynamic"] += 1
+    key = {_Q2_DEVICE_AMAX: "act_device", _Q2_STATIC: "act_static"}.get(mode, "act_dynamic")
+    launches[key] += 1
     return x8, stats
 
 
@@ -478,6 +601,8 @@ def int8_conv_plain(x8, w8, stats, wscale, bias, dtype, stride: int, padding: in
     cols = F.unfold(x8.permute(0, 3, 1, 2).double(), (kh, kw), padding=padding,
                     stride=stride)  # [B, Cp*kh*kw, L]
     acc = (w8.permute(0, 3, 1, 2).double().reshape(o, -1) @ cols).transpose(1, 2)  # [B, L, O]
+    if dtype == torch.int32:  # the accumulators, no epilogue
+        return acc.to(torch.int32).reshape(b, ho, wo, o)
     return _rescale(acc, wscale, stats[1], bias, dtype).reshape(b, ho, wo, o)
 
 
@@ -489,10 +614,10 @@ def _q1_args(bhw, w8, wscale, stats, bias, dtype, stride: int, padding: int):
     if cp % CHANNEL_PAD or w8.dtype != torch.int8:
         raise ValueError(f"int8_conv takes an int8 w8 [O,kh,kw,Cp], Cp a multiple of "
                          f"{CHANNEL_PAD}: {tuple(w8.shape)}")
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"int8_conv writes float32 or bfloat16, not {dtype}")
-    if bias is not None and (bias.dtype != dtype or bias.shape != (o,)):
-        raise ValueError("bias must be [O] in the output type")
+    if dtype not in _OUT_CODES:
+        raise TypeError(f"int8_conv writes float32, bfloat16 or int32, not {dtype}")
+    if bias is not None and (bias.dtype != dtype or bias.shape != (o,) or dtype == torch.int32):
+        raise ValueError("bias must be [O] in the output type (none for int32)")
     tensors = [w8, wscale, stats] + ([bias] if bias is not None else [])
     if any(not t.is_contiguous() or t.device != dev for t in tensors):
         raise ValueError("int8_conv's operands must be contiguous on one device")
@@ -503,7 +628,7 @@ def _q1_args(bhw, w8, wscale, stats, bias, dtype, stride: int, padding: int):
     bn, splits, per = conv_schedule(m, o, kh * kw * cp, gathered(kh, kw, stride, padding))
     out = torch.empty((b, ho, wo, o), dtype=dtype, device=dev)
     args = [w8.data_ptr(), wscale.data_ptr(), 0 if bias is None else bias.data_ptr(),
-            int(bias is not None), out.data_ptr(), _DTYPE_CODES[dtype], bn, splits, per,
+            int(bias is not None), out.data_ptr(), _OUT_CODES[dtype], bn, splits, per,
             b, h, w, cp, o, kh, kw, stride, padding, ho, wo]
     return args, out
 
@@ -513,7 +638,8 @@ def int8_conv(x8: torch.Tensor, w8: torch.Tensor, wscale: torch.Tensor, stats: t
               padding: int) -> torch.Tensor:
     """Q1 on CUDA tensors (one launch): x8 [B, H, W, Cp] int8, w8 [O, kh, kw,
     Cp] int8, wscale [O] float32, stats [2] float32 (the activation scale at
-    [1]), bias [O] in dtype or None -> [B, Ho, Wo, O] in dtype. Its plain
+    [1]), bias [O] in dtype or None -> [B, Ho, Wo, O] in dtype; dtype int32
+    gives the accumulators (its int32 mode: no epilogue, no bias). Its plain
     version on CPU tensors."""
     if x8.device.type != "cuda":
         _check_device(x8)
@@ -528,7 +654,7 @@ def int8_conv(x8: torch.Tensor, w8: torch.Tensor, wscale: torch.Tensor, stats: t
     err = _call(_entry("int8_conv_s8", _CONV_ARGTYPES), x8.device, stream, x8.data_ptr(),
                 stats.data_ptr(), *args)
     _raise_for(err, "int8_conv_s8")
-    launches["conv"] += 1
+    launches["conv_acc" if dtype == torch.int32 else "conv"] += 1
     return out
 
 
@@ -547,7 +673,7 @@ def w8a8_site(x2d: torch.Tensor, bhw, w8: torch.Tensor, wscale: torch.Tensor,
         return int8_conv(x8.view(b, h, w, w8.shape[3]), w8, wscale, stats, bias, dtype,
                          stride, padding), stats
     x2d = x2d.contiguous()
-    head = _q2_args(x2d, amax_const)
+    head = _q2_args(x2d)
     if x2d.dtype != dtype or x2d.device != w8.device or x2d.shape[0] != b * h * w:
         raise ValueError("w8a8_site takes x2d [B*H*W, C] in the output type on w8's device")
     dev, c, cp = x2d.device, x2d.shape[1], w8.shape[3]

@@ -3,7 +3,8 @@
 Counterpart of ``tair_tpu/parallel/mesh.py`` over ``torch.distributed``: one
 process per device, joined by the environment that ``torchrun`` sets; a
 ``DeviceMesh`` with the axes ("data", "model"); the global batch split on the
-data axis, rank r holding rows ``[r·B, (r+1)·B)`` (JAX's ``P("data")``).
+data axis, rank r holding rows ``[r·B, (r+1)·B)`` (JAX's ``P("data")``), the
+same rows on every process of one model group.
 Nothing here falls back to one process when more were asked for: a mesh the
 group cannot hold raises.
 """
@@ -57,8 +58,10 @@ def create_mesh(
     process, rank r at (r // n_model, r % n_model). `n_data` defaults to all
     processes over `n_model`. A mesh that asks for more or fewer devices than
     the group has raises ValueError, as the JAX mesh does for more devices
-    than it sees. The model axis serves tensor- and sequence-parallel
-    inference (``parallel/tp.py``); the trainer shards on the data axis only."""
+    than it sees. The model axis carries tensor and sequence parallelism
+    (``parallel/tp.py``), in serving and in ``train.step.make_train_step``;
+    the trainer's entry point (``python -m tair_tpu_torch.train``), like the
+    JAX package's ``train.py``, builds a data-only mesh."""
     world = world_size()
     if n_data is None:
         n_data = world // n_model
@@ -78,7 +81,8 @@ def create_mesh(
 
 def local_rows(global_batch: int, mesh: Optional[DeviceMesh]) -> slice:
     """This process's rows of a global batch: ``[r·B, (r+1)·B)`` for its rank
-    r on the data axis (all of them without a mesh)."""
+    r on the data axis (all of them without a mesh), whatever its rank on the
+    model axis."""
     if mesh is None:
         return slice(0, global_batch)
     n = mesh[DATA_AXIS].size()

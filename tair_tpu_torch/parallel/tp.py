@@ -31,9 +31,28 @@ replicated offsets and weights. The row-parallel output adds the bias once,
 on the first process of the axis; with one process every layer computes what
 the unsharded one does, bit for bit.
 
-Serving only: the collectives are plain ``torch.distributed`` calls, outside
-autograd. The w8a8 path raises under more than one process on the axis (a
-per-tensor dynamic scale over a row-parallel shard is not the global one).
+The collectives are autograd functions in Megatron's pairs, so the same
+layers train: a column layer's input is the identity forward and all-reduced
+backward (`copy_to_model`), its gather keeps this process's slice of the
+gradient; a row layer's slice of a replicated input all-reduces its gradient,
+and its output all-reduce passes the gradient through. Every replicated
+activation then holds its whole gradient on every process, and so does every
+parameter that each process computes whole (the convolutions, the norms
+outside a sequence-parallel layer). The parameters that a process uses only
+in part hold a partial sum over the axis, which `partial_grad_params` lists
+and ``parallel.fsdp.GradientSync`` sums: a column layer's bias (sliced), a
+row layer's (added on the first process only), msda's offsets and weights
+(their lanes cut to the local heads) and every parameter of a
+sequence-parallel encoder layer (which sees this process's tokens only).
+
+In a quantized scope (``ops/quant.py``) a UNet or ControlNet layer runs
+w8a8 as the JAX package's global program does on whole tensors: a
+column-parallel site sees the whole activation and whole weight rows, so its
+scales are the global ones as they are; a row-parallel site takes the
+axis' maximum of the activation's abs-max and of each output channel's
+weight abs-max, and sums the int32 products over the axis before the
+rescale (`quant.w8a8_linear_row`), which makes it bit-equal to one process's
+site.
 """
 
 from __future__ import annotations
@@ -48,6 +67,7 @@ from torch import nn
 from ..models.layers import QuantLinear
 from ..ops import quant
 from ..weights.convert import jax_leaves, torch_axes
+from .collectives import copy_to_model, gather_features, reduce_sum, slice_features
 from .mesh import MODEL_AXIS
 
 Spec = Tuple[Optional[str], ...]  # a JAX PartitionSpec's entries; () = replicated
@@ -136,27 +156,24 @@ class ParallelLinear(nn.Module):
     "row": the weight holds the input features `index`; the input is sliced
     to them, unless ``local_input`` is on (the caller hands over the local
     features), and the partial products are all-reduced, the bias added once
-    (on the axis' first process)."""
+    (on the axis' first process). `all_index` [n, width] holds every
+    process's `index`, by which a checkpoint gathers the layer."""
 
-    def __init__(self, lin: nn.Linear, kind: str, index: torch.Tensor, group, n: int,
+    def __init__(self, lin: nn.Linear, kind: str, all_index: torch.Tensor, group, n: int,
                  rank: int):
         super().__init__()
         if kind not in ("column", "row"):
             raise ValueError(f"kind must be column or row, got {kind!r}")
         self.kind, self.group, self.n, self.rank = kind, group, n, rank
         self.in_features, self.out_features = lin.in_features, lin.out_features
-        axis = 0 if kind == "column" else 1
+        self.axis = 0 if kind == "column" else 1  # the torch axis of the weight that is cut
         dev = lin.weight.device
-        self.register_buffer("index", index.to(dev), persistent=False)
+        self.register_buffer("all_index", all_index.to(dev), persistent=False)
+        self.register_buffer("index", self.all_index[rank], persistent=False)
         with torch.no_grad():
-            local = lin.weight.index_select(axis, self.index).contiguous()
+            local = lin.weight.index_select(self.axis, self.index).contiguous()
         self.weight = nn.Parameter(local, requires_grad=lin.weight.requires_grad)
         self.bias = lin.bias
-        local_bias = None
-        if lin.bias is not None and kind == "column" and n > 1:
-            with torch.no_grad():
-                local_bias = lin.bias.index_select(0, self.index)
-        self.register_buffer("local_bias", local_bias, persistent=False)
         self.gather = True
         self.local_input = False
         # a UNet or ControlNet layer (``QuantLinear``) runs w8a8 in a quantized scope
@@ -167,35 +184,39 @@ class ParallelLinear(nn.Module):
         return (f"{self.kind}, in={self.in_features}, out={self.out_features}, "
                 f"shard {self.rank} of {self.n}")
 
+    def local_bias(self) -> Optional[torch.Tensor]:
+        """A column layer's bias at its output features (a differentiable
+        slice of the whole bias)."""
+        if self.bias is None or self.n == 1:
+            return self.bias
+        return self.bias.index_select(0, self.index)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.quantizable and quant.active():
-            if self.n > 1:
-                raise ValueError(
-                    "w8a8 is not served under tensor parallelism: a per-tensor scale over "
-                    "a shard is not the global one (ROADMAP queue)"
-                )
-            return quant.w8a8_linear(x, self.weight, self.bias, cache=self._wq)
+        quantized = self.quantizable and quant.active()
         if self.kind == "column":
-            bias = self.bias if self.local_bias is None else self.local_bias
-            y = F.linear(x, self.weight, bias)
+            x = copy_to_model(x, self.group)
+            if quantized:
+                y = quant.w8a8_linear(x, self.weight, self.local_bias(), cache=self._wq,
+                                      shards=self.n)
+            else:
+                y = F.linear(x, self.weight, self.local_bias())
             return self.gather_features(y) if self.gather else y
         if not self.local_input:
             x = self.local_features(x)
+        if quantized and not quant.row_skipped(x, self.weight, self.n):
+            return quant.w8a8_linear_row(x, self.weight, self.bias, self.group, cache=self._wq)
         y = F.linear(x, self.weight, self.bias if self.rank == 0 else None)
-        dist.all_reduce(y, group=self.group)
-        return y
+        return reduce_sum(y, self.group)
 
     def local_features(self, x: torch.Tensor) -> torch.Tensor:
         """This process's features (`index`) of a full-width input."""
-        return x.index_select(-1, self.index) if self.n > 1 else x
+        return slice_features(x, self.index, self.group) if self.n > 1 else x
 
     def gather_features(self, y: torch.Tensor) -> torch.Tensor:
         """Every process's local output features, joined in rank order: the
         global order, as a gathered layer's features are cut in contiguous
         chunks."""
-        parts = [torch.empty_like(y) for _ in range(self.n)]
-        dist.all_gather(parts, y.contiguous(), group=self.group)
-        return torch.cat(parts, dim=-1)
+        return gather_features(y, self.group, self.n, self.rank)
 
 
 def _chunk(size: int, n: int, rank: int) -> torch.Tensor:
@@ -283,8 +304,9 @@ def shard_layers(model: nn.Module, dims: Mapping[str, Optional[int]], group, n: 
         return "column" if axis == 0 else "row"
 
     prefix = {id(m): name for name, m in modules.items()}
-    # layer name -> its local features, where not a contiguous chunk (GEGLU)
-    index: Dict[str, torch.Tensor] = {}
+    # the layers whose features are GEGLU's halves, each cut on its own (not
+    # one contiguous chunk)
+    geglu = set()
     # layer name -> the side of a pair it is on: "column" (no gather) or "row"
     # (local input)
     local: Dict[str, str] = {}
@@ -295,10 +317,9 @@ def shard_layers(model: nn.Module, dims: Mapping[str, Optional[int]], group, n: 
             continue
         width = modules[names[0]].out_features
         if how == "geglu":
-            idx = _geglu_index(width, n, rank)
-            if idx is None:
+            if _geglu_index(width, n, rank) is None:
                 continue
-            index[names[0]] = idx  # the row-parallel side takes the value chunk, its default
+            geglu.add(names[0])  # the row-parallel side takes the value chunk, its default
         elif how in ("heads", "msda"):
             heads = m.heads if how == "heads" else m.n_heads
             if heads % n:
@@ -308,6 +329,7 @@ def shard_layers(model: nn.Module, dims: Mapping[str, Optional[int]], group, n: 
                 m.heads = per
             else:
                 m.head_range = (rank * per, (rank + 1) * per)
+                m.tp_group = group
         for c in names:
             local[c] = "column"
         local[base + row] = "row"
@@ -318,8 +340,9 @@ def shard_layers(model: nn.Module, dims: Mapping[str, Optional[int]], group, n: 
         if kind is None:
             continue
         width = module.out_features if kind == "column" else module.in_features
-        idx = index.get(name, _chunk(width, n, rank))
-        layer = ParallelLinear(module, kind, idx, group, n, rank)
+        cut = _geglu_index if name in geglu else _chunk
+        all_index = torch.stack([cut(width, n, r) for r in range(n)])
+        layer = ParallelLinear(module, kind, all_index, group, n, rank)
         if local.get(name) == "column":
             layer.gather = False
         elif local.get(name) == "row":
@@ -342,3 +365,40 @@ def bind_sequence_parallel(mesh, model: nn.Module) -> int:
             m.sp_group = mesh.get_group(m.sp_axis)
             bound += 1
     return bound
+
+
+def partial_grad_params(model: nn.Module) -> List[nn.Parameter]:
+    """The parameters whose gradient each process of the model axis holds in
+    part, to be summed over the axis after the backward
+    (``parallel.fsdp.GradientSync``): a `ParallelLinear`'s bias (sliced by a
+    column layer, added on the first process by a row layer), the offsets
+    and weights of an msda that runs its local heads (their lanes cut), and
+    every parameter of a sequence-parallel encoder layer (this process's
+    tokens only). Every other parameter is computed whole on each process."""
+    from ..spotter.ms_deform_attn import MSDeformAttn
+    from ..spotter.transformer import EncoderLayer
+
+    out: Dict[int, nn.Parameter] = {}
+    for m in model.modules():
+        params: Sequence[Optional[nn.Parameter]] = ()
+        if isinstance(m, ParallelLinear):
+            params = (m.bias,)
+        elif isinstance(m, MSDeformAttn) and m.head_range is not None:
+            params = (*m.sampling_offsets.parameters(), *m.attention_weights.parameters())
+        elif isinstance(m, EncoderLayer) and m.sp_group is not None:
+            params = tuple(m.parameters())
+        out.update((id(p), p) for p in params if p is not None)
+    return list(out.values())
+
+
+def tp_weights(model: nn.Module) -> Dict[str, ParallelLinear]:
+    """{weight name in the state dict: its `ParallelLinear`}."""
+    return {f"{name}.weight" if name else "weight": m for name, m in model.named_modules()
+            if isinstance(m, ParallelLinear)}
+
+
+def slice_weight(layer: ParallelLinear, t: torch.Tensor) -> torch.Tensor:
+    """This process's slice of a whole tensor of `layer`'s global weight shape."""
+    if layer.n == 1:
+        return t
+    return t.index_select(layer.axis, layer.index.to(t.device)).contiguous()

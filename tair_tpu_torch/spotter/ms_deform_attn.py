@@ -60,6 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.msda_reduce import msda_corner_reduce
+from ..parallel.collectives import copy_to_model
 from ..ops.patchify import patchify_value, patchify_value_kernel
 
 CORES = ("flat", "flatpatch", "flatlanes")
@@ -620,6 +621,7 @@ class MSDeformAttn(nn.Module):
         # value table this process holds, whose lanes it takes from the
         # replicated offsets and weights; None runs every head
         self.head_range: Optional[Tuple[int, int]] = None
+        self.tp_group = None  # the model axis' process group, with head_range
         lanes = n_heads * n_levels * n_points
         self.value_proj = nn.Linear(d_model, d_model)
         self.sampling_offsets = nn.Linear(d_model, lanes * 2)
@@ -644,6 +646,8 @@ class MSDeformAttn(nn.Module):
             raise ValueError(f"core must be one of {CORES}, got {self.core!r}")
 
         value = self.value_proj(value_flatten).reshape(b, s, h, d)
+        if self.head_range is not None:  # the query's gradient from the local lanes is partial
+            query = copy_to_model(query, self.tp_group)
         off_flat = self.sampling_offsets(query).float()  # lanes are (h,l,p,2), xy minor
         attn = self.attention_weights(query).reshape(b, q, self.n_heads, l * p)
         if self.head_range is not None:

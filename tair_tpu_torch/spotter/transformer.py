@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.layers import LayerNorm32, MultiHeadAttention, checkpoint_block
+from ..parallel.collectives import copy_to_model, gather_tokens
 from .ms_deform_attn import MSDeformAttn
 
 
@@ -142,14 +143,6 @@ def _token_rows(x: torch.Tensor, n: int, rank: int) -> torch.Tensor:
     return x[:, rank * per : (rank + 1) * per]
 
 
-def _gather_tokens(x: torch.Tensor, total: int, group, n: int) -> torch.Tensor:
-    """Every process's token slice (`_token_rows`) joined back, the padding
-    dropped: [B, total, ...]."""
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=1)[:, :total]
-
-
 class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
                  n_points: int, msda_q_chunk: int = 16384,
@@ -178,7 +171,10 @@ class EncoderLayer(nn.Module):
 
         With ``sp_axis`` each process of the axis' group updates its slice of
         the query tokens (of all S, or of the N selected) and the slices are
-        gathered: the same result on every process."""
+        gathered: the same result on every process. In the backward each
+        process keeps its slice's rows of the gathered gradient, and the
+        gradients of the layer's inputs sum over the axis (its parameters'
+        are partial sums: ``parallel.tp.partial_grad_params``)."""
         group = n_sp = rank = None
         if self.sp_axis:
             if self.sp_group is None:
@@ -188,28 +184,33 @@ class EncoderLayer(nn.Module):
                 )
             group = self.sp_group
             n_sp, rank = dist.get_world_size(group), dist.get_rank(group)
+        if sel_idx is None and group is None:
+            return self._update(src, pos, reference_points, src, spatial_shapes)
+        # what this process's update reads: all of it is a partial use
+        inp, pos, ref = ((src, pos, reference_points) if group is None else
+                         (copy_to_model(t, group) for t in (src, pos, reference_points)))
         if sel_idx is None:
-            if group is None:
-                return self._update(src, pos, reference_points, src, spatial_shapes)
             q_src, q_pos, q_ref = (
-                _token_rows(t, n_sp, rank) for t in (src, pos.expand(src.shape), reference_points)
+                _token_rows(t, n_sp, rank) for t in (inp, pos.expand(src.shape), ref)
             )
-            upd = self._update(q_src, q_pos, q_ref, src, spatial_shapes)
-            return _gather_tokens(upd, src.shape[1], group, n_sp)
+            upd = self._update(q_src, q_pos, q_ref, inp, spatial_shapes)
+            return gather_tokens(upd, src.shape[1], group, n_sp, rank)
 
         b, n = sel_idx.shape
         local_idx = sel_idx if group is None else _token_rows(sel_idx, n_sp, rank)
         rows = local_idx[..., None].expand(b, local_idx.shape[1], src.shape[-1])
-        src_sel = src.gather(1, rows)
+        src_sel = inp.gather(1, rows)
         pos_sel = pos.expand(src.shape).gather(1, rows)
-        ref_sel = reference_points.gather(
-            1, local_idx[:, :, None, None].expand(rows.shape[:2] + reference_points.shape[2:])
+        ref_sel = ref.gather(
+            1, local_idx[:, :, None, None].expand(rows.shape[:2] + ref.shape[2:])
         )
-        upd = self._update(src_sel, pos_sel, ref_sel, src, spatial_shapes)
+        upd = self._update(src_sel, pos_sel, ref_sel, inp, spatial_shapes)
         if group is not None:
-            upd = _gather_tokens(upd, n, group, n_sp)
+            upd = gather_tokens(upd, n, group, n_sp, rank)
             rows = sel_idx[..., None].expand(b, n, src.shape[-1])
-        return src.scatter(1, rows, upd)  # a new tensor: `src` is left as it was
+        # a new tensor (`src` is left as it was); the tokens passed through
+        # take their gradient whole on every process, not summed
+        return src.scatter(1, rows, upd)
 
     def _update(self, q_src, q_pos, ref, value, spatial_shapes):
         """The layer on its query tokens `q_src` (at `q_pos`, `ref`), with

@@ -101,8 +101,9 @@ def main(argv=None) -> None:
     if world_size() > n_data and world_size() % n_data == 0:
         raise ValueError(
             f"{world_size()} processes over {n_data} data devices leave a model axis of "
-            f"{world_size() // n_data}: tensor parallelism in training is not ported "
-            "(ROADMAP.md, queue 1: TP in training)"
+            f"{world_size() // n_data}: the trainer, like the JAX package's train.py, "
+            "shards on the data axis only; a model axis trains through "
+            "train.step.make_train_step on parallel.mesh.create_mesh(n_data, n_model)"
         )
     # a mesh wherever more than one process or FSDP is asked for; one the
     # group cannot hold raises

@@ -4,9 +4,11 @@ Counterpart of ``tair_tpu/train/checkpoint.py``. A checkpoint holds the step
 counter, every parameter and buffer of the model and the optimizer's state
 (AdamW's moments and step counts), written with ``torch.save`` under
 ``ckpt_dir/step_XXXXXXXX``, so resuming is exact. A state sharded by FSDP is
-gathered before it is written (every process takes part; one writes), so a
-checkpoint has one layout whatever wrote it: it loads into a single process,
-and a sharded resume keeps each process's shard of it. The weight-only export keeps
+gathered before it is written (every process takes part; one writes), and so
+is a model cut by tensor parallelism (each layer's slices put back at their
+global features, AdamW's moments too), so a checkpoint has one layout
+whatever wrote it: it loads into a single process, and a sharded resume
+keeps each process's part of it. The weight-only export keeps
 the JAX package's ``.npz`` layout: one array per JAX leaf, keyed by its
 ``/``-joined tree path, in the JAX layout (HWIO kernels, [in, H, D] attention
 projections), so an export of either package loads into the other.
@@ -27,14 +29,18 @@ CHECKPOINT_FILE = "state.pt"
 
 
 def is_sharded(model: torch.nn.Module) -> bool:
+    """Whether FSDP or tensor parallelism holds a part of `model` here."""
     from torch.distributed.tensor import DTensor
 
-    return any(isinstance(p, DTensor) for p in model.parameters())
+    from ..parallel.tp import tp_weights
+
+    return any(isinstance(p, DTensor) for p in model.parameters()) or bool(tp_weights(model))
 
 
 def state_dicts(state):
     """(model, optimizer) state dicts of `state` in a single process's
-    layout: gathered where FSDP shards them, a collective then."""
+    layout: gathered where FSDP or tensor parallelism shards them (a
+    collective then)."""
     if is_sharded(state.model):
         return full_state(state.model, state.optimizer)
     return state.model.state_dict(), state.optimizer.state_dict()

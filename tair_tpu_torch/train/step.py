@@ -22,6 +22,7 @@ statistics and losses stay float32, as the JAX package trains
 
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -60,10 +61,45 @@ def make_optimizer(
     trained = [p for name, p in model.named_parameters() if mask[name]]
     if not trained:
         raise ValueError(f"stage {stage!r} trains no parameter of this model")
-    return torch.optim.AdamW(
+    return _AdamW(
         trained, lr=learning_rate, betas=ADAMW_BETAS, eps=ADAMW_EPS,
         weight_decay=ADAMW_WEIGHT_DECAY,
     )
+
+
+class _AdamW(torch.optim.AdamW):
+    """AdamW whose update runs FSDP's sharded parameters (DTensors) and the
+    others in two passes: the multi-tensor update takes no mix of the two.
+    One parameter group, as a single process has, keeps the checkpoint's
+    layout; the optimizer's hooks run once, around both passes."""
+
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        # no DTensor exists before its module is loaded (and loading it costs
+        # seconds that a single process need not pay)
+        dtensor = sys.modules.get("torch.distributed.tensor")
+
+        def is_sharded(p) -> bool:
+            return dtensor is not None and isinstance(p, dtensor.DTensor)
+
+        whole = [g["params"] for g in self.param_groups]
+        kinds = {is_sharded(p) for ps in whole for p in ps}
+        # AdamW's own step: torch wraps each optimizer class's step in its
+        # hooks, which have run around this one
+        update = torch.optim.AdamW.step
+        update = update.__wrapped__ if getattr(update, "hooked", False) else update
+        try:
+            for sharded in sorted(kinds):
+                for g, ps in zip(self.param_groups, whole):
+                    g["params"] = [p for p in ps if is_sharded(p) is sharded]
+                update(self)
+        finally:
+            for g, ps in zip(self.param_groups, whole):
+                g["params"] = ps
+        return loss
 
 
 def create_train_state(

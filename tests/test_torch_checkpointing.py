@@ -13,6 +13,7 @@ auxiliary and encoder). Every parameter is seeded noise. The JAX gradients of th
 """
 
 import dataclasses
+from functools import partial
 
 import jax
 import numpy as np
@@ -28,7 +29,7 @@ from tair_tpu_torch.spotter.testr import TESTR, TESTRConfig
 from tair_tpu_torch.weights.convert import convert_tree, module_param_shapes, to_jax_tree
 from test_spotter import TINY
 from test_torch_common import (  # noqa: F401
-    jax_fast_compiles, jax_shapes, noise_params, torch_single_thread,
+    compiling, jax_fast_compiles, jax_shapes, noise_params, torch_single_thread,
 )
 
 UNET = dict(model_channels=32, num_res_blocks=1, attention_resolutions=(2,),
@@ -133,20 +134,18 @@ def _port_grads(setup, part, use_checkpoint):
 
 
 @pytest.fixture(scope="module")
-def port_grads(setup):
-    return {(part, ck): _port_grads(setup, part, ck) for part in PARTS for ck in (False, True)}
-
-
-@pytest.fixture(scope="module")
-def jax_grads(setup, port_grads):
-    """The three parts' gradients under ``nn.remat``, from one compiled function."""
+def jax_programs(setup):
+    """The three parts' gradients under ``nn.remat``, one program each,
+    traced here and each compiling in a thread (`compiling`) from the moment
+    it is traced, while the next is traced and the port's gradients are
+    taken."""
     tm, params, cldm_in, feats, testr_params = setup
     unet_cfg = jax_unet.UNetConfig(**UNET, use_checkpoint=True)
     unet, controlnet = jax_unet.UNetModel(unet_cfg), jax_unet.ControlNet(unet_cfg)
     testr = {k: JaxTESTR(dataclasses.replace(TESTR_CFG, use_checkpoint=True, enc_topk=k))
              for k in (0, ENC_TOPK)}
-    cldm_ws = _weights([tuple(o.shape) for o in _port_cldm_out(tm, cldm_in)], 184)
     with torch.no_grad():
+        cldm_ws = _weights([tuple(o.shape) for o in _port_cldm_out(tm, cldm_in)], 184)
         testr_ws = _weights(
             [tuple(o.shape) for o in _testr_leaves(
                 _port_testr(testr_params, 0, False)(tuple(torch.from_numpy(f) for f in feats)))],
@@ -156,27 +155,39 @@ def jax_grads(setup, port_grads):
     def weighted(outs, ws):
         return sum((o * wt).sum() for o, wt in zip(outs, ws))
 
-    def grads(p_cldm, p_testr):
-        def cldm_loss(p):
-            x, t, c_txt = cldm_in["x"], cldm_in["t"], cldm_in["c_txt"]
-            control = controlnet.apply({"params": p["controlnet"]}, x, cldm_in["c_img"], t, c_txt)
-            eps, taps = unet.apply({"params": p["unet"]}, x, t, c_txt, control=control,
-                                   extract_features=True)
-            return weighted([eps, *taps], cldm_ws)
+    def cldm_loss(p):
+        x, t, c_txt = cldm_in["x"], cldm_in["t"], cldm_in["c_txt"]
+        control = controlnet.apply({"params": p["controlnet"]}, x, cldm_in["c_img"], t, c_txt)
+        eps, taps = unet.apply({"params": p["unet"]}, x, t, c_txt, control=control,
+                               extract_features=True)
+        return weighted([eps, *taps], cldm_ws)
 
-        def testr_loss(p, k):
-            return weighted(_testr_leaves(testr[k].apply({"params": p}, feats)), testr_ws)
+    def testr_loss(p, k):
+        return weighted(_testr_leaves(testr[k].apply({"params": p}, feats)), testr_ws)
 
-        return (jax.grad(cldm_loss)(p_cldm), jax.grad(testr_loss)(p_testr, 0),
-                jax.grad(testr_loss)(p_testr, ENC_TOPK))
+    args = {"cldm": {k: params[k] for k in ("unet", "controlnet")},
+            "testr_dense": testr_params, "testr_topk": testr_params}
+    losses = {"cldm": cldm_loss, "testr_dense": partial(testr_loss, k=0),
+              "testr_topk": partial(testr_loss, k=ENC_TOPK)}
+    compiled = {}
+    for part in PARTS:  # each compiles while the next is traced
+        compiled.update(compiling({part: jax.jit(jax.grad(losses[part])).lower(args[part])}))
+    return args, compiled
 
-    args = ({k: params[k] for k in ("unet", "controlnet")}, testr_params)
-    # the function runs once: compile it without LLVM's expensive passes
-    compiled = jax.jit(grads).lower(*args).compile(compiler_options={
-        "xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True,
-    })
-    g_cldm, g_dense, g_topk = jax.tree.map(np.asarray, compiled(*args))
-    return {"cldm": g_cldm, "testr_dense": {"testr": g_dense}, "testr_topk": {"testr": g_topk}}
+
+@pytest.fixture(scope="module")
+def port_grads(setup, jax_programs):
+    return {(part, ck): _port_grads(setup, part, ck) for part in PARTS for ck in (False, True)}
+
+
+@pytest.fixture(scope="module")
+def jax_grads(jax_programs):
+    """{part: its gradient tree under ``nn.remat``} (JAX layout, numpy)."""
+    args, compiled = jax_programs
+    grads = {part: jax.tree.map(np.asarray, compiled[part].result()(args[part]))
+             for part in PARTS}
+    return {"cldm": grads["cldm"], "testr_dense": {"testr": grads["testr_dense"]},
+            "testr_topk": {"testr": grads["testr_topk"]}}
 
 
 def _flat(tree, prefix=""):

@@ -57,6 +57,20 @@ def jax_compiles_fast():
         jax.clear_caches()
 
 
+def compiling(lowered: dict) -> dict:
+    """{name: a future of the executable} of {name: ``jax.jit(...).lower(...)``},
+    each compiling in a thread of its own from now on: XLA's compiler
+    releases the GIL, so the programs compile together and beside whatever
+    the test does meanwhile, and a module's references cost the longest
+    compilation, not the sum."""
+    import concurrent.futures
+
+    pool = concurrent.futures.ThreadPoolExecutor(max(1, len(lowered)))
+    futures = {name: pool.submit(low.compile) for name, low in lowered.items()}
+    pool.shutdown(wait=False)
+    return futures
+
+
 def noise_params(shapes, seed: int):
     """Nested dict of numpy float32 arrays for a tree of ShapeDtypeStructs."""
     rng = np.random.default_rng(seed)

@@ -26,7 +26,8 @@ criteria normalise by counts that differ from their own:
 - a mesh the group cannot hold raises, on two ranks and in one process (a
   model axis too: `test_torch_tensor_parallel.py` runs one);
 - the FSDP placement rule equals JAX's ``fsdp_specs`` / ``fraction_for`` leaf
-  for leaf and byte for byte on the tiny bundle's shapes (no mesh, no init).
+  for leaf and byte for byte on the tiny bundle's shapes, on a data axis
+  alone and with a model axis (no mesh, no init).
 """
 
 import json
@@ -202,13 +203,17 @@ def test_a_mesh_the_group_cannot_hold_raises(runs):
         create_mesh(1, 2, device_type="cpu")
 
 
-@pytest.mark.parametrize("n_data", [2, 4, 8])
-def test_fsdp_placement_equals_jax_leaf_for_leaf(n_data):
+@pytest.mark.parametrize("n_data,n_model", [(2, 1), (4, 1), (8, 1), (2, 2), (4, 2), (2, 4)],
+                         ids=["2", "4", "8", "2x2", "4x2", "2x4"])
+def test_fsdp_placement_equals_jax_leaf_for_leaf(n_data, n_model):
     """The rule on the port's parameters against JAX's ``fsdp_specs`` on the
-    tiny bundle's JAX shapes (ShapeDtypeStructs: no mesh, no init): the same
-    leaves sharded, on the torch axis that holds the JAX axis, and the same
-    (sharded, total, per-device) bytes, with and without stage 3's AdamW
-    moments."""
+    tiny bundle's JAX shapes (ShapeDtypeStructs: no mesh, no init), on a
+    data axis alone and on a ("data", "model") mesh, where the model axis
+    claims its axis first: the same leaves sharded on the data axis, on the
+    torch axis that holds the JAX axis, the same specs on both axes, and the
+    same (sharded, total, per-device) bytes, with and without stage 3's
+    AdamW moments."""
+    from tair_tpu_torch.parallel.fsdp import fsdp_specs
     from tair_tpu_torch.parallel.fsdp import jax_leaf_shapes, shard_dims, sharded_fraction
     from tair_tpu_torch.pipeline import build_tiny_model
     from tair_tpu_torch.train.stages import trainable_mask
@@ -220,12 +225,13 @@ def test_fsdp_placement_equals_jax_leaf_for_leaf(n_data):
     specs = {}
     jax.tree_util.tree_map_with_path(
         lambda kp, spec: specs.update({"/".join(k.key for k in kp): tuple(spec)}),
-        jax_fsdp_specs(tree, n_data),
+        jax_fsdp_specs(tree, n_data, n_model),
         is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec),
     )
     leaves = jax_leaf_shapes(model)
-    dims = shard_dims(model, n_data)
+    dims = shard_dims(model, n_data, n_model)
     assert len(leaves) == len(specs)
+    assert fsdp_specs(dict(leaves.values()), n_data, n_model) == specs
     n_sharded = 0
     for name, (path, shape) in leaves.items():
         spec = specs[path]
@@ -238,10 +244,14 @@ def test_fsdp_placement_equals_jax_leaf_for_leaf(n_data):
             assert dims[name] is None, name
     assert n_sharded > 0
 
-    assert sharded_fraction(model, n_data) == jax_fraction_for(tree, n_data)
+    if n_model > 1:
+        assert any("model" in spec and "data" in spec for spec in specs.values())
+    assert sharded_fraction(model, n_data, n_model=n_model) == jax_fraction_for(
+        tree, n_data, n_model)
     mask = trainable_mask(model, "stage3")
     trained = [p for name, p in model.named_parameters() if mask[name]]
     moment = {path: jax.ShapeDtypeStruct(shape, jnp.float32)
               for name, (path, shape) in leaves.items() if mask[name]}
     state = {"params": tree, "mu": moment, "nu": moment}
-    assert sharded_fraction(model, n_data, moments=trained) == jax_fraction_for(state, n_data)
+    assert sharded_fraction(model, n_data, moments=trained, n_model=n_model) == \
+        jax_fraction_for(state, n_data, n_model)

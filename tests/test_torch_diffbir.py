@@ -34,7 +34,7 @@ from tair_tpu_torch.tiling import gaussian_window, make_tiled_fn
 from tair_tpu_torch.utils import guidance as tg
 from tair_tpu_torch.utils import tilevae as tt
 from test_torch_common import (  # noqa: F401
-    jax_fast_compiles, jax_shapes, load_module, noise_params, t2n, tiny_pair,
+    compiling, jax_fast_compiles, jax_shapes, load_module, noise_params, t2n, tiny_pair,
     torch_single_thread,
 )
 
@@ -192,10 +192,11 @@ RUNS = {
 
 @pytest.fixture(scope="module")
 def jax_runs(pair):
-    """Each JAX request once: (lq, tokens, key, JAX output)."""
+    """Each JAX request once: (lq, tokens, key, JAX output). Each program
+    compiles in a thread (`compiling`) from the moment it is traced."""
     jm, params, _ = pair
     pipe = JaxPipeline(jm)
-    out = {}
+    inputs, compiled = {}, {}
     for name, run in RUNS.items():
         lq = jnp.asarray(np.random.default_rng(13).random((1, *run["hw"], 3), dtype=np.float32))
         toks = jnp.asarray(tokenize(["a shop sign"]))
@@ -207,9 +208,12 @@ def jax_runs(pair):
         def fn(p, lq_, toks_, key_, kw=kw):
             return pipe.run(p, lq_, toks_, key_, **kw)
 
+        inputs[name] = (lq, toks, key)
         with mock.patch.object(jt, "_check_nans", lambda *args: None):
-            out[name] = (lq, toks, key, np.asarray(jax.jit(fn)(params, lq, toks, key)))
-    return out
+            lowered = jax.jit(fn).lower(params, lq, toks, key)
+        compiled.update(compiling({name: lowered}))  # while the next one is traced
+    return {name: (*args, np.asarray(compiled[name].result()(params, *args)))
+            for name, args in inputs.items()}
 
 
 @pytest.mark.parametrize("name", list(RUNS))

@@ -190,3 +190,42 @@ def test_bf16_probabilities_need_two_terms(product):
 
     assert share(_bf16(operand)) > 4.0
     assert share(_two_terms(operand)) < 0.5
+
+
+@pytest.mark.parametrize("b,h,limit", [(1, 1, 65535), (7, 3, 65535), (10, 3, 4), (4, 2, 3),
+                                       (2, 5, 3), (3, 7, 7), (21846, 3, 65535),
+                                       (2, 70000, 65535)])
+def test_bh_slices_cover_every_pair_once_in_order(b, h, limit):
+    """The launches of a call cover its (batch, head) pairs once each, in
+    order, none over the limit: whole batch rows where H fits, else slices
+    of one row's heads; a call within the limit is one launch."""
+    cuts = fa.bh_slices(b, h, limit)
+    pairs = [(bi, hi) for bs, hs in cuts
+             for bi in range(bs.start, bs.stop) for hi in range(hs.start, hs.stop)]
+    assert pairs == [(bi, hi) for bi in range(b) for hi in range(h)]
+    assert all(0 < (bs.stop - bs.start) * (hs.stop - hs.start) <= limit for bs, hs in cuts)
+    if h <= limit:
+        assert all(hs == slice(0, h) for _, hs in cuts)
+    assert (len(cuts) == 1) == (b * h <= limit)
+
+
+def test_split_launches_assemble_the_whole_call(monkeypatch):
+    """`_launch_split` and `_launch_bwd_split` with each launch replaced by
+    the plain version and a limit of 3 pairs (over batch rows, and over one
+    row's heads) give the plain version of the whole call."""
+    import functools
+
+    monkeypatch.setattr(fa, "_launch", fa.flash_attention_plain)
+    monkeypatch.setattr(fa, "_launch_bwd", fa.flash_attention_bwd_plain)
+    monkeypatch.setattr(fa, "bh_slices", functools.partial(fa.bh_slices, limit=3))
+    for b, h in ((4, 2), (2, 5)):
+        do = np.random.default_rng(5).standard_normal((b, 9, h, 16), np.float32)
+        q, k, v, do = (torch.from_numpy(a) for a in (*_inputs(b, 9, 7, h, 16), do))
+        assert len(fa.bh_slices(b, h)) > 1
+        out, lse = fa._launch_split(q, k, v, 0.3)
+        want_out, want_lse = fa.flash_attention_plain(q, k, v, 0.3)
+        assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+        got = fa._launch_bwd_split(q, k, v, out, lse, do, 0.3)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, 0.3)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, rtol=0, atol=1e-6)

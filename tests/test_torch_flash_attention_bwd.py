@@ -177,3 +177,32 @@ def test_dkv_split_plain_matches_pallas_interpret():
     dk, dv = fa.flash_attention_dkv_split_plain(tq_, tk_, tv_, out, lse, tdo, splits, scale)
     np.testing.assert_allclose(dk.numpy(), np.asarray(dk_j), atol=TOL)
     np.testing.assert_allclose(dv.numpy(), np.asarray(dv_j), atol=TOL)
+
+
+@pytest.mark.parametrize("d", [24, 80, 160])
+def test_padded_head_width_matches_pallas_interpret(d):
+    """A head width the kernels lack runs zero-padded along D to the next
+    width of ``HEAD_DIMS`` at the caller's scale: the output and the
+    gradients, sliced back to D, match JAX's kernel at D (interpret mode)."""
+    b, tq, tk, h = 1, 40, 33, 2
+    assert fa.padded_head_dim(d) > d
+    q, k, v, do = _inputs(b, tq, tk, h, d, seed=d)
+    # one JAX forward for the output and the gradients (its vjp at `do`)
+    out_j, vjp = jax.vjp(lambda *a: jax_flash(*a, block_q=32, block_k=32, interpret=True),
+                         *map(jnp.asarray, (q, k, v)))
+    want_out = np.asarray(out_j)
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out, lse = fa.flash_attention(*leaves)
+    assert out.shape == (b, tq, h, d) and lse.shape == (b, h, tq)
+    np.testing.assert_allclose(out.detach().numpy(), want_out, atol=TOL)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    for name, a, w in zip("qkv", got, want):
+        assert a.shape == w.shape
+        np.testing.assert_allclose(a.numpy(), w, atol=TOL, err_msg=f"d{name}")
+
+
+def test_head_width_above_512_raises():
+    q = torch.zeros((1, 4, 1, 520))
+    with pytest.raises(ValueError, match="up to 512"):
+        fa.flash_attention(q, q, q)

@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import jax_fast_compiles, t2n, tiny_pair, torch_single_thread  # noqa: F401
+from test_torch_common import (  # noqa: F401
+    compiling, jax_fast_compiles, t2n, tiny_pair, torch_single_thread,
+)
 
 STEPS = 3
 
@@ -37,19 +39,21 @@ def _jax_noises(rng, shape):
 
 @pytest.fixture(scope="module")
 def results(pair, lq):
+    """(JAX's restore, the port's): the JAX program compiles in a thread
+    (`compiling`) while the port's restore runs."""
     jm, params, tm = pair
     rng = jax.random.PRNGKey(53)
-    want = jax.jit(
+    program = compiling({"restore": jax.jit(
         lambda p, x, r: jm.restore_fused_feedback(
             p, x, r, steps=STEPS, score_threshold=0.0, return_spots=True
         )
-    )(params, lq, rng)
+    ).lower(params, lq, rng)})["restore"]
     x_T, noises = _jax_noises(rng, (1, 8, 8, 4))
     got = tm.restore_fused_feedback(
         torch.from_numpy(lq), steps=STEPS, score_threshold=0.0, return_spots=True,
         x_T=torch.from_numpy(x_T), step_noises=[torch.from_numpy(n) for n in noises],
     )
-    return want, got
+    return program.result()(params, lq, rng), got
 
 
 def test_restored_image_matches(results):

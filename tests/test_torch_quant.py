@@ -577,3 +577,56 @@ def test_weight_cache_follows_in_place_updates():
         layer.load_state_dict({"weight": torch.randn(16, 8, 3, 3), "bias": layer.bias})
         assert torch.equal(layer(x), fresh_output())
     assert torch.equal(layer(x), torch.nn.functional.conv2d(x, layer.weight, layer.bias, 1, 1))
+
+
+def test_device_amax_mode_equals_the_dynamic_path_at_equal_amax():
+    """Q2's two modes of a row-parallel site, through their plain versions:
+    the amax-only pass gives the abs-max (a NaN kept), and quantizing from
+    that amax on the device gives the dynamic path's x8 and stats bit for bit
+    (the static path's clip never binds there); from a larger amax, the
+    static path's at that amax. The amax of two halves of the features is
+    the maximum of their amaxes, taken on the floats' bits."""
+    rng = np.random.default_rng(2030)
+    x = torch.from_numpy(rng.standard_normal((37, 24), dtype=np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        amax = quant.activation_amax(xd)
+        assert amax[0] == xd.float().abs().max() and amax[1] == 0
+        x8_dyn, stats_dyn = quant.quantize_activation(xd, None)
+        x8, stats = quant.quantize_activation(xd, amax.clone())
+        assert torch.equal(x8, x8_dyn) and torch.equal(stats, stats_dyn)
+        big = torch.stack([amax[0] * 3, amax[1]])
+        x8_big, stats_big = quant.quantize_activation(xd, big)
+        x8_static, stats_static = quant.quantize_activation(xd, float(big[0]))
+        assert torch.equal(x8_big, x8_static) and torch.equal(stats_big, stats_static)
+    halves = [quant.activation_amax(x[:, :12]), quant.activation_amax(x[:, 12:])]
+    bits = torch.stack([h[:1] for h in halves]).view(torch.int32).amax(0).view(torch.float32)
+    assert bits == quant.activation_amax(x)[0]
+    x[3, 5] = float("nan")
+    nan_amax = quant.activation_amax(x)
+    assert nan_amax[0].isnan() and nan_amax[:1].view(torch.int32) > torch.tensor(
+        float("inf")).view(torch.int32)
+    assert quant.quantize_activation(x, nan_amax)[1][1].isnan()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int32_mode_then_rescale_equals_the_fused_epilogue(dtype):
+    """Q1's int32 mode (plain version) gives the accumulators; the sum of the
+    accumulators of two halves of K (two row-parallel processes) is the
+    whole product's, and `_rescale` after it equals the fused epilogue bit
+    for bit, bias included."""
+    rng = np.random.default_rng(2031)
+    x8 = torch.from_numpy(rng.integers(-127, 128, (50, 1, 1, 64), dtype=np.int8))
+    w8 = torch.from_numpy(rng.integers(-127, 128, (24, 1, 1, 64), dtype=np.int8))
+    wscale = torch.from_numpy(rng.uniform(1e-3, 1e-2, 24).astype(np.float32))
+    stats = torch.tensor([3.0, 3.0 / 127], dtype=torch.float32)
+    bias = torch.linspace(-1.0, 1.0, 24).to(dtype)
+    acc = quant.int8_conv(x8, w8, wscale, stats, None, torch.int32, 1, 0)
+    assert acc.dtype == torch.int32 and acc.shape == (50, 1, 1, 24)
+    halves = [quant.int8_conv(x8[..., s].contiguous(), w8[..., s].contiguous(), wscale, stats,
+                              None, torch.int32, 1, 0) for s in (slice(0, 32), slice(32, 64))]
+    assert torch.equal(halves[0] + halves[1], acc)
+    fused = quant.int8_conv(x8, w8, wscale, stats, bias, dtype, 1, 0)
+    assert torch.equal(quant._rescale(acc, wscale, stats[1], bias, dtype), fused)
+    with pytest.raises(ValueError, match="int32"):
+        quant._q1_args((50, 1, 1), w8, wscale, stats, bias.to(torch.int32), torch.int32, 1, 0)

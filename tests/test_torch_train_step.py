@@ -26,7 +26,7 @@ from tair_tpu_torch.diffusion.diffusion import Diffusion
 from tair_tpu_torch.train import step as tstep
 from tair_tpu_torch.train.stages import count_trainable, trainable_mask
 from tair_tpu_torch.weights.convert import from_jax_params, to_jax_params
-from test_torch_common import jax_fast_compiles, tiny_pair, torch_single_thread  # noqa: F401
+from test_torch_common import compiling, jax_fast_compiles, tiny_pair, torch_single_thread  # noqa: F401
 
 LR = 1e-4
 OCR_WEIGHT = 0.01
@@ -75,27 +75,41 @@ def setup():
 
 
 @pytest.fixture(scope="module")
-def jax_side(setup):
-    """aux, gradients and the parameters after one AdamW step, from one
-    compiled function that repeats the body of the JAX train step."""
+def jax_program(setup):
+    """The body of the JAX train step as two programs, the loss and its
+    gradients, then the AdamW update: each compiles in a thread of its own
+    (`compiling`; without XLA's costly passes: each runs once) as soon as it
+    is traced, the first while the second is traced, both while the port's
+    side runs. Returns (the arguments, the two compiling programs, the
+    optimizer state)."""
     jm, params, _, batch, rng = setup
     diffusion = JaxDiffusion(schedule=jm.schedule, parameterization="v")
     tx = jax_make_optimizer(params, "stage3", LR)
     spot = jm.spotter_loss_fn()
 
-    def ref_step(p, opt_state, b, key):
+    def loss_and_grads(p, b, key):
         (_, aux), grads = jax.value_and_grad(
             partial(jax_loss_fn, jm, diffusion), has_aux=True
         )(p, b, key, spotter_loss_fn=spot, ocr_loss_weight=OCR_WEIGHT)
-        updates, _ = tx.update(grads, opt_state, p)
-        return aux, grads, optax.apply_updates(p, updates)
+        return aux, grads
 
-    args = (params, tx.init(params), {k: jnp.asarray(v) for k, v in batch.items()}, rng)
-    # the function runs once: compile it without LLVM's expensive passes
-    compiled = jax.jit(ref_step).lower(*args).compile(compiler_options={
-        "xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True,
-    })
-    aux, grads, new_params = compiled(*args)
+    def update(grads, opt_state, p):
+        updates, _ = tx.update(grads, opt_state, p)
+        return optax.apply_updates(p, updates)
+
+    args = (params, {k: jnp.asarray(v) for k, v in batch.items()}, rng)
+    opt_state = tx.init(params)
+    grads_fn = compiling({"grads": jax.jit(loss_and_grads).lower(*args)})["grads"]
+    update_fn = compiling({"update": jax.jit(update).lower(params, opt_state, params)})["update"]
+    return args, grads_fn, update_fn, opt_state
+
+
+@pytest.fixture(scope="module")
+def jax_side(jax_program):
+    """aux, gradients and the parameters after one AdamW step."""
+    (params, b, key), grads_fn, update_fn, opt_state = jax_program
+    aux, grads = grads_fn.result()(params, b, key)
+    new_params = update_fn.result()(grads, opt_state, params)
     return (
         {k: float(v) for k, v in aux.items()},
         jax.tree.map(np.array, grads),       # copies: writable, as torch.from_numpy wants
@@ -104,9 +118,9 @@ def jax_side(setup):
 
 
 @pytest.fixture(scope="module")
-def torch_side(setup):
+def torch_side(setup, jax_program):
     """aux, gradients by name (read just before the update) and the state
-    after one step of the port."""
+    after one step of the port (while the JAX program compiles)."""
     jm, params, tm, batch, rng = setup
     tm.train()
     before = {k: v.clone() for k, v in tm.state_dict().items()}
@@ -127,7 +141,7 @@ def torch_side(setup):
     return {k: float(v) for k, v in aux.items()}, grads, before, state
 
 
-def test_every_aux_entry_matches(jax_side, torch_side):
+def test_every_aux_entry_matches(torch_side, jax_side):
     aux_j, aux_t = jax_side[0], torch_side[0]
     assert set(aux_t) == set(aux_j) and "loss_ocr_texts" in aux_t
     for key, want in aux_j.items():
@@ -226,7 +240,8 @@ def test_trainable_mask_equals_jax_mask(setup, stage):
 
 def test_adamw_hyperparameters_match_optax_over_steps():
     """make_optimizer's AdamW against optax.adamw (its defaults are the JAX
-    package's) over five steps with given gradients."""
+    package's) over five steps with given gradients; its step hooks run once
+    a step, also where torch has wrapped AdamW's own step in them."""
     rng = np.random.default_rng(63)
     p0 = rng.standard_normal((7, 5)).astype(np.float32)
     grads = [rng.standard_normal((7, 5)).astype(np.float32) for _ in range(5)]
@@ -241,6 +256,9 @@ def test_adamw_hyperparameters_match_optax_over_steps():
     opt = tstep.make_optimizer(toy, "stage2", 1e-2)
     assert [p is toy.testr["w"] for g in opt.param_groups for p in g["params"]] == [True]
     assert not toy.swinir["w"].requires_grad
+    torch.optim.AdamW([torch.nn.Parameter(torch.zeros(1))])  # torch hooks AdamW.step
+    calls = []
+    opt.register_step_pre_hook(lambda *_: calls.append(1))
     tx = optax.adamw(1e-2)
     pj = jnp.asarray(p0)
     st = tx.init(pj)
@@ -251,6 +269,7 @@ def test_adamw_hyperparameters_match_optax_over_steps():
         pj = optax.apply_updates(pj, updates)
     np.testing.assert_allclose(toy.testr["w"].detach().numpy(), np.asarray(pj), atol=1e-6)
     np.testing.assert_array_equal(toy.swinir["w"].detach().numpy(), p0)
+    assert len(calls) == len(grads)
 
 
 def test_two_accumulated_calls_equal_one_step_on_the_mean_gradient(setup):

@@ -28,7 +28,7 @@ import pytest
 import torch
 
 from test_torch_common import (  # noqa: F401
-    iqa_checkpoints, jax_fast_compiles, t2n, tiny_pair, torch_single_thread,
+    compiling, iqa_checkpoints, jax_fast_compiles, t2n, tiny_pair, torch_single_thread,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -59,7 +59,22 @@ def _jax_noises(rng, shape):
 
 
 @pytest.fixture(scope="module")
-def feedback_runs(pair, lq):
+def fused_program(pair, lq):
+    """(its key, the JAX fused restore loop at batch two compiling in a
+    thread): traced before the host-feedback loops run, and compiled while
+    they do."""
+    jm, params, _ = pair
+    rng = jax.random.PRNGKey(75)
+    lowered = jax.jit(
+        lambda p, x, r: jm.restore_fused_feedback(
+            p, x, r, steps=STEPS, score_threshold=0.0, return_spots=True
+        )
+    ).lower(params, lq, rng)
+    return rng, compiling({"fused": lowered})["fused"]
+
+
+@pytest.fixture(scope="module")
+def feedback_runs(pair, lq, fused_program):
     """(JAX, port) results of the host-feedback loop for each prompt style."""
     jm, params, tm = pair
     rng = jax.random.PRNGKey(73)
@@ -129,14 +144,10 @@ def test_feedback_polygons_before_truncation(pair, lq):
 
 
 @pytest.fixture(scope="module")
-def fused_runs(pair, lq):
+def fused_runs(pair, lq, fused_program):
     jm, params, tm = pair
-    rng = jax.random.PRNGKey(75)
-    want = jax.jit(
-        lambda p, x, r: jm.restore_fused_feedback(
-            p, x, r, steps=STEPS, score_threshold=0.0, return_spots=True
-        )
-    )(params, lq, rng)
+    rng, program = fused_program
+    want = program.result()(params, lq, rng)
     x_T, noises = _jax_noises(rng, (BATCH, 8, 8, 4))
     got = tm.restore_fused_feedback(
         torch.from_numpy(lq), steps=STEPS, score_threshold=0.0, return_spots=True,

@@ -39,10 +39,11 @@ B, HW, M, STEPS = 2, 64, 3, 2
 N_PTS, N_CHARS, VOC = 16, 25, 97
 
 
-def tiny_model():
+def tiny_model(**testr_overrides):
     from tair_tpu_torch.pipeline import build_tiny_model
 
-    model = build_tiny_model(device="cpu", training=True)
+    model = build_tiny_model(device="cpu", training=True,
+                             testr_overrides=testr_overrides or None)
     model.init_parameters(torch.Generator().manual_seed(171))
     return model.train()
 
@@ -64,29 +65,45 @@ def global_batch():
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def run_steps(model, mesh=None, fsdp=False, grad_accum=1, use_checkpoint=False):
+def run_steps(model, mesh=None, fsdp=False, grad_accum=1, use_checkpoint=False, tp=False,
+              grads=None):
     """STEPS train steps on this process's rows of the global batch and of
     the global batch's draws (with `grad_accum` 2, two micro-steps and one
-    update), with the model's blocks checkpointed or not; returns (aux of each step, the state, the
-    gathered state dicts, {parameter name: the least |gradient| over the
-    steps} of the trained parameters as this process's optimizer saw them)."""
+    update), with the model's blocks checkpointed or not, and with `tp` the
+    model cut over the mesh's model axis (``shard_params_tp``; the sequence
+    parallelism its spotter encoder asks for bound) before FSDP shards it;
+    returns (aux of each step, the state, the gathered state dicts,
+    {parameter name: the least |gradient| over the steps} of the trained
+    parameters as this process's optimizer saw them). `grads`: a dict that
+    receives {name: gradient} of the first update, gathered to the
+    one-process layout."""
     from tair_tpu_torch.diffusion.diffusion import Diffusion
-    from tair_tpu_torch.parallel.fsdp import GradientSync, apply_fsdp, fsdp_units
-    from tair_tpu_torch.parallel.mesh import DATA_AXIS, local_rows
+    from tair_tpu_torch.parallel.fsdp import (
+        GradientSync, apply_fsdp, fsdp_units, shard_dims, whole_tensors,
+    )
+    from tair_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, local_rows
+    from tair_tpu_torch.parallel.tp import partial_grad_params, shard_params_tp, tp_weights
     from tair_tpu_torch.train import step as tstep
     from tair_tpu_torch.train.checkpoint import state_dicts
     from tair_tpu_torch.train.stages import apply_trainable_mask
 
     group = mesh.get_group(DATA_AXIS) if mesh is not None else None
     model.set_use_checkpoint(use_checkpoint)
+    dims, partial, model_group = None, (), None
+    if tp:  # the FSDP placement is read on the whole model's shapes, before the cut
+        dims = shard_dims(model, mesh[DATA_AXIS].size(), mesh[MODEL_AXIS].size())
+        shard_params_tp(mesh, model)
     units, replicated = [], list(model.parameters())
     if fsdp:
         apply_trainable_mask(model, STAGE)
-        replicated = apply_fsdp(model, mesh)
+        replicated = apply_fsdp(model, mesh, dims)
         units = fsdp_units(model)
+    if tp:  # FSDP's parameters, which replace the ones it shards
+        partial, model_group = partial_grad_params(model), mesh.get_group(MODEL_AXIS)
     state = tstep.create_train_state(model, STAGE, LR, grad_accum=grad_accum)
     if mesh is not None:
-        state.sync = GradientSync(replicated, units, group)
+        state.sync = GradientSync(replicated, units, group, partial, model_group)
+    layers = tp_weights(model)
     step = tstep.make_train_step(
         model, Diffusion(model.schedule, parameterization="v"),
         spotter_loss_fn=model.spotter_loss_fn(group=group), ocr_loss_weight=OCR_WEIGHT,
@@ -95,11 +112,15 @@ def run_steps(model, mesh=None, fsdp=False, grad_accum=1, use_checkpoint=False):
     least = {}
 
     def record(*_):
-        for group_ in state.optimizer.param_groups:
-            for p in group_["params"]:
-                g = p.grad.detach().abs()
-                name = names[id(p)]
-                least[name] = torch.minimum(least[name], g) if name in least else g
+        trained = [p for group_ in state.optimizer.param_groups for p in group_["params"]]
+        for p in trained:
+            g = p.grad.detach().abs()
+            name = names[id(p)]
+            least[name] = torch.minimum(least[name], g) if name in least else g
+        if grads is not None and not grads:  # a collective where the gradients are sharded
+            whole = whole_tensors([p.grad.detach() for p in trained],
+                                  [layers.get(names[id(p)]) for p in trained])
+            grads.update((names[id(p)], g.clone()) for p, g in zip(trained, whole))
 
     state.optimizer.register_step_pre_hook(record)
     batch = global_batch()
