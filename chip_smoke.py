@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout and holds each of the
-twelve model kernels (flash attention forward, dQ and dK/dV on the tensor cores
-for bfloat16, at D <= 128 and at the autoencoder's D = 512, and on FMA for
-float32; msda corner reduce forward, backward; the msda patchify kernel)
+eighteen model kernels (flash attention forward, dQ and dK/dV on the tensor
+cores for bfloat16, at D <= 128, at the autoencoder's D = 512 and on the
+column-split kernels above 512, and on FMA for float32, column-split above
+512 too; msda corner reduce forward, backward; the msda patchify kernel)
 against its plain PyTorch version at every shape the main paths give it, with
 its time beside its bound (each tensor-core kernel timed in turns with the FMA
 kernel it replaces, the patchify kernel's band design with its first design,
@@ -48,6 +49,13 @@ through its kernels:
   gradient  the autoencoder's decoder differentiated with respect to the
             latent at 512 x 512, bfloat16 and float32, through the D = 512
             backward kernels (phase vae_grad);
+  wide      head widths above 512: the column-split forward, dQ and dK/dV
+            in bfloat16 and float32 at T = 4096, D = 640 and 1024 and at
+            batch 2, two heads, D = 768, against their plain versions, with
+            SDPA's time and backend beside them, a ragged D = 520 call
+            through the wrapper's padding, then the VAE middle attention at
+            1024 channels on a 64 x 64 map, forward and the gradient to its
+            input, bfloat16 against float32 (phase wide_heads);
   weights   the released checkpoints' path: the seeded full-width model
             exported under the reference's names (SD-2.1 bundle, ControlNet,
             SwinIR, TESTR), ``python -m tair_tpu_torch.convert_weights``, the
@@ -247,13 +255,13 @@ K4_SHAPES = [
 BF16_FLASH_PER_STEP = {"flash_attention_fwd_tc": 46, "flash_attention_fwd_tc_wide": 2,
                        "flash_attention_dq_tc": 46, "flash_attention_dkv_tc": 46}
 
-FLATPATCH_STEPS = 10  # of every request of phase restore_flatpatch
+FLATPATCH_STEPS = 4  # of every request of phase restore_flatpatch
 PROBE_REPS = 2        # timed repetitions per setting of the probes' own runs
 
 # denoising steps of every request of the serving entry points' phases
 SERVE_STEPS = 4
 
-PHASES = ("kernels", "probes", "reference", "restore", "restore_flatpatch", "layers",
+PHASES = ("kernels", "wide_heads", "probes", "reference", "restore", "restore_flatpatch", "layers",
           "enc_topk", "tp_sp", "vae_grad", "quant", "matcher", "diffbir", "ckpt", "train_reference", "train",
           "train_scale", "tp_train", "iqa", "train_entry", "val", "val_patches", "spotter_eval",
           "face", "ram")
@@ -296,7 +304,8 @@ def time_ms(fn, warmup: int = 2, reps: int = 7, inner: int = 3) -> float:
 def device_draw(rng: np.random.Generator, shape, kind: str) -> torch.Tensor:
     """float32 standard normals ("normal") or uniforms on [0, 1) ("uniform")
     drawn on the card from a seed that `rng` draws: the msda checks' inputs
-    reach 2.5 GB, which numpy takes tens of seconds to draw on the host."""
+    reach 2.5 GB and the flash checks' 1.2 GB, which numpy takes tens of
+    seconds to draw on the host."""
     gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(2 ** 62)))
     draw = torch.randn if kind == "normal" else torch.rand
     return draw(shape, generator=gen, device="cuda", dtype=torch.float32)
@@ -490,6 +499,8 @@ FLASH_KERNEL_NAMES = {
     "dq_tc": ("flash_dq_tc_kernel",), "dkv": ("flash_dkv_kernel",),
     "dkv_tc": ("flash_dkv_tc_kernel", "sum_partials_kernel"),
     "dq_tc_wide": ("flash_dq_wide_tc_kernel",), "dkv_tc_wide": ("flash_dkv_wide_tc_kernel",),
+    **{f"{kind}{route}_colsplit": (f"flash_{kind}_colsplit{route}_kernel",)
+       for kind in ("fwd", "dq", "dkv") for route in ("", "_tc")},
 }
 
 
@@ -532,13 +543,9 @@ def check_flash(rng: np.random.Generator, smi: str, steps: int) -> list:
     rows = []
     for name, b, tq, tk, h, d, per_step, per_restore in K1_SHAPES:
         extra = 1 if name.endswith("_strided") else 0  # heads cut off again below
-        qn = rng.standard_normal((b, tq, h + extra, d), dtype=np.float32)
-        kn = rng.standard_normal((b, tk, h + extra, d), dtype=np.float32)
-        vn = rng.standard_normal((b, tk, h + extra, d), dtype=np.float32)
+        qn, kn, vn = (device_draw(rng, (b, t, h + extra, d), "normal") for t in (tq, tk, tk))
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = (
-                torch.from_numpy(a).cuda().to(dtype)[:, :, :h] for a in (qn, kn, vn)
-            )
+            q, k, v = (a.to(dtype)[:, :, :h] for a in (qn, kn, vn))
             scale = 1.0 / d ** 0.5
             mine = fa.kernel_name(dtype, d, "fwd")
             tc = mine != "fwd"
@@ -700,6 +707,254 @@ def check_flash_routes(rng: np.random.Generator, smi: str) -> dict:
     return launches
 
 
+# head widths above 512 (the column-split kernels, phase wide_heads): the
+# autoencoder's T = 4096 single head at 1.25 and 2 times its width, and a
+# batch of two heads at 768 (B, T, H, D); then a ragged route through
+# ``flash_attention`` (D = 520 zero-padded to 640, Tq != Tk, strided rows)
+WIDE_HEAD_SHAPES = [("t4096_d640", 1, 4096, 4096, 1, 640), ("t4096_d1024", 1, 4096, 4096, 1, 1024),
+                    ("b2_t1024_h2_d768", 2, 1024, 1024, 2, 768)]
+WIDE_HEAD_ROUTE = ("ragged_d520", 2, 1000, 333, 1, 520)
+# the VAE middle attention at this width on a 64 x 64 map (T = 4096, D = 1024)
+WIDE_ATTN_CHANNELS = 1024
+
+
+def wide_head_kernels(b, tq, tk, h, d, dtype, rng, extra_heads=0):
+    """The column-split forward, dQ and dK/dV of one shape and type on seeded
+    inputs, each held against the plain version (K1_TOL, K1_LSE_TOL,
+    GRAD_TOL), and autograd through ``flash_attention`` bit-equal to the
+    kernels called directly. Returns (inputs, kernels' outputs, held)."""
+    from tair_tpu_torch.ops import flash_attention as fa
+
+    arrays = [device_draw(rng, (b, t, h + extra_heads, d), "normal") for t in (tq, tk, tk, tq)]
+    q, k, v, do = (a.to(dtype)[:, :, :h] for a in arrays)
+    scale = 1.0 / d ** 0.5
+    names = {kind: fa.kernel_name(dtype, d, kind) for kind in ("fwd", "dq", "dkv")}
+    out, lse = fa._launch(q, k, v, scale)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dq = fa._launch_backward_kernel(names["dq"], q, k, v, do, lse, delta, scale)
+    dk, dv = fa._launch_backward_kernel(names["dkv"], q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ref, ref_lse = fa.flash_attention_plain(qf, kf, vf, scale)
+    rtol, atol = K1_TOL[dtype]
+    err, share = held_error(out, ref, rtol, atol)
+    lse_err = (lse - ref_lse).abs().max().item()
+    held = {"fwd": dict(max_abs_err=err, max_share_of_tol=share, lse_abs_err=lse_err)}
+    del ref, ref_lse
+    refs = fa.flash_attention_bwd_plain(qf, kf, vf, out.float(), lse, do.float(), scale)
+    for kind, gname, g, ref in (("dq", "dq", dq, refs[0]), ("dkv", "dk", dk, refs[1]),
+                                ("dkv", "dv", dv, refs[2])):
+        err, share, mean = held_grad_error(g, ref, dtype)
+        held.setdefault(kind, dict(max_abs_err=0.0, max_share_of_tol=0.0))
+        held[kind][gname] = dict(max_abs_err=err, max_share_of_tol=share, mean_abs_plain=mean)
+        held[kind]["max_abs_err"] = max(held[kind]["max_abs_err"], err)
+        held[kind]["max_share_of_tol"] = max(held[kind]["max_share_of_tol"], share)
+    del refs, qf, kf, vf
+    if not (all(r["max_share_of_tol"] <= 1.0 for r in held.values())
+            and lse_err <= K1_LSE_TOL):
+        raise AssertionError(f"flash_attention column split B={b} Tq={tq} Tk={tk} H={h} D={d} "
+                             f"{dtype}: {held} (lse tol {K1_LSE_TOL})")
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    via_out, via_lse = fa.flash_attention(*leaves, scale)
+    via = torch.autograd.grad(via_out, leaves, do)
+    if not (torch.equal(via_out, out) and torch.equal(via_lse, lse)
+            and all(torch.equal(a, w) for a, w in zip(via, (dq, dk, dv)))):
+        raise AssertionError(f"flash_attention column split D={d} {dtype}: autograd through "
+                             "the Function disagrees with the kernels called directly")
+    return (q, k, v, do, out, lse, delta, scale), names, held
+
+
+def phase_wide_heads(rng: np.random.Generator, smi: str) -> tuple:
+    """Head widths above 512 on the column-split kernels: the forward, dQ
+    and dK/dV in bfloat16 (tensor cores) and float32 (FMA) at each of
+    WIDE_HEAD_SHAPES against the plain versions, with wrapper and device ms,
+    bounds (the function's work, not the split's recompute), the plain
+    versions' ms and PyTorch's fused attention (forward; all three
+    gradients) with the backend it took; the ragged WIDE_HEAD_ROUTE through
+    ``flash_attention`` (padded to 640); then the path: the VAE middle
+    attention (``models.vae.AttnBlock``) at WIDE_ATTN_CHANNELS channels on a
+    64 x 64 map, its residual branch and that branch's gradient to its
+    input, bfloat16 against
+    float32 as phase vae_grad holds the decoder, with the counts set to 0
+    before it and the plain versions counted (none may run). Returns (the
+    six kernels' entries, the path's launches)."""
+    import torch.nn.functional as F
+
+    from tair_tpu_torch.models.vae import AttnBlock
+    from tair_tpu_torch.ops import flash_attention as fa
+
+    rows = []
+    for name, b, tq, tk, h, d in WIDE_HEAD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            (q, k, v, do, out, lse, delta, scale), names, held = wide_head_kernels(
+                b, tq, tk, h, d, dtype, rng)
+            calls = {
+                "fwd": (lambda: fa._launch(q, k, v, scale), FLASH_KERNEL_NAMES[names["fwd"]]),
+                **{kind: (lambda kind=kind: fa._launch_backward_kernel(
+                    names[kind], q, k, v, do, lse, delta, scale),
+                    FLASH_KERNEL_NAMES[names[kind]]) for kind in ("dq", "dkv")},
+            }
+            ms = {kind: time_ms(fn, warmup=1, reps=5, inner=2) for kind, (fn, _) in calls.items()}
+            dev, sampled = device_ms(calls, n=5)
+            plain_ms = {
+                "fwd": time_ms(lambda: fa.flash_attention_plain(q, k, v, scale),
+                               warmup=1, reps=3, inner=1),
+                "bwd": time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do, scale),
+                               warmup=1, reps=3, inner=1),
+            }
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+            dot = do.transpose(1, 2)
+            lib_out = F.scaled_dot_product_attention(qt, kt, vt)
+            library = dict(
+                fwd_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                               warmup=1, reps=3, inner=2),
+                bwd_ms=time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                                           retain_graph=True),
+                               warmup=1, reps=3, inner=2),
+                **sdpa_backend(qt, kt, vt, dot),
+            )
+            del lib_out, qt, kt, vt
+            size = q.element_size()
+            prod = 2.0 * tq * tk * d * h * b  # one product of the function
+            stats = 4 * tq * h * b
+            bounds = {
+                "fwd": bound_of(2 * prod, b * h * d * (2 * tq + 2 * tk) * size + stats, dtype),
+                "dq": bound_of(3 * prod, b * h * d * (3 * tq + 2 * tk) * size + 2 * stats, dtype),
+                "dkv": bound_of(4 * prod, b * h * d * (2 * tq + 4 * tk) * size + 2 * stats, dtype),
+            }
+            # the split's products against the function's: S (and dP) once a slice
+            slices = len(fa.column_slices(d))
+            recompute = {"fwd": (slices + 1) / 2, "dq": (2 * slices + 1) / 3,
+                         "dkv": (2 * slices + 2) / 4}
+            for kind in ("fwd", "dq", "dkv"):
+                rows.append(dict(
+                    kernel=names[kind], shape=name, batch=b, tq=tq, tk=tk, heads=h, d=d,
+                    dtype=str(dtype).split(".")[-1], slices=fa.column_slices(d),
+                    recompute=recompute[kind], held=held[kind],
+                    max_abs_err=held[kind]["max_abs_err"], ms=ms[kind], device_ms=dev[kind],
+                    device_ms_launches=sampled[kind],
+                    plain_ms=plain_ms["fwd" if kind == "fwd" else "bwd"],
+                    plain_covers="fwd" if kind == "fwd" else "dq + dkv",
+                    library_ms=library["fwd_ms" if kind == "fwd" else "bwd_ms"],
+                    library_covers="forward" if kind == "fwd" else "dq + dk + dv",
+                    library_backend=library["backend"], library_kernels=library["kernels"],
+                    **bounds[kind],
+                ))
+            del q, k, v, do, out, lse, delta
+            torch.cuda.empty_cache()
+    for row in rows:
+        emit("wide_heads", card=smi, **row)
+
+    # the ragged route: D = 520 padded to 640, Tq != Tk, q, k, v cut out of wider buffers
+    name, b, tq, tk, h, d = WIDE_HEAD_ROUTE
+    route = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        arrays = [rng.standard_normal((b, t, h + 1, d), dtype=np.float32) for t in (tq, tk, tk, tq)]
+        q, k, v, do = (torch.from_numpy(a).cuda().to(dtype)[:, :, :h] for a in arrays)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        fa.reset_launches()
+        out, lse = fa.flash_attention(*leaves)
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        got = {key: n for key, n in fa.launches.items() if n}
+        want = {fa.kernel_name(dtype, fa.padded_head_dim(d), kind): 1
+                for kind in ("fwd", "dq", "dkv")}
+        qf, kf, vf = q.float(), k.float(), v.float()
+        ref, _ = fa.flash_attention_plain(qf, kf, vf)
+        refs = fa.flash_attention_bwd_plain(qf, kf, vf, out.detach().float(), lse, do.float())
+        shares = {"out": held_error(out, ref, *K1_TOL[dtype])[1],
+                  **{gname: held_grad_error(g, r, dtype)[1]
+                     for gname, g, r in zip(("dq", "dk", "dv"), grads, refs)}}
+        if got != want or out.shape != (b, tq, h, d) or max(shares.values()) > 1.0:
+            raise AssertionError(f"wide_heads route {name} {dtype}: launches {got} (expected "
+                                 f"{want}), {tuple(out.shape)}, shares of tolerance {shares}")
+        route[str(dtype).split(".")[-1]] = dict(launches=got, max_share_of_tol=shares)
+        del q, k, v, do, leaves, out, grads, ref, refs
+    emit("wide_heads", route=name, shape=dict(b=b, tq=tq, tk=tk, h=h, d=d),
+         kernel_width=fa.padded_head_dim(d), **route)
+
+    # the path: the VAE middle attention at WIDE_ATTN_CHANNELS channels
+    ch = WIDE_ATTN_CHANNELS
+    torch.manual_seed(int(rng.integers(2 ** 31)))
+    block32 = AttnBlock(ch).to("cuda").eval()
+    with torch.no_grad():  # a random proj_out (zero in a fresh model: no gradient through it)
+        for conv in (block32.q, block32.k, block32.v, block32.proj_out):
+            conv.weight.normal_(0.0, ch ** -0.5)
+            conv.bias.normal_(0.0, 0.02)
+    block16 = AttnBlock(ch).to("cuda").eval()
+    block16.load_state_dict(block32.state_dict())
+    block16.to(torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal((1, ch, 64, 64), dtype=np.float32)).cuda()
+    plain_calls = {"fwd": 0, "bwd": 0}
+    plain_fwd, plain_bwd = fa.flash_attention_plain, fa.flash_attention_bwd_plain
+
+    def counted(fn, key):
+        def call(*a, **kw):
+            plain_calls[key] += 1
+            return fn(*a, **kw)
+        return call
+
+    grads, outs, seconds = {}, {}, {}
+    fa.flash_attention_plain = counted(plain_fwd, "fwd")
+    fa.flash_attention_bwd_plain = counted(plain_bwd, "bwd")
+    try:
+        reset_launch_counts()
+        for dtype, block in ((torch.bfloat16, block16), (torch.float32, block32)):
+            leaf = x.to(dtype).requires_grad_(True)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            y = block(leaf) - leaf  # the attention branch alone, and its gradient
+            (g,) = torch.autograd.grad(y.float().square().mean(), leaf)
+            torch.cuda.synchronize()
+            seconds[str(dtype).split(".")[-1]] = time.perf_counter() - t
+            if not (torch.isfinite(y).all() and torch.isfinite(g).all()):
+                raise AssertionError(f"wide_heads AttnBlock {dtype}: not finite")
+            outs[dtype], grads[dtype] = y.float(), g.float()
+        counts = launch_counts()
+    finally:
+        fa.flash_attention_plain, fa.flash_attention_bwd_plain = plain_fwd, plain_bwd
+    flash = {k: n for k, n in counts.items() if k.startswith("flash_attention_") and n}
+    want = {f"flash_attention_{fa.kernel_name(dt, ch, kind)}": 1
+            for dt in (torch.bfloat16, torch.float32) for kind in ("fwd", "dq", "dkv")}
+    if flash != want or any(plain_calls.values()):
+        raise AssertionError(f"wide_heads AttnBlock: flash launches {flash} (expected {want}), "
+                             f"plain versions called {plain_calls}")
+    rel = {name: ((a[torch.bfloat16] - a[torch.float32]).norm() / a[torch.float32].norm()).item()
+           for name, a in (("out", outs), ("grad", grads))}
+    if not max(rel.values()) <= VAE_GRAD_TOL:
+        raise AssertionError(f"wide_heads AttnBlock: bfloat16 against float32 {rel} "
+                             f"(tolerance {VAE_GRAD_TOL})")
+    emit("wide_heads", path="AttnBlock", channels=ch, shape=[1, ch, 64, 64],
+         attention=f"T=4096 H=1 D={ch}", objective="mean((block(x) - x)^2)", seconds=seconds,
+         bf16_vs_float32_rel_frobenius=rel, tol=VAE_GRAD_TOL, flash_launches=flash,
+         plain_calls=plain_calls)
+    del block16, block32, x, outs, grads
+    release_device_memory()
+
+    entries = []
+    for which, site, file in (
+        ("fwd_tc_colsplit", 168, "flash_attention_colsplit_tc.cu"),
+        ("dq_tc_colsplit", 229, "flash_attention_colsplit_tc.cu"),
+        ("dkv_tc_colsplit", 245, "flash_attention_colsplit_tc.cu"),
+        ("fwd_colsplit", 168, "flash_attention_colsplit.cu"),
+        ("dq_colsplit", 229, "flash_attention_colsplit.cu"),
+        ("dkv_colsplit", 245, "flash_attention_colsplit.cu"),
+    ):
+        head = next(r for r in rows if r["kernel"] == which and r["shape"] == "t4096_d1024")
+        entries.append(dict(
+            name=f"flash_attention_{which}", route="cuda",
+            source=f"tair_tpu_torch/ops/csrc/{file}",
+            replaces=f"tair_tpu/ops/flash_attention.py:{site}",
+            shape=f"T=4096 H=1 D=1024 {head['dtype']}", max_abs_err=head["max_abs_err"],
+            ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=head["library_ms"],
+            plain_and_library_cover=f"{head['plain_covers']}; {head['library_covers']}",
+            library_backend=head["library_backend"], device_ms=head["device_ms"],
+            device_ms_launches=head["device_ms_launches"], paths=("wide_heads",),
+        ))
+    return entries, counts
+
+
 def check_msda(rng: np.random.Generator, smi: str, steps: int) -> list:
     """K3 at every shape of K3_SHAPES and at the sparse encoder's NQ; two
     entries of the kernels line: the dense paths' (NQ = 9472) and the sparse
@@ -786,14 +1041,9 @@ def check_flash_bwd(rng: np.random.Generator, smi: str) -> list:
         if d not in fa.HEAD_DIMS or (d == 512 and name not in FLASH_BWD_WIDE_SHAPES):
             continue
         extra = 1 if name.endswith("_strided") else 0
-        arrays = [
-            rng.standard_normal((b, t, h + extra, d), dtype=np.float32)
-            for t in (tq, tk, tk, tq)
-        ]
+        arrays = [device_draw(rng, (b, t, h + extra, d), "normal") for t in (tq, tk, tk, tq)]
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, do = (
-                torch.from_numpy(a).cuda().to(dtype)[:, :, :h] for a in arrays
-            )
+            q, k, v, do = (a.to(dtype)[:, :, :h] for a in arrays)
             scale = 1.0 / d ** 0.5
             mine = {kind: fa.kernel_name(dtype, d, kind) for kind in ("dq", "dkv")}
             out, lse = fa.flash_attention(q, k, v, scale)
@@ -1679,7 +1929,7 @@ def phase_train(seed: int, steps: int, kernels: list, profile: bool) -> dict:
 TRAIN_SCALE_BATCHES = (1, 2, 4)
 TRAIN_SCALE_CHECK_BATCH = 2
 TRAIN_SCALE_TRAINER_STEPS = 3
-TRAIN_SCALE_TIMED_STEPS = 3  # after one warm-up step, per setting
+TRAIN_SCALE_TIMED_STEPS = 2  # after one warm-up step, per setting
 # the FSDP trainer's losses against the plain trainer's: the first step is the
 # same program, the later ones start from updates whose gradients the plain
 # backward's atomic sums already vary (1.8e-4 seen on an H100)
@@ -5316,6 +5566,9 @@ def main() -> None:
             check_patchify(rng, smi, args.steps),
         ]
         check_flash_routes(rng, smi)
+    if "wide_heads" in phases:
+        wide_kernels, path_launches["wide_heads"] = phase_wide_heads(rng, smi)
+        kernels += wide_kernels
     if "probes" in phases:
         probe_kernels, path_launches["probes"] = phase_probes(smi, PROBE_REPS)
         kernels += probe_kernels

@@ -27,7 +27,7 @@ LIBRARIES = {
     **{name: (name,) for name in (
         "flash_attention", "flash_attention_bwd", "flash_attention_tc",
         "flash_attention_wide_tc", "flash_attention_dq_tc", "flash_attention_dkv_tc",
-        "flash_attention_wide_bwd_tc",
+        "flash_attention_wide_bwd_tc", "flash_attention_colsplit", "flash_attention_colsplit_tc",
         "msda_reduce", "patchify", "probe_gather", "probe_stream", "probe_msda_lab",
         "jv_assign",
     )},

@@ -12,16 +12,22 @@ kernels at every head width: the forward in ``csrc/flash_attention_tc.cu`` at
 D <= 128 and ``csrc/flash_attention_wide_tc.cu`` at the autoencoder's D = 512,
 dQ and dK/dV in ``csrc/flash_attention_dq_tc.cu`` and
 ``csrc/flash_attention_dkv_tc.cu`` at D <= 128 and both in
-``csrc/flash_attention_wide_bwd_tc.cu`` at D = 512; float32 takes the FMA
-kernels (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``).
+``csrc/flash_attention_wide_bwd_tc.cu`` at D = 512, and all three in
+``csrc/flash_attention_colsplit_tc.cu`` above 512; float32 takes the FMA
+kernels (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``, and
+``csrc/flash_attention_colsplit.cu`` above 512).
 ``delta = rowsum(dO * O)`` is formed here in float32, outside the kernels, as
 the JAX package does. The plain versions are taken only for tensors that lie
-on the CPU. Every kernel has the head widths ``HEAD_DIMS``; `flash_attention`
-takes any other width up to 512 by padding q, k and v with zeros along D to
-the next of them (`padded_head_dim`) and slicing the output (autograd slices
-dQ, dK and dV back): the scale is the caller's, so the zeros change no logit.
-A width above 512 raises (the JAX kernel, which holds a head's whole K and V
-in VMEM, is bounded there by VMEM instead). A grid holds at
+on the CPU. The kernels' head widths are ``HEAD_DIMS`` and, above 512, every
+multiple of ``COLUMN_GRANULE``: above 512 the column-split kernels stream D
+through shared memory and give each block a slice of at most 512 output
+columns (`column_slices`), so they take any width, as the JAX kernel does
+(which holds a head's whole K and V in VMEM and is bounded there by VMEM
+only). `flash_attention` takes every other width by padding q, k and v with
+zeros along D to the kernels' next width (`padded_head_dim`: the next of
+``HEAD_DIMS`` up to 512, the next multiple of 128 above) and slicing the
+output (autograd slices dQ, dK and dV back): the scale is the caller's, so the
+zeros change no logit. A grid holds at
 most `MAX_BH_PAIRS` (batch, head) pairs, so a call with more is cut into
 launches over batch slices, or over heads where H alone passes it
 (`bh_slices`), forward and backward.
@@ -43,6 +49,10 @@ HEAD_DIMS = (16, 32, 64, 128, 512)
 # the tensor-core kernels of their own at this width: the forward in
 # csrc/flash_attention_wide_tc.cu, dQ and dK/dV in csrc/flash_attention_wide_bwd_tc.cu
 WIDE_HEAD_DIM = 512
+# above WIDE_HEAD_DIM the column-split kernels take every multiple of this
+# (their chunk of D), and give a block at most SLICE_MAX output columns
+COLUMN_GRANULE = 128
+SLICE_MAX = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 DKV_QUERY_TILE = 64  # a chunk of the dK/dV query split is a multiple of this
 MAX_BH_PAIRS = 65535  # (batch, head) pairs of one launch: the grid's y extent
@@ -50,9 +60,11 @@ SMS = 132            # streaming multiprocessors of an H100 SXM
 
 # kernel launches made by the wrapper, one count per kernel (never raised by a
 # plain version): forward, dQ and dK/dV, each on the FMA kernel, the
-# tensor-core kernel at D <= 128 and the tensor-core kernel at D = 512
+# tensor-core kernel at D <= 128, the tensor-core kernel at D = 512, and the
+# column-split FMA and tensor-core kernels above 512
 launches = {"fwd": 0, "fwd_tc": 0, "fwd_tc_wide": 0, "dq": 0, "dq_tc": 0, "dq_tc_wide": 0,
-            "dkv": 0, "dkv_tc": 0, "dkv_tc_wide": 0}
+            "dkv": 0, "dkv_tc": 0, "dkv_tc_wide": 0, "fwd_colsplit": 0, "fwd_tc_colsplit": 0,
+            "dq_colsplit": 0, "dq_tc_colsplit": 0, "dkv_colsplit": 0, "dkv_tc_colsplit": 0}
 
 # the C entry points: (library, symbol, argument types); pointers, then
 # B, H, Tq, Tk, D, the strides, the scale, and what each kernel takes after it
@@ -70,6 +82,10 @@ _ENTRY = {
     "dkv": ("flash_attention_bwd", "flash_attention_dkv", [_PTR] * 8 + _SHAPE + [_INT, _PTR]),
     "dkv_tc_wide": ("flash_attention_wide_bwd_tc", "flash_attention_dkv_wide_tc",
                     [_PTR] * 8 + _SHAPE + [_PTR]),
+    **{f"{kind}{route}_colsplit": (f"flash_attention_colsplit{route}",
+                                   f"flash_attention_{kind}_colsplit{route}",
+                                   [_PTR] * n + _SHAPE + [_PTR])
+       for kind, n in (("fwd", 5), ("dq", 7), ("dkv", 8)) for route in ("", "_tc")},
     # + the workspace pointer, and splits, chunk after the scale
     "dkv_tc": ("flash_attention_dkv_tc", "flash_attention_dkv_tc",
                [_PTR] * 9 + _SHAPE + [_INT, _INT, _PTR]),
@@ -93,23 +109,46 @@ def reset_launches() -> None:
         launches[key] = 0
 
 
+def kernel_width(d: int) -> bool:
+    """Whether the kernels run at head width `d` as it is: one of `HEAD_DIMS`,
+    or above 512 a multiple of `COLUMN_GRANULE` (the column-split kernels)."""
+    return d in HEAD_DIMS or (d > WIDE_HEAD_DIM and d % COLUMN_GRANULE == 0)
+
+
 def tensor_core_kernels(dtype: torch.dtype, d: int, kind: str) -> bool:
     """Whether a call of this type and head width takes the tensor-core kernel
     of `kind` ("fwd", "dq" or "dkv") rather than the FMA one: bfloat16 at every
-    head width (`HEAD_DIMS`), whatever the kind. float32 is held to 1e-4 and
-    never goes through TF32, so it stays on the FMA kernels."""
+    head width of the kernels (`kernel_width`), whatever the kind. float32 is
+    held to 1e-4 and never goes through TF32, so it stays on the FMA kernels."""
     if kind not in ("fwd", "dq", "dkv"):
         raise ValueError(f"kind must be fwd, dq or dkv, got {kind!r}")
-    return dtype == torch.bfloat16 and d in HEAD_DIMS
+    return dtype == torch.bfloat16 and kernel_width(d)
 
 
 def kernel_name(dtype: torch.dtype, d: int, kind: str) -> str:
     """The `launches` key of the kernel of `kind` that a call of this type and
     head width takes: `kind` itself for the FMA kernel, else its tensor-core
-    kernel (``<kind>_tc_wide`` at D = 512)."""
-    if not tensor_core_kernels(dtype, d, kind):
+    kernel (``<kind>_tc_wide`` at D = 512); above 512 the column-split ones,
+    ``<kind>_colsplit`` (float32) and ``<kind>_tc_colsplit`` (bfloat16)."""
+    tc = tensor_core_kernels(dtype, d, kind)
+    if d > WIDE_HEAD_DIM:
+        return f"{kind}_tc_colsplit" if tc else f"{kind}_colsplit"
+    if not tc:
         return kind
     return f"{kind}_tc_wide" if d == WIDE_HEAD_DIM else f"{kind}_tc"
+
+
+def column_slices(d: int) -> list:
+    """The output slices [(first column, width)] that the column-split kernels
+    cut a head width `d` (above 512, a multiple of 128) into, one grid plane
+    each: ceil(d / 512) slices sharing the d / 128 units of 128 columns as
+    evenly as they go, the first ones a unit wider (each kernel's
+    ``slice_of``)."""
+    units = d // COLUMN_GRANULE
+    n = -(-units // (SLICE_MAX // COLUMN_GRANULE))
+    base, rem = divmod(units, n)
+    return [(COLUMN_GRANULE * (s * base + min(s, rem)), COLUMN_GRANULE * (base + (s < rem)))
+            for s in range(n)]
 
 
 def dkv_query_split(b: int, h: int, tq: int, tk: int) -> int:
@@ -132,15 +171,11 @@ def dkv_chunk_queries(tq: int, splits: int) -> int:
 
 def padded_head_dim(d: int) -> int:
     """The kernels' head width that a call of width `d` runs at: `d` itself
-    when the kernels have it, else the next wider (zero padding); above the
-    widest, ValueError."""
-    for width in HEAD_DIMS:
-        if width >= d:
-            return width
-    raise ValueError(
-        f"flash_attention takes head widths up to {HEAD_DIMS[-1]} (its widest kernels'), "
-        f"got {d}"
-    )
+    when the kernels have it, else the next wider (zero padding): the next of
+    `HEAD_DIMS` up to 512, the next multiple of `COLUMN_GRANULE` above."""
+    if d > WIDE_HEAD_DIM:
+        return -(-d // COLUMN_GRANULE) * COLUMN_GRANULE
+    return next(width for width in HEAD_DIMS if width >= d)
 
 
 def bh_slices(b: int, h: int, limit: int = MAX_BH_PAIRS):
@@ -244,18 +279,19 @@ def _rows_aligned(t: torch.Tensor) -> bool:
 
 def _launch(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-    which: Optional[str] = None,  # "fwd" or the tensor-core kernel; by default kernel_name's
+    which: Optional[str] = None,  # kernel_name's (the default), or "fwd" at HEAD_DIMS
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, tq, h, d = q.shape
     tk = k.shape[1]
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel has head widths {HEAD_DIMS}, got {d}")
+    if not kernel_width(d):
+        raise ValueError(f"flash_attention kernel has head widths {HEAD_DIMS} and the "
+                         f"multiples of {COLUMN_GRANULE} above {WIDE_HEAD_DIM}, got {d}")
     chosen = kernel_name(q.dtype, d, "fwd")
     if which is None:
         which = chosen
-    if which != "fwd" and which != chosen:
+    if which != chosen and not (which == "fwd" and d in HEAD_DIMS):
         raise ValueError(f"flash_attention_{which} does not take {q.dtype} at D = {d}")
     if b * h > MAX_BH_PAIRS:
         raise ValueError(f"one flash_attention launch takes at most {MAX_BH_PAIRS} (batch, "
@@ -286,24 +322,25 @@ def _launch(
 
 
 def _launch_backward_kernel(
-    which: str,  # "dq", "dkv" or a tensor-core kernel of one of them
+    which: str,  # kernel_name's for "dq" or "dkv", or "dq", "dkv" at HEAD_DIMS
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, scale: float,
 ):
     """One backward kernel on the tensors the forward launch saw: dq for "dq"
-    and its tensor-core kernels, (dk, dv) for "dkv" and its tensor-core
-    kernels. do must pass `_rows_aligned`; lse and delta are float32
+    and its other kernels, (dk, dv) for "dkv" and its other kernels. do must
+    pass `_rows_aligned`; lse and delta are float32
     [B, H, Tq], contiguous. "dkv_tc" cuts the queries
     as `dkv_query_split` says and sums the chunks' float32 partials in a
     workspace allocated here."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    if d not in HEAD_DIMS:
+    if not kernel_width(d):
         raise NotImplementedError(
-            f"flash_attention backward kernels have head widths {HEAD_DIMS}, got {d}"
+            f"flash_attention backward kernels have head widths {HEAD_DIMS} and the "
+            f"multiples of {COLUMN_GRANULE} above {WIDE_HEAD_DIM}, got {d}"
         )
     kind = which.split("_")[0]
-    if which != kind and kernel_name(q.dtype, d, kind) != which:
+    if which != kernel_name(q.dtype, d, kind) and not (which == kind and d in HEAD_DIMS):
         raise ValueError(f"flash_attention_{which} does not take {q.dtype} at D = {d}")
     for name, t in (("do", do), ("lse", lse), ("delta", delta)):
         if not t.is_cuda or t.device != q.device:
@@ -334,10 +371,10 @@ def _launch_backward_kernel(
             None if ws is None else ws.data_ptr(), b, h, tq, tk, d, strides,
             float(scale), splits, dkv_chunk_queries(tq, splits),
         )
-    elif which != kind:  # dq_tc, dq_tc_wide, dkv_tc_wide
-        tail = (b, h, tq, tk, d, strides, float(scale))
-    else:
+    elif which == kind:  # the FMA kernels of HEAD_DIMS take the type's code
         tail = (b, h, tq, tk, d, strides, float(scale), _DTYPE_CODES[q.dtype])
+    else:
+        tail = (b, h, tq, tk, d, strides, float(scale))
     fn = _entry(which)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -6,6 +6,7 @@ dS as two bfloat16 terms."""
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ CASES = [
     (1, 40, 77, 1, 16, 0.5),      # custom scale
     (1, 33, 130, 3, 128, None),   # ragged both ways, wide head
     (1, 48, 80, 1, 512, None),    # the autoencoder's single 512-wide head
+    (1, 48, 80, 1, 1024, None),   # a head above 512: the column-split kernels' width
 ]
 
 
@@ -42,7 +44,7 @@ def _inputs(b, tq, tk, h, d, seed=0):
 def test_plain_matches_pallas_interpret_o_and_lse(b, tq, tk, h, d, scale):
     q, k, v = _inputs(b, tq, tk, h, d)
     s = scale if scale is not None else 1.0 / np.sqrt(d)
-    out_j, res = _flash_attention_fwd(
+    out_j, res = jax.jit(_flash_attention_fwd, static_argnums=(3, 4, 5, 6))(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), s, 32, 32, True
     )
     lse_j = np.asarray(res[4])[:, :tq, 0].reshape(b, h, tq)
@@ -110,17 +112,41 @@ def test_shape_mismatch_raises(shapes):
 
 
 @pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", [*fa.HEAD_DIMS, 640, 768, 1024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_choice(dtype, d, kind):
     """bfloat16 takes the tensor-core kernels: the forward, dQ and dK/dV at
-    every head width (kernels of their own at the autoencoder's D = 512);
-    float32 (held to 1e-4, never through TF32) takes the FMA kernels."""
-    tc = dtype == torch.bfloat16 and d in (16, 32, 64, 128, 512)
+    every head width (kernels of their own at the autoencoder's D = 512, and
+    the column-split ones above 512); float32 (held to 1e-4, never through
+    TF32) takes the FMA kernels (column-split ones above 512)."""
+    tc = dtype == torch.bfloat16
+    assert fa.kernel_width(d)
     assert fa.tensor_core_kernels(dtype, d, kind) == tc
-    want = f"{kind}_tc_wide" if tc and d == 512 else f"{kind}_tc" if tc else kind
+    if d > 512:
+        want = f"{kind}_tc_colsplit" if tc else f"{kind}_colsplit"
+    else:
+        want = f"{kind}_tc_wide" if tc and d == 512 else f"{kind}_tc" if tc else kind
     assert fa.kernel_name(dtype, d, kind) == want
     assert want in fa.launches
+
+
+@pytest.mark.parametrize("d,want", [
+    (640, [(0, 384), (384, 256)]),
+    (768, [(0, 384), (384, 384)]),
+    (1024, [(0, 512), (512, 512)]),
+    (1152, [(0, 384), (384, 384), (768, 384)]),
+    (2176, [(0, 512), (512, 512), (1024, 384), (1408, 384), (1792, 384)]),
+])
+def test_column_slices_cover_the_head_once(d, want):
+    """The column-split kernels' output slices (one grid plane each): as few
+    as keep every slice within 512 columns, sharing the 128-column units as
+    evenly as they go, covering [0, D) once in order."""
+    slices = fa.column_slices(d)
+    assert slices == want
+    assert [s for s, _ in slices] == [sum(w for _, w in slices[:i]) for i in range(len(slices))]
+    assert sum(w for _, w in slices) == d
+    assert all(w % fa.COLUMN_GRANULE == 0 and 256 <= w <= fa.SLICE_MAX for _, w in slices)
+    assert len(slices) == -(-d // fa.SLICE_MAX)
 
 
 @pytest.mark.parametrize(
@@ -134,6 +160,11 @@ def test_kernel_choice(dtype, d, kind):
         ("dq_tc", torch.bfloat16, 512),        # D = 512 has a backward kernel of its own
         ("dq_tc_wide", torch.bfloat16, 64),
         ("dkv_tc_wide", torch.float32, 512),
+        ("fwd", torch.float32, 640),           # above 512 the FMA kernel is the column split's
+        ("fwd_colsplit", torch.bfloat16, 1024),  # which takes float32 only
+        ("fwd_tc_colsplit", torch.float32, 640),
+        ("dq_tc_wide", torch.bfloat16, 1024),
+        ("dkv_tc_colsplit", torch.bfloat16, 512),
     ],
 )
 def test_tensor_core_kernel_refuses_other_calls(which, dtype, d):
@@ -157,16 +188,19 @@ def _two_terms(x):
     return hi + _bf16(x - hi)
 
 
-@pytest.mark.parametrize("product", ["pv", "dv", "dk", "dq", "pv512", "dv512", "dk512", "dq512"])
+@pytest.mark.parametrize("product", ["pv", "dv", "dk", "dq", "pv512", "dv512", "dk512", "dq512",
+                                     "pv1024", "dv1024", "dk1024", "dq1024"])
 def test_bf16_probabilities_need_two_terms(product):
     """The tensor-core kernels' arithmetic, emulated, also at the
-    autoencoder's D = 512: P (forward P V; dV = P^T dO) and dS (dK = dS^T q, dQ = dS k)
+    autoencoder's D = 512 and at D = 1024 (the column-split kernels, whose
+    logits sum D in another order): P (forward P V; dV = P^T dO) and dS (dK = dS^T q, dQ = dS k)
     enter a bf16 product after float32 softmax. Rounded to one bf16 term they
     miss the elementwise tolerances that chip_smoke.py holds the kernels to (O:
     2^-7 |O| + 1e-4; gradients: 2^-7 |g| + 1e-3 mean|g|) several times over;
     as hi + lo they keep under half of them. The result is rounded to bf16
     once, as the kernels store it."""
-    tq, tk, h, d = (128, 256, 1, 512) if product.endswith("512") else (256, 77, 2, 64)
+    tq, tk, h, d = ((128, 256, 1, int(product[2:])) if product[2:].isdigit()
+                    else (256, 77, 2, 64))
     rng = np.random.default_rng(0)
     q, k, v, do = (
         _bf16(torch.from_numpy(rng.standard_normal((h, t, d), dtype=np.float32)))
@@ -181,7 +215,7 @@ def test_bf16_probabilities_need_two_terms(product):
         "dv": (p.transpose(1, 2), do, p.transpose(1, 2) @ do),
         "dk": (ds.transpose(1, 2), q, ds.transpose(1, 2) @ q),
         "dq": (ds, k, ds @ k),
-    }[product.removesuffix("512")]
+    }[product[:2]]
     atol = 1e-4 if product.startswith("pv") else 1e-3 * ref.abs().mean().item()
 
     def share(rounded):

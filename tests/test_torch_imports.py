@@ -261,7 +261,8 @@ def test_kernel_wrappers_do_not_build_on_import(fresh_process):
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_tc.cu",
         "flash_attention_wide_tc.cu", "flash_attention_dq_tc.cu",
-        "flash_attention_dkv_tc.cu", "flash_attention_wide_bwd_tc.cu", "msda_reduce.cu",
+        "flash_attention_dkv_tc.cu", "flash_attention_wide_bwd_tc.cu",
+        "flash_attention_colsplit.cu", "flash_attention_colsplit_tc.cu", "msda_reduce.cu",
         "patchify.cu",
         "quant_act.cu", "int8_conv.cu", "jv_assign.cu",
         "probe_gather.cu", "probe_stream.cu", "probe_msda_lab.cu"}

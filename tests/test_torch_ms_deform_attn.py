@@ -4,6 +4,7 @@ with sampling points pushed outside [0, 1] so the zero-padding border logic
 and the clamped patch start are exercised; the module on its ``flat`` and
 ``flatpatch`` cores against the JAX module with the same field."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -61,12 +62,17 @@ def test_module_matches_jax_flatlanes_pallas_interpret(ref_dim):
     ref = rng.uniform(-0.2, 1.2, (b, q, len(SHAPES), ref_dim)).astype(np.float32)
     if ref_dim == 4:
         ref[..., 2:] = rng.uniform(0.1, 1.5, ref[..., 2:].shape)
-    want = jm.apply(
-        {"params": params}, jnp.asarray(query), jnp.asarray(ref), jnp.asarray(value), SHAPES
-    )
+    want = _jax_apply(jm, params, query, ref, value)
     with torch.no_grad():
         got = tm(torch.from_numpy(query), torch.from_numpy(ref), torch.from_numpy(value), SHAPES)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
+
+
+def _jax_apply(jm, params, query, ref, value):
+    """The JAX module's output as one compiled program (the eager Pallas
+    interpreter runs op by op)."""
+    return jax.jit(lambda p, q, r, v: jm.apply({"params": p}, q, r, v, SHAPES))(
+        params, jnp.asarray(query), jnp.asarray(ref), jnp.asarray(value))
 
 
 @pytest.mark.parametrize("ref_dim", [2, 4])
@@ -87,9 +93,7 @@ def test_module_matches_jax_on_the_unpacked_cores(core, ref_dim):
     ref = rng.uniform(-0.2, 1.2, (b, q, len(SHAPES), ref_dim)).astype(np.float32)
     if ref_dim == 4:
         ref[..., 2:] = rng.uniform(0.1, 1.5, ref[..., 2:].shape)
-    want = jm.apply(
-        {"params": params}, jnp.asarray(query), jnp.asarray(ref), jnp.asarray(value), SHAPES
-    )
+    want = _jax_apply(jm, params, query, ref, value)
     with torch.no_grad():
         got = tm(torch.from_numpy(query), torch.from_numpy(ref), torch.from_numpy(value), SHAPES)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
@@ -126,7 +130,8 @@ def test_flatlanes_core_matches_oracles_outside_the_maps():
     loc = rng.uniform(-0.5, 1.5, (b, q, h, L, p, 2)).astype(np.float32)
     attn = rng.random((b, q, h, L, p), dtype=np.float32)
     assert ((loc < 0) | (loc > 1)).mean() > 0.3
-    want = jax_core(jnp.asarray(value), SHAPES, jnp.asarray(loc), jnp.asarray(attn))
+    want = jax.jit(jax_core, static_argnums=1)(
+        jnp.asarray(value), SHAPES, jnp.asarray(loc), jnp.asarray(attn))
     tv, tl, ta = torch.from_numpy(value), torch.from_numpy(loc), torch.from_numpy(attn)
     oracle = ms_deform_attn_core(tv, SHAPES, tl, ta)
     np.testing.assert_allclose(oracle.numpy(), np.asarray(want), atol=TOL)
@@ -138,7 +143,7 @@ def test_patchify_value_matches_jax():
     from tair_tpu.spotter.ms_deform_attn import patchify_value as jax_patchify
 
     value = np.random.default_rng(6).standard_normal((2, S, 3, 4), dtype=np.float32)
-    want = jax_patchify(jnp.asarray(value), SHAPES)
+    want = jax.jit(jax_patchify, static_argnums=1)(jnp.asarray(value), SHAPES)
     got = patchify_value(torch.from_numpy(value), SHAPES)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -151,7 +156,8 @@ def test_single_pixel_levels():
     value = rng.standard_normal((1, s, 2, 4), dtype=np.float32)
     loc = rng.uniform(-0.3, 1.3, (1, 9, 2, 3, 2, 2)).astype(np.float32)
     attn = rng.random((1, 9, 2, 3, 2), dtype=np.float32)
-    want = jax_core(jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(attn))
+    want = jax.jit(jax_core, static_argnums=1)(
+        jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(attn))
     got = ms_deform_attn_core_flatlanes(
         torch.from_numpy(value), shapes,
         *_lane_pack(torch.from_numpy(loc), torch.from_numpy(attn)),
@@ -163,8 +169,6 @@ def test_module_gradients_match_jax_flatlanes_pallas_interpret():
     """Gradients with respect to value_flatten, query and every parameter of
     the module, through the packed core and the reduce's backward, with
     sample points outside the maps."""
-    import jax
-
     jm, params, tm = _pair(seed=8)
     rng = np.random.default_rng(9)
     b, q = 2, 19
@@ -176,7 +180,7 @@ def test_module_gradients_match_jax_flatlanes_pallas_interpret():
     def loss(p, qr, vl):
         return jnp.sum(jm.apply({"params": p}, qr, jnp.asarray(ref), vl, SHAPES) * cot)
 
-    gp, gq, gv = jax.grad(loss, argnums=(0, 1, 2))(
+    gp, gq, gv = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
         params, jnp.asarray(query), jnp.asarray(value)
     )
     tm.train()

@@ -3,6 +3,8 @@ of the Pallas kernels in interpret mode against ``torch.autograd.grad``
 through the port's ``Function`` (whose backward is the plain version on the
 CPU) and against ``msda_corner_reduce_bwd_plain`` called directly."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,12 +26,16 @@ def _inputs(nq, lanes, d, k, seed=0):
     return g, ws, dout
 
 
+@functools.partial(jax.jit, static_argnums=3)
+def _jax_vjp_program(g, ws, dout, k):
+    _, vjp = jax.vjp(lambda g_, *ws_: jax_reduce(g_, *ws_, k, 32, True), g, *ws)
+    return vjp(dout)
+
+
 def _jax_vjp(g, ws, dout, k):
-    _, vjp = jax.vjp(
-        lambda g_, *ws_: jax_reduce(g_, *ws_, k, 32, True),
-        jnp.asarray(g), *(jnp.asarray(w) for w in ws),
-    )
-    return vjp(jnp.asarray(dout))
+    """The vjp of JAX's kernel in interpret mode, as one compiled program."""
+    return _jax_vjp_program(jnp.asarray(g), tuple(jnp.asarray(w) for w in ws),
+                            jnp.asarray(dout), k)
 
 
 @pytest.mark.parametrize(

@@ -41,6 +41,41 @@ def test_vae_decode(pair):
     np.testing.assert_allclose(t2n(got), np.asarray(want), atol=TOL)
 
 
+def test_vae_wide_middle_attention_matches_jax():
+    """A VAEConfig whose middle width ch * ch_mult[-1] passes 512 (160 x 4 =
+    640: the middle attention's single head is wider than the D = 512
+    kernels, and on the card runs on the column-split ones): the port builds
+    it, and its encode and decode match the JAX VAE's on the same noise
+    parameters, handed over through ``from_jax_params``."""
+    from tair_tpu.models.vae import VAEConfig as JaxVAEConfig
+    from tair_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from tair_tpu_torch.weights.convert import from_jax_params, module_param_shapes
+    from test_torch_common import noise_params
+
+    cfg = dict(ch=160, ch_mult=(1, 4), num_res_blocks=1)
+    vae = AutoencoderKL(VAEConfig(**cfg)).eval()
+    params = noise_params(module_param_shapes(vae), seed=26)
+    state = from_jax_params({"vae": params})
+    vae.load_state_dict({k.removeprefix("cldm.vae."): v for k, v in state.items()}, strict=True)
+    jvae = JaxVAE(JaxVAEConfig(**cfg))
+    rng = np.random.default_rng(27)
+    img = rng.uniform(-1, 1, (1, 16, 16, 3)).astype(np.float32)
+    z = rng.standard_normal((1, 8, 8, 4), dtype=np.float32)
+    # encode and decode as one JAX program: one compilation
+    mean_j, logvar_j, image_j = jax.jit(lambda p, x, z: (
+        *jvae.apply({"params": p}, x, method=JaxVAE.encode_moments),
+        jvae.apply({"params": p}, z, method=JaxVAE.decode),
+    ))(params, img, z)
+    with torch.no_grad():
+        mean_t, logvar_t = vae.encode_moments(torch.from_numpy(img))
+        image_t = vae.decode(torch.from_numpy(z))
+    assert vae.encoder.mid_attn.q.out_channels == 640
+    np.testing.assert_allclose(t2n(mean_t), np.asarray(mean_j), atol=TOL)
+    np.testing.assert_allclose(t2n(logvar_t), np.asarray(logvar_j), atol=TOL)
+    assert tuple(image_t.shape) == (1, 16, 16, 3)
+    np.testing.assert_allclose(t2n(image_t), np.asarray(image_j), atol=TOL)
+
+
 def test_vae_encode_sample_draws_from_generator(pair):
     _, _, tm = pair
     img = torch.from_numpy(
